@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of the RQM federated-learning system in ``repro``.
+
+The JAX package ``repro`` is the reference; this package reproduces its
+main path — one synchronous round of Algorithm 1 on the EMNIST task with
+the fused RQM encode+sum and the fused unpack+decode+SGD apply — in
+PyTorch, with hand-written CUDA kernels for Hopper (``kernels/csrc``).
+
+Every kernel wrapper takes its plain PyTorch version for CPU tensors and
+launches its CUDA kernel for CUDA tensors. Layout mirrors ``repro``:
+``repro_torch/core/grid.py`` is the counterpart of ``repro/core/grid.py``
+and so on. Nothing here imports JAX or ``repro``.
+"""

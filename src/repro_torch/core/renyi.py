@@ -1,0 +1,105 @@
+"""Renyi-DP accounting, RQM half (counterpart of ``repro/core/renyi.py``).
+
+Numerically exact on the discrete outcome pmfs (float64, log space), as
+in the paper's Section 6.1. The reference's disk-backed privacy cache
+is replaced by an in-process memo of ``rqm_aggregate_epsilon``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Sequence
+
+import numpy as np
+
+from repro_torch.core.distribution import aggregate_distribution, rqm_outcome_distribution
+from repro_torch.core.grid import RQMParams
+
+_EPS = 1e-300
+
+
+def renyi_divergence(p: np.ndarray, q: np.ndarray, alpha: float) -> float:
+    """D_alpha(P || Q) for discrete pmfs on a shared support (alpha = 1 is
+    KL, alpha = inf the max log-ratio)."""
+    p = np.asarray(p, dtype=np.float64)
+    q = np.asarray(q, dtype=np.float64)
+    if p.shape != q.shape:
+        raise ValueError(f"support mismatch {p.shape} vs {q.shape}")
+    if np.any((q <= 0) & (p > 0)):
+        return math.inf
+    mask = p > 0
+    logp = np.log(np.where(mask, p, 1.0))
+    logq = np.log(np.clip(q, _EPS, None))
+    if math.isinf(alpha):
+        return float(np.max(np.where(mask, logp - logq, -np.inf)))
+    if abs(alpha - 1.0) < 1e-12:
+        return float(np.sum(np.where(mask, p * (logp - logq), 0.0)))
+    if alpha <= 0:
+        raise ValueError(f"alpha must be > 0, got {alpha}")
+    terms = np.where(mask, alpha * logp + (1.0 - alpha) * logq, -np.inf)
+    mx = np.max(terms)
+    lse = mx + np.log(np.sum(np.exp(terms - mx)))
+    return float(lse / (alpha - 1.0))
+
+
+def worst_case_inputs(c: float, n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """The paper's worst-case neighbouring inputs (Sec 6.1): x_1 = c,
+    x'_1 = -c, and x_2..x_n i.i.d. uniform over {-c, +c}, shared."""
+    rng = np.random.default_rng(seed)
+    rest = rng.choice([-c, c], size=n - 1) if n > 1 else np.zeros(0)
+    return np.concatenate([[c], rest]), np.concatenate([[-c], rest])
+
+
+@functools.lru_cache(maxsize=None)
+def _rqm_aggregate_epsilon(params: RQMParams, n: int, alpha: float, seed: int) -> float:
+    x, xp = worst_case_inputs(params.c, n, seed)
+    pmf = lambda v: rqm_outcome_distribution(float(v), params)
+    return renyi_divergence(aggregate_distribution([pmf(v) for v in x]),
+                            aggregate_distribution([pmf(v) for v in xp]), alpha)
+
+
+def rqm_aggregate_epsilon(params: RQMParams, n: int, alpha: float, seed: int = 0) -> float:
+    """Worst-case aggregate Renyi-DP epsilon of RQM with n devices
+    (memoized per (params, n, alpha, seed))."""
+    return _rqm_aggregate_epsilon(params, int(n), float(alpha), int(seed))
+
+
+def rdp_to_dp(total_eps, alphas, delta: float) -> tuple[float, float]:
+    """Best (eps, alpha) conversion of a composed RDP vector to
+    (eps, delta)-DP: eps_RDP + log(1/delta)/(alpha - 1) (Mironov 2017,
+    Prop. 3), minimized over the tracked alphas."""
+    best_eps, best_alpha = math.inf, None
+    for a, e in zip(alphas, total_eps):
+        if a <= 1.0:
+            continue
+        eps = e + math.log(1.0 / delta) / (a - 1.0)
+        if eps < best_eps:
+            best_eps, best_alpha = eps, a
+    return best_eps, best_alpha
+
+
+@dataclasses.dataclass
+class RenyiAccountant:
+    """Cumulative Renyi-DP over composed rounds: each ``step`` adds one
+    round's per-alpha eps vector."""
+
+    alphas: tuple[float, ...] = (1.5, 2.0, 3.0, 4.0, 8.0, 16.0, 32.0, 64.0)
+
+    def __post_init__(self):
+        self._eps = np.zeros(len(self.alphas), dtype=np.float64)
+        self.rounds = 0
+
+    def step(self, per_round_eps: Sequence[float]) -> None:
+        per_round_eps = np.asarray(per_round_eps, dtype=np.float64)
+        if per_round_eps.shape != self._eps.shape:
+            raise ValueError("per_round_eps must align with self.alphas")
+        self._eps += per_round_eps
+        self.rounds += 1
+
+    def rdp_epsilon(self, alpha: float) -> float:
+        return float(self._eps[self.alphas.index(alpha)])
+
+    def dp_epsilon(self, delta: float) -> tuple[float, float]:
+        """Best (eps, alpha) conversion to (eps, delta)-DP."""
+        return rdp_to_dp(self._eps, self.alphas, delta)

@@ -1,0 +1,134 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and launch them via ctypes.
+
+Each ``.cu`` file compiles into its own shared library with a plain C
+interface: no PyTorch headers, so a build takes seconds. Builds run on
+first use (never at import), one nvcc process per source, all started
+together, into ``BUILD_DIR`` (ignored by git), under a name that hashes
+the sources and the flags, so an edited source is rebuilt.
+
+Flags: ``sm_90a`` (Hopper), and ``-fmad=false`` so no multiply-add is
+contracted into an FMA: the kernels then give the same float32 bits as
+their plain PyTorch versions and as the JAX reference.
+
+``launches`` counts kernel launches by name. ``launch`` is the one place
+that adds to it, right after a launch that the runtime accepted.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
+SOURCES = {"round_sum": "round_sum.cu", "decode_apply": "decode_apply.cu"}
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+launches: collections.Counter = collections.Counter()
+
+_libs: dict = {}
+_funcs: dict = {}
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def nvcc() -> str:
+    """Path of nvcc: ``$CUDA_HOME/bin``, then ``PATH``, then /usr/local/cuda."""
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=tuple(SOURCES)) -> dict:
+    """Compile every library of ``names`` that is not built yet, all in
+    parallel. Returns ``{name: nvcc output}`` (ptxas register and spill
+    report) for the ones it compiled; raises with nvcc's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, path)
+    logs, failed = {}, []
+    for name, (proc, tmp, path) in started.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed on {SOURCES[name]}:\n{out}")
+            continue
+        os.replace(tmp, path)
+        logs[name] = out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def _function(lib: str, fn: str, argtypes):
+    key = (lib, fn)
+    if key not in _funcs:
+        if lib not in _libs:
+            build([lib])
+            _libs[lib] = ctypes.CDLL(str(library_path(lib)))
+            err = getattr(_libs[lib], f"{lib}_error_string")
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        f = getattr(_libs[lib], fn)
+        f.argtypes, f.restype = list(argtypes), ctypes.c_int
+        _funcs[key] = f
+    return _funcs[key]
+
+
+def launch(lib: str, fn: str, argtypes, *args) -> None:
+    """Launch C entry ``fn`` of library ``lib`` (it enqueues its kernel on
+    the stream passed last and returns ``cudaGetLastError()``); raise if
+    the launch was refused, else count it under ``fn``."""
+    rc = _function(lib, fn, argtypes)(*args)
+    if rc:
+        msg = getattr(_libs[lib], f"{lib}_error_string")(rc).decode()
+        raise RuntimeError(f"CUDA kernel {fn} failed to launch: {msg} ({rc})")
+    launches[fn] += 1
+
+
+def check_cuda(name: str, t, dtype) -> None:
+    """Validate a kernel operand: a contiguous CUDA tensor of ``dtype``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+U32 = ctypes.c_uint32
+F32 = ctypes.c_float

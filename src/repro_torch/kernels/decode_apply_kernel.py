@@ -1,0 +1,67 @@
+"""Fused server decode + SGD apply on the dense SecAgg sum.
+
+Counterpart of ``repro/kernels/decode_apply_kernel.py:decode_apply_sum``
+(its Pallas kernel ``_sum_kernel``)::
+
+    g = -x_max + z * scale;   w' = w - lr * g,   scale = 2 x_max / (n (m-1))
+
+the literal operations of ``grid.decode_sum`` followed by SGD. Every
+scalar is the reference's Python double rounded once to float32. CUDA
+kernel in ``csrc/decode_apply.cu`` for CUDA tensors; plain version on
+the CPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.grid import GridGeometry, decode_scale
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import F32, I32, P
+
+_ARGS = (P, P, P, I32, F32, F32, F32, P)
+
+
+def f32_decode_constants(params: GridGeometry, n: int, lr: float) -> dict:
+    return {
+        "neg_x_max": float(np.float32(-params.x_max)),
+        "scale": float(np.float32(decode_scale(n, params))),
+        "lr": float(np.float32(lr)),
+    }
+
+
+def decode_apply_plain(w: torch.Tensor, z: torch.Tensor, params: GridGeometry,
+                       n: int, lr: float) -> torch.Tensor:
+    """Plain version: the elementwise expression on (dim,) ``w`` and an
+    int32 level sum ``z`` of the same length."""
+    k = f32_decode_constants(params, n, lr)
+    g = k["neg_x_max"] + z.to(torch.float32) * k["scale"]
+    return w - k["lr"] * g
+
+
+def check_apply_args(w: torch.Tensor, n: int):
+    if w.ndim != 1 or w.numel() < 1:
+        raise ValueError(f"w must be a non-empty flat vector, got {tuple(w.shape)}")
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"cohort size n must be a positive int, got {n!r}")
+
+
+def decode_apply_sum(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
+                     n: int, lr: float) -> torch.Tensor:
+    """Updated (dim,) float32 params from the dense (dim,) int32 sum."""
+    check_apply_args(w, n)
+    if z_sum.shape != w.shape:
+        raise ValueError(f"z_sum must be {tuple(w.shape)}, got {tuple(z_sum.shape)}")
+    if not w.is_cuda:
+        return decode_apply_plain(w, z_sum, params, n, lr)
+    _build.check_cuda("w", w, torch.float32)
+    _build.check_cuda("z_sum", z_sum, torch.int32)
+    out = torch.empty_like(w)
+    k = f32_decode_constants(params, n, lr)
+    with torch.cuda.device(w.device):
+        _build.launch(
+            "decode_apply", "decode_apply_sum", _ARGS,
+            w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(),
+            k["neg_x_max"], k["scale"], k["lr"], _build.stream_of(w),
+        )
+    return out
