@@ -8,23 +8,36 @@ Run from the repository root on a machine with an NVIDIA Hopper card
 which raises and exits non-zero:
 
   1. environment: torch, CUDA, the card's name and power limit;
-  2. build: nvcc compiles src/repro_torch/kernels/csrc into build/cuda;
+  2. build: nvcc compiles src/repro_torch/kernels/csrc into build/cuda,
+     one process per source, all at once;
   3. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at the main path's shapes (a cohort of 40 rows, the CNN's
-     222,030 coordinates, 10-bit fields, 74,010 packed words): results
-     bit-exact; device times from torch.profiler, whole-call times by
-     CUDA events, and the least time the card could take (its bound),
-     each printed as one JSON line after phase 4 with its launches;
-  4. main path: 5 rounds of the paper's EMNIST configuration through
-     FedTrainer on the card, checked by the kernels' launch counters, the
-     accountant and finite parameters; then the same 5 rounds with the
-     dense (unpacked) wire, which must give identical parameters;
-  5. profile: device time by kernel over 3 more packed rounds (table in
-     build/round_profile.txt).
+     card, at the main paths' shapes (a cohort of 40 rows, the CNN's
+     222,030 coordinates, 10-bit fields, 74,010 packed words; the quantize
+     kernels at row offset 0 and 7): results bit-exact; device times from
+     torch.profiler (or, should no profiling session hold the kernel, by
+     CUDA events around calls queued behind a sleeping kernel), whole-call
+     times by CUDA events, and the least time
+     the card could take (its bound), each printed as one JSON line after
+     phase 7 with its launches;
+  4. fused path: 5 rounds of the paper's EMNIST configuration through
+     FedTrainer with fused rounds and the packed wire, then the same 5
+     rounds with the dense wire, which must give identical parameters;
+  5. default path: ``FedTrainer(spec, FedConfig())``, the reference's
+     default round (materialized, scan engine), 5 rounds for each Fig. 3
+     mechanism (rqm, pbm, qmgeo, none); each must launch one quantize
+     kernel per round and equal, bit for bit, the same rounds on the
+     perround engine and with fused rounds (packed and dense);
+  6. profile: device time by kernel over 3 more rounds of each default
+     trainer and of the fused packed one (tables in build/profiles/);
+  7. Fig. 3 report: held-out accuracy and Renyi eps at alpha=8 after 120
+     default rounds of benchmarks/fig3_fl_emnist.py's FED settings, and
+     whether noise-free >= RQM >= PBM held (reported, not gated).
 
-The second-last lines are one JSON object of per-kernel measurements and
-the card's name and power limit; the last line is the run's result.
-Exits non-zero, printing no result, when CUDA is unavailable.
+Every run of phases 4 and 5 sets the kernels' launch counters to 0 just
+before it and reads them just after. The second-last lines are one JSON
+object of per-kernel measurements and the card's name and power limit;
+the last line is the run's result. Exits non-zero, printing no result,
+when CUDA is unavailable.
 """
 from __future__ import annotations
 
@@ -38,31 +51,44 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# deterministic cuBLAS, so the packed and dense runs compute identical
+# deterministic cuBLAS, so runs that must agree compute identical
 # gradients; must be set before CUDA is initialised
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROWS, DIM, BITS = 40, 222_030, 10  # cohort, flat CNN dimension, sum field width
-MECH_SPEC = "rqm:c=0.02,m=16,q=0.42"
+ROW_OFFSET = 7  # the quantize kernels' second check
+SPECS = {
+    "rqm": "rqm:c=0.02,m=16,q=0.42",
+    "pbm": "pbm:c=0.02,m=16,theta=0.25",
+    "qmgeo": "qmgeo:c=0.02,m=16,r=0.6",
+    "none": "none:c=0.02",
+}
 ROUNDS = 5
+PROFILE_ROUNDS = 3
 KERNEL_REPS = 30
 PLAIN_REPS = 5
+PROFILE_TRIES = 3
+# benchmarks/fig3_fl_emnist.py:33-34
+FIG3_ROUNDS = 120
+FIG3_FED = dict(num_clients=300, clients_per_round=20, lr=1.0, eval_size=800,
+                samples_per_client=20, data_noise=1.5, data_deform=1.2)
 
-# H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3; 67 TFLOP/s of
-# float32 outside the tensor cores = 132 SMs x 128 FP32 lanes x 2 x 1.98 GHz.
-# Integer work is bounded by instruction issue: each of an SM's 4
-# schedulers issues one 32-lane instruction per clock, and the shifts,
-# xors and compares (ALU pipe) and the multiplies and adds (IMAD, which
-# can also do the right shifts) run on separate pipes, so no single
-# 64-lane pipe binds tighter than issue.
+# H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3. Integer work is
+# bounded by instruction issue: each of an SM's 4 schedulers issues one
+# 32-lane instruction per clock, and the shifts, xors and compares (ALU
+# pipe) and the multiplies and adds (IMAD, which can also do the right
+# shifts) run on separate pipes, so no single 64-lane pipe binds tighter
+# than issue. expf issues one MUFU.EX2 on the special-function units, 16
+# results per SM per clock (CUDA programming guide, compute capability 9.0).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+MUFU_OPS_PER_S = 132 * 16 * 1.98e9
 # integer operations counted per needed splitmix32 draw: the add of the
 # stream salt and mix32's first two rounds (a shift, a xor and a multiply
 # each). Not counted, so the bound stays below the least time: mix32's
 # last shift-xor (it leaves the top 16 bits as they are, and they decide
-# u < q but for 1 draw in 65,536), the compare, and every per-element
-# step (clip, the two IEEE divisions, the level arithmetic, the sum).
+# u < p but for 1 draw in 65,536), the compare, and every per-element
+# step (clip, the IEEE divisions, the level arithmetic, the sum).
 INT_OPS_PER_DRAW = 7
 
 
@@ -78,7 +104,7 @@ def nvidia_smi() -> str:
 
 
 def time_ms(torch, fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Median time of ``fn`` over ``reps`` calls, by CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -93,61 +119,130 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int, kernel: str):
-    """Mean device time per call of the kernel whose name contains
-    ``kernel``, from torch.profiler's CUDA trace over ``reps`` calls; None
-    when the trace holds no device time for it. Unlike CUDA events around
-    each call, this leaves out the wrapper's host time, which is longer
-    than the short elementwise kernels."""
+def queued_ms(torch, fn, reps: int) -> float:
+    """Mean device time per call of ``fn`` by CUDA events around ``reps``
+    calls queued behind a sleeping kernel: the host enqueues them all
+    while the card sleeps, so they run back to back and the events hold
+    no host time, only the gaps between launches."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the card's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, symbol: tuple) -> tuple[float, str]:
+    """Mean device time per call of the kernel whose name holds every
+    string of ``symbol``, and how it was measured. Unlike CUDA events
+    around each call, torch.profiler's CUDA trace over ``reps`` calls
+    leaves out the wrapper's host time, which is longer than the short
+    elementwise kernels. A profiling session's trace can come back
+    without the kernel's records, so up to PROFILE_TRIES sessions are
+    made; when none holds them, the time is ``queued_ms``'s."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
-    return total_us / reps / 1e3 if total_us else None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if all(s in e.key for s in symbol))
+        if total_us:
+            return total_us / reps / 1e3, "profiler"
+    return queued_ms(torch, fn, reps), "events"
 
 
-def bound(nbytes: int, int_ops: int) -> tuple[float, str]:
+def bound(nbytes: int, int_ops: int = 0, mufu_ops: int = 0) -> tuple[float, str]:
+    """The larger of the bytes over HBM's rate and the operations over
+    their pipes' rates (integer issue and MUFU overlap: the larger binds)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = int_ops / INT_OPS_PER_S * 1e3
+    t_ops = max(int_ops / INT_OPS_PER_S, mufu_ops / MUFU_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def needed_draws(torch, x, seed: int, params) -> int:
+def rqm_needed_draws(torch, x, seed: int, params) -> int:
     """splitmix32 draws that the RQM encode of this (rows, dim) x, at row
     offset 0, needs: from each element's bin j, the interior levels down
     (j, j-1, .., 1) and up (j+1, .., m-2) only as far as the nearest kept
     level on each side, and the rounding draw unless p_up is 0 or 1. The
     kernels draw all m-2 keep streams: that is their algorithm, not work
     the function needs."""
+    from repro_torch.kernels.quantize import batch_counters
     from repro_torch.kernels.rqm_kernel import rqm_bracket
 
     m = params.m
     rows, dim = x.shape
-    cols = torch.arange(dim, dtype=torch.int64, device=x.device)
     total = 0
     for r in range(rows):
-        j, i_lo, i_hi, p_up = rqm_bracket(x[r], seed, r * dim + cols, params)
+        counter = batch_counters(r, 1, dim, 0, x.device)[0]
+        j, i_lo, i_hi, p_up = rqm_bracket(x[r], seed, counter, params)
         down = torch.where(i_lo > 0, j - i_lo + 1, j)
         up = torch.where(i_hi < m - 1, i_hi - j, m - 2 - j)
         total += int((down + up).sum()) + int(((p_up > 0) & (p_up < 1)).sum())
     return total
 
 
+def pbm_needed_draws(torch, x, params) -> int:
+    """PBM's count of successes needs all m trials of every element whose
+    p is strictly inside (0, 1)."""
+    c = torch.tensor(params.c, dtype=torch.float32, device=x.device)
+    p = 0.5 + params.theta * x.clamp(-params.c, params.c) / c
+    return params.m * int(((p > 0) & (p < 1)).sum())
+
+
+def qmgeo_needed_work(torch, x, seed: int, params) -> tuple[int, int]:
+    """(splitmix32 draws, expf) that the QMGeo encode of this (rows, dim)
+    x, at row offset 0, needs: the noise draw, the rounding draw unless
+    p_up is 0 or 1; and one exp for each distinct |k - j| the walk reaches
+    before it can stop (k up to the output level z, or m-2 when z is
+    clamped at m-1) together with the normaliser's j+1 and m-1-j."""
+    from repro_torch.core.qmgeo import round_to_level
+    from repro_torch.kernels.prng import random_uniform
+    from repro_torch.kernels.qmgeo_kernel import qmgeo_encode_counters
+    from repro_torch.kernels.quantize import batch_counters
+
+    m = params.m
+    rows, dim = x.shape
+    draws = exps = 0
+    for r in range(rows):
+        counter = batch_counters(r, 1, dim, 0, x.device)[0]
+        j, p_up = round_to_level(x[r], random_uniform(seed, counter, 0), params)
+        z = qmgeo_encode_counters(x[r], seed, counter, params)
+        last = z.clamp(max=m - 2)
+        for d in range(m + 1):
+            walked = (((j + d <= last) & (j + d <= m - 1))
+                      | ((j - d >= 0) & (j - d <= last)))
+            exps += int((walked | (j + 1 == d) | (m - 1 - j == d)).sum())
+        draws += dim + int(((p_up > 0) & (p_up < 1)).sum())
+    return draws, exps
+
+
 def check_kernels(torch, np):
-    """Phase 3: every kernel against its plain version at the main path's
+    """Phase 3: every kernel against its plain version at the main paths'
     shapes. Returns one record per kernel, without its launches."""
     from repro_torch.core import wire
     from repro_torch.core.mechanisms import make_mechanism
-    from repro_torch.kernels import decode_apply_kernel, fused_round_kernel, pack_kernel
+    from repro_torch.kernels import (
+        decode_apply_kernel,
+        fused_round_kernel as frk,
+        pack_kernel,
+        pbm_kernel,
+        qmgeo_kernel,
+        rqm_kernel,
+    )
 
-    params = make_mechanism(MECH_SPEC).params
+    params = {name: make_mechanism(SPECS[name]).params for name in ("rqm", "pbm", "qmgeo")}
     rng = np.random.default_rng(2024)
-    c = params.c
+    c = params["rqm"].c
     x = torch.from_numpy(
         rng.uniform(-1.2 * c, 1.2 * c, size=(ROWS, DIM)).astype(np.float32)).cuda()
     w = torch.ones(ROWS, dtype=torch.int32, device="cuda")
@@ -155,149 +250,229 @@ def check_kernels(torch, np):
     words = wire.packed_words(DIM, BITS)
     params_w = torch.from_numpy(rng.normal(0, 0.05, DIM).astype(np.float32)).cuda()
     n, lr = ROWS, 0.5
-    draws = needed_draws(torch, x, seed, params)
-    log(f"[kernels] needed draws {draws}: {draws / x.numel()} per element "
-        f"(the kernels make {params.m - 1})")
+    elems = x.numel()
+    draws = {"rqm": rqm_needed_draws(torch, x, seed, params["rqm"]),
+             "pbm": pbm_needed_draws(torch, x, params["pbm"])}
+    draws["qmgeo"], qmgeo_exps = qmgeo_needed_work(torch, x, seed, params["qmgeo"])
+    log(f"[kernels] needed per element: draws rqm {draws['rqm'] / elems} "
+        f"pbm {draws['pbm'] / elems} qmgeo {draws['qmgeo'] / elems}, "
+        f"qmgeo expf {qmgeo_exps / elems} (the kernels make 15, 16, 2 draws "
+        f"and 18 expf)")
+    mufu = {"rqm": 0, "pbm": 0, "qmgeo": qmgeo_exps}
 
-    dense = fused_round_kernel.round_sum(x, w, seed, 0, params)
-    packed = fused_round_kernel.round_sum_packed(x, w, seed, 0, params, BITS)
-    cases = [
-        dict(name="round_sum_dense", entry="rqm_round_sum_dense",
-             symbol="round_sum_dense_kernel",
-             source="src/repro_torch/kernels/csrc/round_sum.cu",
-             replaces="src/repro/kernels/fused_round_kernel.py:101",
-             kernel=lambda: fused_round_kernel.round_sum(x, w, seed, 0, params),
-             plain=lambda: fused_round_kernel.round_sum_plain(x, w, seed, 0, params),
-             nbytes=x.numel() * 4 + ROWS * 4 + DIM * 4, int_ops=draws * INT_OPS_PER_DRAW),
-        dict(name="round_sum_packed", entry="rqm_round_sum_packed",
-             symbol="round_sum_packed_kernel",
-             source="src/repro_torch/kernels/csrc/round_sum.cu",
-             replaces="src/repro/kernels/fused_round_kernel.py:227",
-             kernel=lambda: fused_round_kernel.round_sum_packed(x, w, seed, 0, params, BITS),
-             plain=lambda: fused_round_kernel.round_sum_packed_plain(
-                 x, w, seed, 0, params, BITS),
-             nbytes=x.numel() * 4 + ROWS * 4 + words * 4, int_ops=draws * INT_OPS_PER_DRAW),
-        dict(name="decode_apply_sum", entry="decode_apply_sum",
-             symbol="decode_apply_sum_kernel",
+    dense = frk.round_sum(x, w, seed, 0, params["rqm"])
+    packed = frk.round_sum_packed(x, w, seed, 0, params["rqm"], BITS)
+    in_bytes = elems * 4
+    cases = []
+    quantize = {"rqm": (rqm_kernel.rqm_quantize, rqm_kernel.rqm_quantize_plain, "RQMEncoder",
+                        "src/repro/kernels/rqm_kernel.py:120"),
+                "pbm": (pbm_kernel.pbm_quantize, pbm_kernel.pbm_quantize_plain, "PBMEncoder",
+                        "src/repro/kernels/pbm_kernel.py:53"),
+                "qmgeo": (qmgeo_kernel.qmgeo_quantize, qmgeo_kernel.qmgeo_quantize_plain,
+                          "QMGeoEncoder", "src/repro/kernels/qmgeo_kernel.py:59")}
+    for name, (kernel, plain, encoder, replaces) in quantize.items():
+        p = params[name]
+        # row offset ROW_OFFSET here; the case below checks offset 0
+        got, want = kernel(x, seed, p, ROW_OFFSET), plain(x, seed, p, ROW_OFFSET)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}_quantize at row offset {ROW_OFFSET}: "
+                                 f"{int((got != want).sum())} of {got.numel()} levels "
+                                 f"differ from its plain version")
+        cases.append(dict(
+            name=f"{name}_quantize", symbol=("quantize_kernel", encoder),
+            source="src/repro_torch/kernels/csrc/quantize.cu", replaces=replaces,
+            kernel=lambda k=kernel, p=p: k(x, seed, p, 0),
+            plain=lambda k=plain, p=p: k(x, seed, p, 0),
+            nbytes=in_bytes * 2, int_ops=draws[name] * INT_OPS_PER_DRAW, mufu_ops=mufu[name]))
+    dense_bytes = in_bytes + ROWS * 4 + DIM * 4
+    packed_bytes = in_bytes + ROWS * 4 + words * 4
+    for name, encoder in (("rqm", "RQMEncoder"), ("pbm", "PBMEncoder"),
+                          ("qmgeo", "QMGeoEncoder")):
+        p = params[name]
+        cases.append(dict(
+            name=f"{name}_round_sum_dense", symbol=("round_sum_dense_kernel", encoder),
+            source="src/repro_torch/kernels/csrc/round_sum.cu",
+            replaces="src/repro/kernels/fused_round_kernel.py:101",
+            kernel=lambda p=p, e=name: frk.round_sum(x, w, seed, 0, p, e),
+            plain=lambda p=p, e=name: frk.round_sum_plain(x, w, seed, 0, p, e),
+            nbytes=dense_bytes, int_ops=draws[name] * INT_OPS_PER_DRAW, mufu_ops=mufu[name]))
+        if name in frk.PACKED_KERNELS:
+            cases.append(dict(
+                name=f"{name}_round_sum_packed", symbol=("round_sum_packed_kernel", encoder),
+                source="src/repro_torch/kernels/csrc/round_sum.cu",
+                replaces="src/repro/kernels/fused_round_kernel.py:227",
+                kernel=lambda p=p, e=name: frk.round_sum_packed(x, w, seed, 0, p, BITS, e),
+                plain=lambda p=p, e=name: frk.round_sum_packed_plain(x, w, seed, 0, p, BITS, e),
+                nbytes=packed_bytes, int_ops=draws[name] * INT_OPS_PER_DRAW,
+                mufu_ops=mufu[name]))
+    rqm_params = params["rqm"]
+    cases += [
+        dict(name="decode_apply_sum", symbol=("decode_apply_sum_kernel",),
              source="src/repro_torch/kernels/csrc/decode_apply.cu",
              replaces="src/repro/kernels/decode_apply_kernel.py:103",
-             kernel=lambda: decode_apply_kernel.decode_apply_sum(params_w, dense, params, n, lr),
+             kernel=lambda: decode_apply_kernel.decode_apply_sum(
+                 params_w, dense, rqm_params, n, lr),
              plain=lambda: decode_apply_kernel.decode_apply_plain(
-                 params_w, dense, params, n, lr),
-             nbytes=DIM * 12, int_ops=0),
-        dict(name="unpack_decode_apply", entry="unpack_decode_apply",
-             symbol="unpack_decode_apply_kernel",
+                 params_w, dense, rqm_params, n, lr),
+             nbytes=DIM * 12),
+        dict(name="unpack_decode_apply", symbol=("unpack_decode_apply_kernel",),
              source="src/repro_torch/kernels/csrc/decode_apply.cu",
              replaces="src/repro/kernels/pack_kernel.py:138",
              kernel=lambda: pack_kernel.unpack_decode_apply(
-                 params_w, packed, params, n, lr, pack_bits=BITS),
+                 params_w, packed, rqm_params, n, lr, pack_bits=BITS),
              plain=lambda: pack_kernel.unpack_decode_apply_plain(
-                 params_w, packed, params, n, lr, pack_bits=BITS),
-             nbytes=DIM * 8 + words * 4, int_ops=0),
+                 params_w, packed, rqm_params, n, lr, pack_bits=BITS),
+             nbytes=DIM * 8 + words * 4),
     ]
     records = []
     for case in cases:
         got, want = case["kernel"](), case["plain"]()
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.equal(got, want):
-            raise AssertionError(f"{case['name']}: kernel differs from its plain version")
-        if case["name"] == "round_sum_packed" and not torch.equal(got, wire.pack_bits(dense, BITS)):
-            raise AssertionError("round_sum_packed differs from pack_bits(round_sum_dense)")
+            differ = int((got != want).sum()) if got.shape == want.shape else "all"
+            raise AssertionError(f"{case['name']}: {differ} of {want.numel()} outputs "
+                                 f"differ from its plain version")
+        if case["name"].endswith("_round_sum_packed"):
+            enc = case["name"].split("_")[0]
+            if not torch.equal(got, wire.pack_bits(frk.round_sum(x, w, seed, 0, params[enc],
+                                                                 enc), BITS)):
+                raise AssertionError(f"{case['name']} differs from pack_bits of the dense sum")
+        if case["name"].endswith("_quantize"):
+            enc = case["name"].split("_")[0]
+            if not torch.equal(got.sum(0, dtype=torch.int32),
+                               frk.round_sum(x, w, seed, 0, params[enc], enc)):
+                raise AssertionError(f"{case['name']}: the batch's sum differs from the "
+                                     f"round sum")
         err = float((got.double() - want.double()).abs().max())
-        bound_ms, bound_by = bound(case["nbytes"], case["int_ops"])
-        dev_ms = device_ms(torch, case["kernel"], KERNEL_REPS, case["symbol"])
-        if dev_ms is None:
-            raise AssertionError(
-                f"{case['name']}: the profiler trace holds no device time "
-                f"for {case['symbol']}")
+        bound_ms, bound_by = bound(case["nbytes"], case.get("int_ops", 0),
+                                   case.get("mufu_ops", 0))
+        dev_ms, ms_by = device_ms(torch, case["kernel"], KERNEL_REPS, case["symbol"])
         records.append({
             "name": case["name"], "route": "cuda", "source": case["source"],
-            "replaces": case["replaces"], "entry": case["entry"],
-            "max_abs_err": err,
-            "ms": dev_ms,
+            "replaces": case["replaces"], "max_abs_err": err,
+            "ms": dev_ms, "ms_by": ms_by,
             # the whole wrapper call, host side included, by CUDA events
             "call_ms": time_ms(torch, case["kernel"], KERNEL_REPS),
             "plain_ms": time_ms(torch, case["plain"], PLAIN_REPS),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # no single PyTorch call computes the RQM encode + sum or the
-            # decode-then-SGD association
+            # no single PyTorch call computes a mechanism's encode (+ sum)
+            # or the decode-then-SGD association
             "library_ms": None,
         })
+        log(f"[kernels] {case['name']}: bit-exact, {dev_ms} ms on the device ({ms_by})")
     return records
 
 
-def profile_rounds(torch, tr, rounds: int) -> dict:
+def profile_rounds(torch, tr, rounds: int, tag: str) -> dict:
     """Device time by kernel over ``rounds`` more rounds of a warm
     trainer, from torch.profiler; the full table goes to
-    build/round_profile.txt (git-ignored). The busy share is summed kernel time
-    over the wall time, which the profiler itself inflates."""
+    build/profiles/<tag>.txt (git-ignored). The busy share is summed
+    kernel time over the wall time, which the profiler itself inflates."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            tr.round()
+    for _ in range(PROFILE_TRIES):  # a session's trace can come back empty
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    avgs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                tr.round()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        avgs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if avgs:
+            break
+    else:
+        raise AssertionError(f"{tag}: {PROFILE_TRIES} profiles of {rounds} rounds "
+                             f"hold no device time")
     avgs.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in avgs) / 1e3
-    out_dir = os.path.join(ROOT, "build")
+    out_dir = os.path.join(ROOT, "build", "profiles")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "round_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{tag}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     return {
-        "rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
+        "run": tag, "rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
         "device_busy_ms_per_round": busy_ms / rounds,
         "device_busy_share": busy_ms / wall_ms if wall_ms else None,
         "top_kernels_ms_per_round": {
-            e.key[:90]: e.self_device_time_total / 1e3 / rounds for e in avgs[:8]},
+            e.key[:90]: e.self_device_time_total / 1e3 / rounds for e in avgs[:6]},
     }
 
 
-def run_main_path(torch, cfg, expect: dict) -> dict:
-    """Phase 4: ROUNDS rounds through FedTrainer on the card, with the
-    launch counters set to 0 just before and read just after."""
+def run_path(torch, spec: str, cfg, expect: dict, tag: str):
+    """ROUNDS rounds through FedTrainer on the card, with the launch
+    counters set to 0 just before and read just after; checked by the
+    counters, the accountant and finite parameters. Returns the trainer
+    and the counts."""
     from repro_torch.fed.trainer import FedTrainer
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    tr = FedTrainer(MECH_SPEC, cfg, device="cuda")
+    tr = FedTrainer(spec, cfg, device="cuda")
+    advance = tr.run_block if cfg.engine == "scan" else (
+        lambda k: [tr.round() for _ in range(k)])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
     ops.reset_launches()
     t0 = time.perf_counter()
-    tr.round()
+    advance(1)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    for _ in range(ROUNDS - 1):
-        tr.round()
+    advance(ROUNDS - 1)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t1
     counts = dict(ops.launches)
 
     if counts != expect:
-        raise AssertionError(f"launch counts {counts}, expected {expect}")
+        raise AssertionError(f"{tag}: launch counts {counts}, expected {expect}")
     alpha = 8.0
     want = ROUNDS * tr.mech.per_round_epsilon(cfg.clients_per_round, alpha)
     got = tr.accountant.rdp_epsilon(alpha)
-    if not math.isclose(got, want, rel_tol=1e-12):
-        raise AssertionError(f"RDP at alpha=8 is {got}, expected {want}")
+    if not math.isclose(got, want, rel_tol=1e-12, abs_tol=0.0):
+        raise AssertionError(f"{tag}: RDP at alpha=8 is {got}, expected {want}")
     if not bool(torch.isfinite(tr.flat).all()):
-        raise AssertionError("parameters are not finite")
+        raise AssertionError(f"{tag}: parameters are not finite")
     metrics = tr.evaluate()
-    rec = {
-        "wire": "packed" if tr.pack_bits else "dense", "pack_bits": tr.pack_bits,
-        "rounds": ROUNDS, "setup_s": setup_s, "first_round_s": first_s,
-        "steady_rounds_per_s": (ROUNDS - 1) / steady_s, "launches": counts,
-        "rdp_alpha8": got, "eval_accuracy": metrics["accuracy"],
-        "eval_loss": metrics["loss"],
-    }
-    log(json.dumps(rec))
-    return {"trainer": tr, "counts": counts}
+    log(json.dumps({
+        "run": tag, "engine": cfg.engine, "fused_rounds": cfg.fused_rounds,
+        "pack_bits": tr.pack_bits, "rounds": ROUNDS, "setup_s": setup_s,
+        "first_round_s": first_s, "steady_rounds_per_s": (ROUNDS - 1) / steady_s,
+        "launches": counts, "rdp_alpha8": got, "eval_accuracy": metrics["accuracy"],
+        "eval_loss": metrics["loss"]}))
+    return tr, counts
+
+
+def same_params(torch, runs: dict, what: str) -> None:
+    (first_tag, first), *rest = runs.items()
+    for tag, tr in rest:
+        if not torch.equal(tr.flat, first.flat):
+            differ = int((tr.flat != first.flat).sum())
+            raise AssertionError(f"{what}: {tag} and {first_tag} differ in {differ} "
+                                 f"parameters")
+    log(f"[main] {what}: {', '.join(runs)} bit-identical")
+
+
+def fig3_report(torch, FedConfig) -> dict:
+    """Phase 7: accuracy and eps(alpha=8) after FIG3_ROUNDS default rounds
+    of each mechanism at benchmarks/fig3_fl_emnist.py's FED settings."""
+    from repro_torch.fed.trainer import FedTrainer
+
+    out = {}
+    for name, spec in SPECS.items():
+        t0 = time.perf_counter()
+        tr = FedTrainer(spec, FedConfig(**FIG3_FED), device="cuda")
+        hist = tr.train(rounds=FIG3_ROUNDS, eval_every=FIG3_ROUNDS, log=lambda msg: None)
+        torch.cuda.synchronize()
+        out[name] = {"accuracy": hist[-1]["accuracy"], "loss": hist[-1]["loss"],
+                     "rdp_eps_alpha8": tr.accountant.rdp_epsilon(8.0),
+                     "seconds": time.perf_counter() - t0}
+        del tr
+    acc = {k: v["accuracy"] for k, v in out.items()}
+    return {"rounds": FIG3_ROUNDS, "fed": FIG3_FED, "by_mechanism": out,
+            "noise_free_ge_rqm_ge_pbm": acc["none"] >= acc["rqm"] >= acc["pbm"]}
 
 
 def main() -> int:
@@ -335,30 +510,73 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     records = check_kernels(torch, np)
+    counts: dict = {}  # launches by entry, summed over the main-path runs
 
-    cfg = FedConfig(num_clients=3400, clients_per_round=ROWS, samples_per_client=20,
-                    lr=0.5, engine="perround", fused_rounds=True, wire_packed=None)
-    packed = run_main_path(
-        torch, cfg, {"rqm_round_sum_packed": ROUNDS, "unpack_decode_apply": ROUNDS})
-    dense = run_main_path(
-        torch, dataclasses.replace(cfg, wire_packed=False),
-        {"rqm_round_sum_dense": ROUNDS, "decode_apply_sum": ROUNDS})
-    if not torch.equal(packed["trainer"].flat, dense["trainer"].flat):
-        raise AssertionError("packed and dense wire gave different parameters")
-    log("[main] packed and dense runs: bit-identical parameters")
-    # after the counted runs: where a warm packed round spends device time
-    log(json.dumps({"round_profile": profile_rounds(torch, packed["trainer"], 3)}))
+    def run(spec, cfg, expect, tag):
+        tr, run_counts = run_path(torch, spec, cfg, expect, tag)
+        for k, v in run_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        return tr
 
-    counts = {**packed["counts"], **dense["counts"]}
+    # phase 4: the fused paper round, packed and dense wire
+    paper = FedConfig()
+    fused = dataclasses.replace(paper, engine="perround", fused_rounds=True)
+    fused_dense = dataclasses.replace(fused, wire_packed=False)
+    rqm_fused = {
+        "rqm fused packed": run(SPECS["rqm"], fused, {"rqm_round_sum_packed": ROUNDS,
+                                                      "unpack_decode_apply": ROUNDS},
+                                "rqm fused packed"),
+        "rqm fused dense": run(SPECS["rqm"], fused_dense, {"rqm_round_sum_dense": ROUNDS,
+                                                           "decode_apply_sum": ROUNDS},
+                               "rqm fused dense"),
+    }
+    same_params(torch, rqm_fused, "packed and dense wire")
+
+    # phase 5: the reference's default round for every Fig. 3 mechanism,
+    # against the perround engine and the fused rounds the mechanism has
+    fused_paths = {
+        "pbm": {"pbm fused dense": (fused, {"pbm_round_sum_dense": ROUNDS})},
+        "qmgeo": {"qmgeo fused packed": (fused, {"qmgeo_round_sum_packed": ROUNDS,
+                                                  "unpack_decode_apply": ROUNDS}),
+                  "qmgeo fused dense": (fused_dense, {"qmgeo_round_sum_dense": ROUNDS,
+                                                      "decode_apply_sum": ROUNDS})},
+    }
+    default_trainers = {}
+    for name, spec in SPECS.items():
+        expect = {} if name == "none" else {f"{name}_quantize": ROUNDS}
+        default = run(spec, paper, expect, f"{name} default")
+        perround = run(spec, dataclasses.replace(paper, engine="perround"), expect,
+                       f"{name} perround")
+        same_params(torch, {f"{name} default": default, f"{name} perround": perround},
+                    f"{name}: scan and perround")
+        others = rqm_fused if name == "rqm" else {
+            tag: run(spec, cfg, fused_expect, tag)
+            for tag, (cfg, fused_expect) in fused_paths.get(name, {}).items()}
+        if others:
+            same_params(torch, {f"{name} default": default, **others},
+                        f"{name}: materialized and fused")
+        default_trainers[name] = default
+
+    # phase 6: where a warm round spends device time
+    for name, tr in default_trainers.items():
+        log(json.dumps({"round_profile": profile_rounds(
+            torch, tr, PROFILE_ROUNDS, f"{name}_default")}))
+    log(json.dumps({"round_profile": profile_rounds(
+        torch, rqm_fused["rqm fused packed"], PROFILE_ROUNDS, "rqm_fused_packed")}))
+    del default_trainers, rqm_fused
+
+    # phase 7: the paper's comparison, reported
+    log(json.dumps({"fig3_report": fig3_report(torch, FedConfig)}))
+
     kernels = []
     for rec in records:
-        # the dense kernels run in the wire_packed=False rerun
-        launches = counts[rec.pop("entry")]
-        log(json.dumps({**rec, "launches": launches,
-                        "launches_per_round": launches / ROUNDS}))
+        launches = counts.get(rec["name"], 0)
+        if launches == 0:
+            raise AssertionError(f"{rec['name']} was never launched on a main path")
+        log(json.dumps({**rec, "launches": launches}))
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces")}
                        | {"launches": launches}
-                       | {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                       | {k: rec[k] for k in ("max_abs_err", "ms", "ms_by", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

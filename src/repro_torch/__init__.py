@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the RQM federated-learning system in ``repro``.
 
 The JAX package ``repro`` is the reference; this package reproduces its
-main path — one synchronous round of Algorithm 1 on the EMNIST task with
-the fused RQM encode+sum and the fused unpack+decode+SGD apply — in
-PyTorch, with hand-written CUDA kernels for Hopper (``kernels/csrc``).
+synchronous rounds of Algorithm 1 on the EMNIST task — RQM, PBM, QMGeo
+and noise-free clipped SGD, materialized (the reference's default) or
+with the fused encode+sum and (unpack+)decode+SGD apply — in PyTorch,
+with hand-written CUDA kernels for Hopper (``kernels/csrc``).
 
 Every kernel wrapper takes its plain PyTorch version for CPU tensors and
 launches its CUDA kernel for CUDA tensors. Layout mirrors ``repro``:

@@ -15,9 +15,10 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(arrays: dict, device="cpu") -> dict:
+def params_from_numpy(arrays: dict, device="cuda") -> dict:
     """A params dict of numpy arrays (e.g. ``jax.device_get`` of the
-    reference's params) -> float32 tensors on ``device``."""
+    reference's params) -> float32 tensors on ``device`` (the card unless
+    the caller asks for the CPU, as ``FedTrainer`` does)."""
     return {k: torch.tensor(np.asarray(v, dtype=np.float32), device=device)
             for k, v in arrays.items()}
 

@@ -1,1 +1,1 @@
-"""Mechanism, grid, wire codec and privacy accounting (RQM slice)."""
+"""Mechanisms, grid, wire codec and privacy accounting."""

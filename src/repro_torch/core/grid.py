@@ -28,6 +28,11 @@ class GridGeometry:
     def step(self) -> float:
         return 2.0 * self.x_max / (self.m - 1)
 
+    @property
+    def bits_per_coordinate(self) -> float:
+        """Client -> aggregator message size per gradient coordinate."""
+        return float(np.log2(self.m))
+
     def levels(self) -> np.ndarray:
         """B(0..m-1) as a float64 numpy array."""
         i = np.arange(self.m, dtype=np.float64)

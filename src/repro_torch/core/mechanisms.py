@@ -1,69 +1,347 @@
-"""The RQM mechanism and the mechanism spec parser (RQM slice of
+"""Registry-backed, self-accounting private quantizers (counterpart of
 ``repro/core/mechanisms.py``).
 
-``make_mechanism("rqm:c=0.02,m=16,q=0.42")`` builds an ``RQMMechanism``
-from the same spec grammar as the reference. The other registered
-families of the reference (pbm, qmgeo, none) are not ported yet.
+Each mechanism is a frozen dataclass that carries its parameters and
+answers every question the round engine has about itself: the clip-then-
+encode dispatch (``quantize_batch``, ``quantize_sum_batch``), the server
+decode (``decode_sum``), the sum bound that picks the wire width
+(``sum_bound``), and its exact per-round Renyi epsilon
+(``per_round_epsilon``). ``make_mechanism`` builds any registered
+mechanism from a name, a spec string or a dict, with the reference's
+grammar:
+
+    make_mechanism("rqm:c=0.02,m=16,q=0.42")
+    make_mechanism({"name": "pbm", "c": 0.02, "theta": 0.25})
+    make_mechanism("qmgeo", c=0.02, r=0.6)
+
+Options inline in the spec are explicit (unknown ones raise); keyword
+options are defaults (unknown ones are dropped per mechanism).
+
+Seeds replace keys: every encode takes the round's uint32 kernel seed.
+The reference's ``use_kernel=False`` path draws from ``jax.random``
+(threefry), which this package does not reimplement, so it is refused.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Union
+from typing import Callable, ClassVar, Dict, Type, Union
 
 import torch
 
-from repro_torch.core import grid
+from repro_torch.core import grid, pbm, qmgeo, wire
 from repro_torch.core.grid import RQMParams
+from repro_torch.core.pbm import PBMParams
+from repro_torch.core.qmgeo import QMGeoParams
 
-# families of the reference that this package does not carry yet
-_NOT_PORTED = {
-    "pbm": "ROADMAP.md queue A item 8 (PBM)",
-    "qmgeo": "ROADMAP.md queue A item 8 (QMGeo)",
-    "none": "ROADMAP.md queue A item 2 (the 'none' baseline)",
-}
+_REGISTRY: Dict[str, Type["Mechanism"]] = {}
 
 
-@dataclasses.dataclass(frozen=True)
-class RQMMechanism:
-    """The paper's Randomized Quantization Mechanism (Algorithm 2)."""
+def register_mechanism(name: str) -> Callable[[type], type]:
+    """Class decorator: register a Mechanism subclass under ``name``."""
 
-    params: RQMParams
+    def deco(cls: type) -> type:
+        if not (isinstance(cls, type) and issubclass(cls, Mechanism)):
+            raise TypeError(f"{cls!r} must subclass Mechanism")
+        existing = _REGISTRY.get(name)
+        if existing is not None and existing is not cls:
+            raise ValueError(f"mechanism {name!r} already registered to {existing}")
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
 
-    @classmethod
-    def from_options(cls, c: float, m: int = 16, q: float = 0.42,
-                     delta_ratio: float = 1.0, delta: float = None) -> "RQMMechanism":
-        # paper defaults: m=16, (delta, q) = (c, 0.42)
-        if delta is None:
-            delta = delta_ratio * c
-        return cls(RQMParams(c=c, delta=delta, m=m, q=q))
+    return deco
 
-    @property
-    def clip(self) -> float:
-        return self.params.c
+
+def mechanism_names() -> tuple[str, ...]:
+    """Registered mechanism names, in registration order."""
+    return tuple(_REGISTRY)
+
+
+def accepted_options(name: str) -> frozenset:
+    """The options ``make_mechanism`` accepts for a registered mechanism
+    (its ``from_options`` keywords)."""
+    cls = _REGISTRY.get(name)
+    if cls is None:
+        raise ValueError(f"unknown mechanism {name!r}; registered: {', '.join(_REGISTRY)}")
+    return frozenset(inspect.signature(cls.from_options).parameters)
+
+
+def _require_kernel(mech) -> None:
+    if not mech.use_kernel:
+        raise NotImplementedError(
+            f"{mech.name} with use_kernel=False draws from jax.random (threefry), "
+            "which this package does not reimplement; the port encodes with the "
+            "counter-based splitmix32 kernels only")
+
+
+class Mechanism:
+    """Base interface and the shared clip -> encode dispatch. Subclasses
+    implement ``encode_batch``, ``decode_sum``, ``sum_bound``,
+    ``per_round_epsilon``, the ``bits``/``clip`` properties and a
+    ``from_options`` classmethod (its signature defines the options the
+    spec parser accepts)."""
+
+    name: ClassVar[str] = "?"
+
+    # -- interface (overridden by subclasses) -------------------------------
+    def encode_batch(self, x: torch.Tensor, seed: int, *, row_offset: int = 0) -> torch.Tensor:
+        """Messages of a (clients, dim) batch that plays rows
+        ``[row_offset, row_offset + clients)`` of the round's batch."""
+        raise NotImplementedError
+
+    def encode_sum_batch(self, x: torch.Tensor, seed: int, *, weights=None,
+                         row_offset: int = 0, pack_bits: int | None = None) -> torch.Tensor:
+        """``sum_i weights[i] * encode(x[i])`` over the client axis, packed
+        into wire words when ``pack_bits`` is set. The default encodes the
+        batch and sums it; kernel-backed mechanisms override it with their
+        fused round sum, which never materializes the batch."""
+        z = self.encode_batch(x, seed, row_offset=row_offset)
+        if weights is not None:
+            z = z * weights.to(z.dtype)[:, None]
+        z_sum = z.sum(0, dtype=z.dtype)
+        return z_sum if pack_bits is None else wire.pack_bits(z_sum, pack_bits)
+
+    def decode_sum(self, z_sum: torch.Tensor, n: int) -> torch.Tensor:
+        raise NotImplementedError
 
     def sum_bound(self, n: int) -> int:
         """Largest value a coordinate of the sum of n messages can take."""
-        return n * (self.params.m - 1)
-
-    def quantize_sum_batch(self, g: torch.Tensor, seed: int, *, weights=None,
-                           row_offset: int = 0, pack_bits: int | None = None
-                           ) -> torch.Tensor:
-        """Clip + fused encode-and-sum of a (clients, dim) batch with uint32
-        kernel seed ``seed``: the SecAgg sum, packed when ``pack_bits``."""
-        from repro_torch.kernels import ops
-
-        return ops.rqm_round_sum(g, seed, self.params, weights=weights,
-                                 row_offset=row_offset, pack_bits=pack_bits)
-
-    def decode_sum(self, z_sum: torch.Tensor, n: int) -> torch.Tensor:
-        return grid.decode_sum(z_sum, n, self.params)
+        raise NotImplementedError
 
     def per_round_epsilon(self, n: int, alpha: float) -> float:
-        """Exact aggregate-level Renyi-DP epsilon of one round of n clients."""
+        """Exact aggregate-level Renyi-DP epsilon of one round of n
+        clients (0.0 for non-private mechanisms)."""
+        raise NotImplementedError
+
+    @property
+    def bits(self) -> float:
+        raise NotImplementedError
+
+    @property
+    def clip(self) -> float:
+        raise NotImplementedError
+
+    @classmethod
+    def from_options(cls, **options) -> "Mechanism":
+        raise NotImplementedError
+
+    # -- shared clip -> encode dispatch --------------------------------------
+    def _clip(self, g: torch.Tensor) -> torch.Tensor:
+        return g.to(torch.float32).clamp(-self.clip, self.clip)
+
+    def quantize(self, g: torch.Tensor, seed: int) -> torch.Tensor:
+        """Clip then encode one client's vector (any shape)."""
+        return self.encode_batch(self._clip(g).reshape(1, -1), seed).reshape(g.shape)
+
+    def quantize_batch(self, g: torch.Tensor, seed: int, *, row_offset: int = 0) -> torch.Tensor:
+        """Clip then encode a stacked (clients, dim) batch."""
+        return self.encode_batch(self._clip(g), seed, row_offset=row_offset)
+
+    def quantize_sum_batch(self, g: torch.Tensor, seed: int, *, weights=None,
+                           row_offset: int = 0, pack_bits: int | None = None) -> torch.Tensor:
+        """Clip then the fused encode-and-sum: the SecAgg sum of the batch."""
+        return self.encode_sum_batch(self._clip(g), seed, weights=weights,
+                                     row_offset=row_offset, pack_bits=pack_bits)
+
+    # -- introspection -------------------------------------------------------
+    def spec(self) -> dict:
+        """Canonical dict spec: ``make_mechanism(mech.spec())`` rebuilds an
+        equal mechanism."""
+        out = {"name": self.name}
+        d = dataclasses.asdict(self)
+        out.update(d.pop("params", {}))
+        out.update(d)
+        return out
+
+    def describe(self) -> str:
+        """CLI-readable one-liner, e.g. ``rqm:c=0.05,delta=0.05,m=16,q=0.42,...``."""
+        opts = {k: v for k, v in self.spec().items() if k != "name"}
+        body = ",".join(f"{k}={v:g}" if isinstance(v, float) else f"{k}={v}"
+                        for k, v in opts.items())
+        return f"{self.name}:{body}" if body else self.name
+
+
+@register_mechanism("rqm")
+@dataclasses.dataclass(frozen=True)
+class RQMMechanism(Mechanism):
+    """The paper's Randomized Quantization Mechanism (Algorithm 2)."""
+
+    params: RQMParams
+    use_kernel: bool = True
+
+    def __post_init__(self):
+        _require_kernel(self)
+
+    @classmethod
+    def from_options(cls, c: float, m: int = 16, q: float = 0.42,
+                     delta_ratio: float = 1.0, delta: float = None,
+                     use_kernel: bool = True) -> "RQMMechanism":
+        # paper defaults: m=16, (delta, q) = (c, 0.42)
+        if delta is None:
+            delta = delta_ratio * c
+        return cls(RQMParams(c=c, delta=delta, m=m, q=q), use_kernel=use_kernel)
+
+    def encode_batch(self, x, seed, *, row_offset=0):
+        from repro_torch.kernels import ops
+
+        return ops.rqm_batch(x, seed, self.params, row_offset=row_offset)
+
+    def encode_sum_batch(self, x, seed, *, weights=None, row_offset=0, pack_bits=None):
+        from repro_torch.kernels import ops
+
+        return ops.rqm_round_sum(x, seed, self.params, weights=weights,
+                                 row_offset=row_offset, pack_bits=pack_bits)
+
+    def decode_sum(self, z_sum, n):
+        return grid.decode_sum(z_sum, n, self.params)
+
+    def sum_bound(self, n):
+        return n * (self.params.m - 1)
+
+    def per_round_epsilon(self, n, alpha):
         from repro_torch.core.renyi import rqm_aggregate_epsilon
 
         return rqm_aggregate_epsilon(self.params, n, alpha)
+
+    @property
+    def bits(self):
+        return self.params.bits_per_coordinate
+
+    @property
+    def clip(self):
+        return self.params.c
+
+
+@register_mechanism("pbm")
+@dataclasses.dataclass(frozen=True)
+class PBMMechanism(Mechanism):
+    """Poisson Binomial Mechanism baseline (Chen et al., ICML 2022)."""
+
+    params: PBMParams
+    use_kernel: bool = True
+
+    def __post_init__(self):
+        _require_kernel(self)
+
+    @classmethod
+    def from_options(cls, c: float, m: int = 16, theta: float = 0.25,
+                     use_kernel: bool = True) -> "PBMMechanism":
+        return cls(PBMParams(c=c, m=m, theta=theta), use_kernel=use_kernel)
+
+    def encode_batch(self, x, seed, *, row_offset=0):
+        from repro_torch.kernels import ops
+
+        return ops.pbm_batch(x, seed, self.params, row_offset=row_offset)
+
+    def encode_sum_batch(self, x, seed, *, weights=None, row_offset=0, pack_bits=None):
+        from repro_torch.kernels import ops
+
+        return ops.pbm_round_sum(x, seed, self.params, weights=weights,
+                                 row_offset=row_offset, pack_bits=pack_bits)
+
+    def decode_sum(self, z_sum, n):
+        return pbm.decode_sum(z_sum, n, self.params)
+
+    def sum_bound(self, n):
+        return n * self.params.m
+
+    def per_round_epsilon(self, n, alpha):
+        from repro_torch.core.renyi import pbm_aggregate_epsilon
+
+        return pbm_aggregate_epsilon(self.params, n, alpha)
+
+    @property
+    def bits(self):
+        return self.params.bits_per_coordinate
+
+    @property
+    def clip(self):
+        return self.params.c
+
+
+@register_mechanism("qmgeo")
+@dataclasses.dataclass(frozen=True)
+class QMGeoMechanism(Mechanism):
+    """QMGeo-style truncated-geometric randomized quantizer (core/qmgeo.py)."""
+
+    params: QMGeoParams
+    use_kernel: bool = True
+
+    def __post_init__(self):
+        _require_kernel(self)
+
+    @classmethod
+    def from_options(cls, c: float, m: int = 16, r: float = 0.6,
+                     delta_ratio: float = 1.0, delta: float = None,
+                     use_kernel: bool = True) -> "QMGeoMechanism":
+        if delta is None:
+            delta = delta_ratio * c
+        return cls(QMGeoParams(c=c, delta=delta, m=m, r=r), use_kernel=use_kernel)
+
+    def encode_batch(self, x, seed, *, row_offset=0):
+        from repro_torch.kernels import ops
+
+        return ops.qmgeo_batch(x, seed, self.params, row_offset=row_offset)
+
+    def encode_sum_batch(self, x, seed, *, weights=None, row_offset=0, pack_bits=None):
+        from repro_torch.kernels import ops
+
+        return ops.qmgeo_round_sum(x, seed, self.params, weights=weights,
+                                   row_offset=row_offset, pack_bits=pack_bits)
+
+    def decode_sum(self, z_sum, n):
+        return qmgeo.decode_sum(z_sum, n, self.params)
+
+    def sum_bound(self, n):
+        return n * (self.params.m - 1)
+
+    def per_round_epsilon(self, n, alpha):
+        from repro_torch.core.renyi import qmgeo_aggregate_epsilon
+
+        return qmgeo_aggregate_epsilon(self.params, n, alpha)
+
+    @property
+    def bits(self):
+        return self.params.bits_per_coordinate
+
+    @property
+    def clip(self):
+        return self.params.c
+
+
+@register_mechanism("none")
+@dataclasses.dataclass(frozen=True)
+class NoiseFreeMechanism(Mechanism):
+    """Noise-free clipped SGD, the paper's non-private upper bound: the
+    message is the clipped float gradient itself and the decode averages."""
+
+    c: float
+
+    @classmethod
+    def from_options(cls, c: float) -> "NoiseFreeMechanism":
+        return cls(c=c)
+
+    def encode_batch(self, x, seed, *, row_offset=0):
+        return x.clamp(-self.c, self.c)
+
+    def decode_sum(self, g_sum, n):
+        # divide by a device tensor: IEEE division on the card too
+        return g_sum / torch.tensor(float(n), dtype=g_sum.dtype, device=g_sum.device)
+
+    def sum_bound(self, n):
+        return 0
+
+    def per_round_epsilon(self, n, alpha):
+        return 0.0
+
+    @property
+    def bits(self):
+        return 32.0
+
+    @property
+    def clip(self):
+        return self.c
 
 
 def _coerce(text: str):
@@ -88,7 +366,7 @@ def parse_mechanism_spec(spec: Union[str, dict]) -> tuple[str, dict]:
             raise ValueError(f"dict spec needs a 'name' key, got {spec!r}")
         return opts.pop("name"), opts
     if not isinstance(spec, str):
-        raise TypeError(f"spec must be str | dict | RQMMechanism, got {type(spec)}")
+        raise TypeError(f"spec must be str | dict | Mechanism, got {type(spec)}")
     name, _, body = spec.partition(":")
     opts: dict = {}
     if body.strip():
@@ -101,23 +379,22 @@ def parse_mechanism_spec(spec: Union[str, dict]) -> tuple[str, dict]:
     return name.strip(), opts
 
 
-def make_mechanism(spec, **defaults) -> RQMMechanism:
-    """Build a mechanism from a spec string or dict. ``defaults`` fill
-    options the spec leaves out (unknown ones are ignored); options in
-    the spec must be known."""
-    if isinstance(spec, RQMMechanism):
+def make_mechanism(spec, **defaults) -> Mechanism:
+    """Build a registered mechanism from a name, spec string or dict.
+    ``defaults`` fill options the spec leaves out (unknown ones are
+    ignored); options in the spec must be known. A Mechanism passes
+    through unchanged."""
+    if isinstance(spec, Mechanism):
         return spec
     name, explicit = parse_mechanism_spec(spec)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"mechanism {name!r} is not ported yet: {_NOT_PORTED[name]}")
-    if name != "rqm":
-        raise ValueError(f"unknown mechanism {name!r}; ported: rqm")
-    accepted = set(inspect.signature(RQMMechanism.from_options).parameters)
+    cls = _REGISTRY.get(name)
+    if cls is None:
+        raise ValueError(f"unknown mechanism {name!r}; registered: {', '.join(_REGISTRY)}")
+    accepted = accepted_options(name)
     unknown = set(explicit) - accepted
     if unknown:
-        raise ValueError(f"mechanism 'rqm' does not accept option(s) "
+        raise ValueError(f"mechanism {name!r} does not accept option(s) "
                          f"{sorted(unknown)}; accepted: {sorted(accepted)}")
     options = {k: v for k, v in defaults.items() if k in accepted}
     options.update(explicit)
-    return RQMMechanism.from_options(**options)
+    return cls.from_options(**options)

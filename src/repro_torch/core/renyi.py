@@ -1,8 +1,8 @@
-"""Renyi-DP accounting, RQM half (counterpart of ``repro/core/renyi.py``).
+"""Renyi-DP accounting (counterpart of ``repro/core/renyi.py``).
 
 Numerically exact on the discrete outcome pmfs (float64, log space), as
 in the paper's Section 6.1. The reference's disk-backed privacy cache
-is replaced by an in-process memo of ``rqm_aggregate_epsilon``.
+is replaced by an in-process memo of the aggregate epsilons.
 """
 from __future__ import annotations
 
@@ -13,8 +13,15 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch.core.distribution import aggregate_distribution, rqm_outcome_distribution
+from repro_torch.core.distribution import (
+    aggregate_distribution,
+    pbm_outcome_distribution,
+    qmgeo_outcome_distribution,
+    rqm_outcome_distribution,
+)
 from repro_torch.core.grid import RQMParams
+from repro_torch.core.pbm import PBMParams
+from repro_torch.core.qmgeo import QMGeoParams
 
 _EPS = 1e-300
 
@@ -51,18 +58,40 @@ def worst_case_inputs(c: float, n: int, seed: int = 0) -> tuple[np.ndarray, np.n
     return np.concatenate([[c], rest]), np.concatenate([[-c], rest])
 
 
+def _per_device_pmf(params):
+    if isinstance(params, PBMParams):
+        return lambda v: pbm_outcome_distribution(v, params.c, params.m, params.theta)
+    if isinstance(params, QMGeoParams):
+        return lambda v: qmgeo_outcome_distribution(v, params)
+    return lambda v: rqm_outcome_distribution(v, params)
+
+
 @functools.lru_cache(maxsize=None)
-def _rqm_aggregate_epsilon(params: RQMParams, n: int, alpha: float, seed: int) -> float:
+def _aggregate_epsilon(params, n: int, alpha: float, seed: int) -> float:
+    """The memo: one entry per (params, n, alpha, seed); the params'
+    type names the mechanism."""
     x, xp = worst_case_inputs(params.c, n, seed)
-    pmf = lambda v: rqm_outcome_distribution(float(v), params)
-    return renyi_divergence(aggregate_distribution([pmf(v) for v in x]),
-                            aggregate_distribution([pmf(v) for v in xp]), alpha)
+    pmf = _per_device_pmf(params)
+    return renyi_divergence(aggregate_distribution([pmf(float(v)) for v in x]),
+                            aggregate_distribution([pmf(float(v)) for v in xp]), alpha)
 
 
 def rqm_aggregate_epsilon(params: RQMParams, n: int, alpha: float, seed: int = 0) -> float:
     """Worst-case aggregate Renyi-DP epsilon of RQM with n devices
-    (memoized per (params, n, alpha, seed))."""
-    return _rqm_aggregate_epsilon(params, int(n), float(alpha), int(seed))
+    (memoized)."""
+    return _aggregate_epsilon(params, int(n), float(alpha), int(seed))
+
+
+def pbm_aggregate_epsilon(params: PBMParams, n: int, alpha: float, seed: int = 0) -> float:
+    """Worst-case aggregate Renyi-DP epsilon of PBM with n devices
+    (memoized)."""
+    return _aggregate_epsilon(params, int(n), float(alpha), int(seed))
+
+
+def qmgeo_aggregate_epsilon(params: QMGeoParams, n: int, alpha: float, seed: int = 0) -> float:
+    """Worst-case aggregate Renyi-DP epsilon of the truncated-geometric
+    quantizer with n devices (memoized)."""
+    return _aggregate_epsilon(params, int(n), float(alpha), int(seed))
 
 
 def rdp_to_dp(total_eps, alphas, delta: float) -> tuple[float, float]:

@@ -1,11 +1,9 @@
-"""FedConfig (the fields of ``repro/fed/config.py`` this slice runs).
+"""FedConfig (the fields of ``repro/fed/config.py`` this package runs).
 
-The port runs the fused hot path of the ``perround`` engine with fixed
-cohorts and plain SGD. Settings of the reference that it does not run
-yet are refused by ``validate_config`` with NotImplementedError naming
-the ROADMAP.md item that carries them. Defaults follow the reference,
-except ``engine`` and ``fused_rounds``, which default to the only values
-ported.
+Defaults follow the reference: ``FedConfig()`` is its default round, the
+materialized ``scan`` engine. Settings of the reference that the port
+does not run yet are refused by ``validate_config`` with
+NotImplementedError naming the ROADMAP.md item that carries them.
 """
 from __future__ import annotations
 
@@ -27,16 +25,21 @@ class FedConfig:
     data_noise: float = 0.25
     # one clipped gradient per client per round (Algorithm 1)
     local_steps: int = 1
-    engine: str = "perround"
+    # "scan" (blocks of rounds, sums kept on the device until the block
+    # ends) or "perround" (one round per call): the same round step
+    engine: str = "scan"
     task: str = "emnist_cnn"
     server_opt: str = "sgd"
     subsampling: str = "fixed"
     dropout: float = 0.0
-    # clip -> encode -> sum as one fused kernel, decode -> apply as another
-    fused_rounds: bool = True
-    # None: pack the SecAgg sum into b-bit wire fields when the cohort's
-    # sum bound fits (10 bits, 3 per word, at a cohort of 40 with m=16);
-    # True: pack or raise; False: keep the dense int32 sum.
+    # False: encode the (clients, dim) batch, sum it, decode, apply.
+    # True: clip -> encode -> sum as one fused kernel and, for grid
+    # mechanisms with plain SGD, decode -> apply as another. Both give
+    # the same parameters bit for bit.
+    fused_rounds: bool = False
+    # None: pack the fused SecAgg sum into b-bit wire fields when the
+    # cohort's sum bound fits (10 bits, 3 per word, at a cohort of 40
+    # with m=16); True: pack or raise; False: keep the dense int32 sum.
     wire_packed: Optional[bool] = None
     # keep each round's dense SecAgg sum on the host (trainer.round_sums)
     collect_sums: bool = False
@@ -52,9 +55,6 @@ def validate_config(cfg: FedConfig) -> None:
             f"clients_per_round={cfg.clients_per_round} must be in "
             f"[1, num_clients={cfg.num_clients}]"
         )
-    if not cfg.fused_rounds:
-        raise _not_ported("fused_rounds=False (the materialized encode path)",
-                          "queue A item 5 and queue B row 5 (rqm_quantize_2d)")
     if cfg.subsampling != "fixed" or cfg.dropout:
         raise _not_ported("heterogeneous cohorts (Poisson subsampling, dropout)",
                           "queue A item 5")

@@ -1,9 +1,18 @@
 """The Algorithm-1 round step (counterpart of ``repro/fed/rounds.py``).
 
-One round: sample the cohort; per-client clipped gradients; one fused
-clip -> RQM encode -> cohort sum (the SecAgg release, packed into b-bit
-wire words when the sum bound fits); one fused unpack -> decode -> SGD
-apply at the cohort size.
+One round: sample the cohort; per-client clipped gradients; encode and
+SecAgg-sum the (clients, dim) batch; decode at the cohort size; apply
+through the server optimizer. ``FedConfig.fused_rounds`` picks how:
+
+  * materialized (the default): one quantize kernel writes the
+    (clients, dim) int32 levels, ``sum(0)`` makes the SecAgg sum, then
+    the mechanism's ``decode_sum`` and the optimizer's update;
+  * fused: one clip -> encode -> cohort-sum kernel (its output packed
+    into b-bit wire words when the sum bound fits) and, for grid
+    mechanisms under plain SGD, one fused (unpack ->) decode -> SGD
+    kernel; other mechanisms decode and apply as above.
+
+Both give the same parameters bit for bit.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from repro_torch.core.grid import GridGeometry
 from repro_torch.fed import cohort
 from repro_torch.kernels.decode_apply_kernel import decode_apply_sum
 from repro_torch.kernels.pack_kernel import unpack_decode_apply
+from repro_torch.optim.optimizers import make_optimizer
 
 
 def index_batch(data: dict, ids: torch.Tensor) -> dict:
@@ -64,16 +74,29 @@ def make_client_grad(mech, unravel, task):
     return client_grads
 
 
-def make_round_step(mech, cfg, slate: int, client_grads):
+def make_server_apply(opt, cfg):
+    """The decode-then-apply boundary: ``apply(flat, g_hat) -> new_flat``
+    through the server optimizer. Only stateless SGD is ported
+    (``validate_config`` refuses momentum and adam), so no optimizer
+    state is carried between rounds."""
+    lr = cfg.lr
+
+    def apply(flat: torch.Tensor, g_hat: torch.Tensor) -> torch.Tensor:
+        new, _ = opt.update(g_hat, opt.init(flat), flat, lr)
+        return new
+
+    return apply
+
+
+def make_round_step(mech, cfg, slate: int, client_grads, opt=None):
     """``round_step(flat, data, generator, *, ids=None, seed=None)`` ->
     ``(new_flat, z_sum)``. ``generator`` draws the cohort ids and then the
     uint32 kernel seed; tests may inject either (the reference's cohort
     and ``key_to_seed`` of its encode key). ``z_sum`` is the dense sum
     when ``cfg.collect_sums`` (unpacked if it travelled packed), else
-    the round's wire form."""
-    if not use_fused_apply(mech, cfg):
-        raise NotImplementedError(
-            "only the fused decode -> SGD apply is ported: ROADMAP.md queue A item 5")
+    the round's wire form. ``opt`` defaults to ``cfg.server_opt``'s."""
+    apply = make_server_apply(opt or make_optimizer(cfg.server_opt), cfg)
+    fused_apply = use_fused_apply(mech, cfg)
     pack_bits = hot_path_pack_bits(mech, cfg, slate)
     n = cfg.clients_per_round
 
@@ -84,14 +107,18 @@ def make_round_step(mech, cfg, slate: int, client_grads):
             seed = cohort.draw_seed(generator)
         ids = torch.as_tensor(ids, device=flat.device)
         grads = client_grads(flat, index_batch(data, ids))
-        z_sum = mech.quantize_sum_batch(grads, seed, pack_bits=pack_bits)
-        if pack_bits is None:
-            new = decode_apply_sum(flat, z_sum, mech.params, n, cfg.lr)
+        if cfg.fused_rounds:
+            z_sum = mech.quantize_sum_batch(grads, seed, pack_bits=pack_bits)
         else:
-            new = unpack_decode_apply(flat, z_sum, mech.params, n, cfg.lr,
-                                      pack_bits=pack_bits)
-            if cfg.collect_sums:
-                z_sum = wire.unpack_bits(z_sum, pack_bits, flat.numel())
+            z = mech.quantize_batch(grads, seed)
+            z_sum = z.sum(0, dtype=z.dtype)  # the SecAgg sum
+        if not fused_apply:
+            return apply(flat, mech.decode_sum(z_sum, n)), z_sum
+        if pack_bits is None:
+            return decode_apply_sum(flat, z_sum, mech.params, n, cfg.lr), z_sum
+        new = unpack_decode_apply(flat, z_sum, mech.params, n, cfg.lr, pack_bits=pack_bits)
+        if cfg.collect_sums:
+            z_sum = wire.unpack_bits(z_sum, pack_bits, flat.numel())
         return new, z_sum
 
     return round_step

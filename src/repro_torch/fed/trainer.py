@@ -16,6 +16,7 @@ from repro_torch.fed import rounds
 from repro_torch.fed.config import FedConfig, validate_config
 from repro_torch.fed.engines import get_engine
 from repro_torch.fed.tasks import make_task
+from repro_torch.optim.optimizers import make_optimizer
 
 
 def resolve_device(device) -> torch.device:
@@ -55,6 +56,7 @@ class FedTrainer:
             self.mech.per_round_epsilon(fed_cfg.clients_per_round, a)
             for a in fed_cfg.accountant_alphas
         ])
+        self.server_opt = make_optimizer(fed_cfg.server_opt)
         self.pack_bits = rounds.hot_path_pack_bits(self.mech, fed_cfg, self.slate)
         self.round_sums: list = []
         self.client_data = stage_full(self.task, fed_cfg, self.device)
@@ -62,7 +64,15 @@ class FedTrainer:
         self.engine = engine_cls(self)
 
     def round(self) -> None:
+        """Advance one round (a 1-round block on the scan engine)."""
         self.engine.advance(1)
+
+    def run_block(self, n_rounds: int) -> None:
+        """Advance ``n_rounds`` rounds as one block of the scan engine."""
+        if not self.engine.blocked:
+            raise ValueError(f"run_block requires a blocked engine ('scan'), "
+                             f"got {self.cfg.engine!r}")
+        self.engine.advance(n_rounds)
 
     def evaluate(self) -> dict:
         """Held-out accuracy and loss of the current parameters."""
@@ -72,13 +82,14 @@ class FedTrainer:
         """Run ``rounds`` more rounds, evaluating every ``eval_every``
         rounds and after the last; returns the eval records."""
         rounds = self.cfg.rounds if rounds is None else rounds
-        history, t0 = [], time.time()
-        for t in range(rounds):
-            self.round()
-            if (t + 1) % eval_every == 0 or t == rounds - 1:
-                m = self.evaluate()
-                m.update(round=self.accountant.rounds, seconds=time.time() - t0)
-                history.append(m)
-                log(f"[rqm] round {m['round']:4d} loss={m['loss']:.4f} "
-                    f"acc={m['accuracy']:.4f}")
+        history, t0, done = [], time.time(), 0
+        while done < rounds:
+            block = min(eval_every, rounds - done)
+            self.engine.advance(block)
+            done += block
+            m = self.evaluate()
+            m.update(round=self.accountant.rounds, seconds=time.time() - t0)
+            history.append(m)
+            log(f"[{self.mech.name}] round {m['round']:4d} loss={m['loss']:.4f} "
+                f"acc={m['accuracy']:.4f}")
         return history

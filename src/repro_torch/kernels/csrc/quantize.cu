@@ -1,0 +1,89 @@
+// The per-element quantize of a (rows, dim) batch: one mechanism level per
+// element, f32 in, i32 out. Three entries, one per mechanism:
+//
+//  * rqm_quantize replaces repro/kernels/rqm_kernel.py:rqm_quantize_2d (:120);
+//  * pbm_quantize replaces repro/kernels/pbm_kernel.py:pbm_quantize_2d (:53);
+//  * qmgeo_quantize replaces repro/kernels/qmgeo_kernel.py:qmgeo_quantize_2d
+//    (:59).
+//
+// The TPU kernels tile the flattened batch into (block_rows, 128) VMEM blocks
+// and derive each element's RNG counter from the block id. Here one thread
+// takes one element at a time over a grid-stride loop; element i of the
+// flattened batch draws counter row_offset * dim + i (mod 2^32), which is
+// (row_offset + r) * dim + c for element (r, c), the counter the reference's
+// _*_block bodies and the round sums of csrc/round_sum.cu give it.
+//
+// The per-element bodies are the same device functions the round sums inline
+// (rqm_encode.cuh, pbm_encode.cuh, qmgeo_encode.cuh). Each element reads 4
+// bytes and writes 4, and makes the encoder's draws (15 splitmix32 draws for
+// RQM at m=16, 16 for PBM) or, for QMGeo, 2 draws and 18 expf: the bound on
+// an H100 is the larger of the 8 bytes per element and that work, which
+// chip_smoke.py computes from the run's own data.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "pbm_encode.cuh"
+#include "qmgeo_encode.cuh"
+#include "rqm_encode.cuh"
+
+namespace {
+
+template <class Encoder>
+__global__ void quantize_kernel(const float* __restrict__ x, int* __restrict__ z,
+                                int64_t n, uint32_t seed, uint32_t base,
+                                Encoder encode) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    z[i] = encode(x[i], seed, base + static_cast<uint32_t>(i));
+  }
+}
+
+constexpr int kThreads = 256;
+constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks per SM of an H100
+
+template <class Encoder>
+int launch(const float* x, int* z, int rows, int dim, uint32_t seed,
+           uint32_t row_offset, Encoder encode, void* stream) {
+  const int64_t n = static_cast<int64_t>(rows) * dim;
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  // (row_offset + r) * dim + c == row_offset * dim + i, mod 2^32
+  const uint32_t base = row_offset * static_cast<uint32_t>(dim);
+  quantize_kernel<<<static_cast<int>(blocks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(x, z, n, seed, base, encode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int rqm_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
+                 uint32_t row_offset, float c, float x_max, float step, float q,
+                 int m, void* stream) {
+  return launch(x, z, rows, dim, seed, row_offset,
+                repro::RQMEncoder{{c, x_max, step, q, m}}, stream);
+}
+
+int pbm_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
+                 uint32_t row_offset, float c, float theta, int m, void* stream) {
+  return launch(x, z, rows, dim, seed, row_offset, repro::PBMEncoder{{c, theta, m}},
+                stream);
+}
+
+int qmgeo_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
+                   uint32_t row_offset, float c, float x_max, float step,
+                   float log_r, float inv_1mr, float r_over_1mr, int m,
+                   void* stream) {
+  return launch(x, z, rows, dim, seed, row_offset,
+                repro::QMGeoEncoder{{c, x_max, step, log_r, inv_1mr, r_over_1mr, m}},
+                stream);
+}
+
+const char* quantize_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

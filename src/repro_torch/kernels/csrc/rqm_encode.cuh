@@ -1,6 +1,6 @@
 // The element-wise RQM encode on an explicit RNG counter: the device side of
-// kernels/rqm_kernel.py:rqm_encode_counters, inlined by every round-sum
-// kernel. Float steps use the _rn intrinsics (and the library is built with
+// kernels/rqm_kernel.py:rqm_encode_counters, inlined by csrc/quantize.cu and
+// the round sums of csrc/round_sum.cu. Float steps use the _rn intrinsics (and the library is built with
 // -fmad=false), so nothing is contracted into an FMA and division is IEEE:
 // the levels match the plain version and the JAX reference bit for bit.
 #pragma once
@@ -41,5 +41,13 @@ __device__ __forceinline__ int rqm_encode(float x, uint32_t seed, uint32_t count
   const float p_up = __fdiv_rn(__fsub_rn(x, b_lo), __fsub_rn(b_hi, b_lo));
   return random_uniform(seed, counter, p.m) < p_up ? i_hi : i_lo;
 }
+
+struct RQMEncoder {
+  RQMConsts p;
+  __device__ __forceinline__ int operator()(float x, uint32_t seed,
+                                            uint32_t counter) const {
+    return rqm_encode(x, seed, counter, p);
+  }
+};
 
 }  // namespace repro

@@ -1,9 +1,9 @@
 """The element-wise RQM encode on explicit RNG counters.
 
-Counterpart of ``repro/kernels/rqm_kernel.py:rqm_encode_counters``. This
+Counterpart of ``repro/kernels/rqm_kernel.py``. ``rqm_encode_counters``
 is the plain PyTorch version of the device function in
-``csrc/rqm_encode.cuh``, which the CUDA round-sum kernels inline; the
-float32 operations and their order are the same in both:
+``csrc/rqm_encode.cuh``, which the CUDA quantize and round-sum kernels
+inline; the float32 operations and their order are the same in both:
 
   1. clip x to [-c, c];
   2. bin ``j = floor((x + x_max) / step)`` clamped to [0, m-2];
@@ -12,6 +12,9 @@ float32 operations and their order are the same in both:
      below (``i_lo``) and above (``i_hi``) the bin;
   4. round up to ``i_hi`` iff the stream-m uniform is below
      ``(x - B(i_lo)) / (B(i_hi) - B(i_lo))``.
+
+``rqm_quantize`` encodes a (rows, dim) batch (the Pallas kernel
+``rqm_quantize_2d``, CUDA entry ``rqm_quantize`` in ``csrc/quantize.cu``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.grid import RQMParams
+from repro_torch.kernels import quantize
+from repro_torch.kernels._build import F32, I32
 from repro_torch.kernels.prng import random_uniform
 
 
@@ -31,6 +36,12 @@ def f32_constants(params: RQMParams) -> dict:
         "step": float(np.float32(params.step)),
         "q": float(np.float32(params.q)),
     }
+
+
+def kernel_args(params: RQMParams):
+    """ctypes types and values of the constants the CUDA entries take."""
+    k = f32_constants(params)
+    return (F32, F32, F32, F32, I32), (k["c"], k["x_max"], k["step"], k["q"], params.m)
 
 
 def rqm_bracket(x: torch.Tensor, seed: int, counter: torch.Tensor, params: RQMParams):
@@ -65,3 +76,17 @@ def rqm_encode_counters(x: torch.Tensor, seed: int, counter: torch.Tensor,
     _, i_lo, i_hi, p_up = rqm_bracket(x, seed, counter, params)
     u_round = random_uniform(seed, counter, params.m)
     return torch.where(u_round < p_up, i_hi, i_lo).to(torch.int32)
+
+
+def rqm_quantize_plain(x: torch.Tensor, seed: int, params: RQMParams,
+                       row_offset: int = 0) -> torch.Tensor:
+    """Plain version of ``rqm_quantize``."""
+    return quantize.quantize_plain(rqm_encode_counters, x, seed, params, row_offset)
+
+
+def rqm_quantize(x: torch.Tensor, seed: int, params: RQMParams,
+                 row_offset: int = 0) -> torch.Tensor:
+    """int32 RQM levels of a (rows, dim) float32 batch; element (r, c)
+    draws counter ``(row_offset + r) * dim + c``."""
+    return quantize.quantize("rqm_quantize", rqm_encode_counters, kernel_args(params),
+                             x, seed, params, row_offset)

@@ -12,19 +12,43 @@ Each kernel must equal its plain PyTorch version bit for bit, on the card
 and against the plain version on the CPU; chip_smoke.py repeats the check
 at the main path's full shapes.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import wire
 from repro_torch.core.grid import RQMParams
+from repro_torch.core.pbm import PBMParams
+from repro_torch.core.qmgeo import QMGeoParams
 from repro_torch.fed import rounds
 from repro_torch.fed.config import FedConfig
 from repro_torch.fed.trainer import FedTrainer
-from repro_torch.kernels import decode_apply_kernel, fused_round_kernel, ops, pack_kernel
+from repro_torch.kernels import (
+    decode_apply_kernel,
+    fused_round_kernel,
+    ops,
+    pack_kernel,
+    pbm_kernel,
+    qmgeo_kernel,
+    rqm_kernel,
+)
 
 PARAMS = RQMParams(c=0.02, delta=0.02, m=16, q=0.42)
 SEED, ROW_OFFSET = 2216260512, 3
+# name -> (params, kernel wrapper, plain version)
+QUANTIZE = {
+    "rqm": (PARAMS, rqm_kernel.rqm_quantize, rqm_kernel.rqm_quantize_plain),
+    "pbm": (PBMParams(c=0.02, m=16, theta=0.25), pbm_kernel.pbm_quantize,
+            pbm_kernel.pbm_quantize_plain),
+    "qmgeo": (QMGeoParams(c=0.02, delta=0.02, m=16, r=0.6), qmgeo_kernel.qmgeo_quantize,
+              qmgeo_kernel.qmgeo_quantize_plain),
+}
+# QMGeo on the card against its plain version on the CPU: CUDA's expf and
+# the CPU's exp may round differently, so cum <= t may fall the other way
+# in at most this share of elements, by one level each
+QMGEO_CPU_BUDGET = 1e-5
 
 
 @pytest.fixture
@@ -80,7 +104,8 @@ def test_trainer_rounds_on_the_card(cuda):
     """Two rounds through the packed kernels; then one round's gradient
     stack through the packed and the dense wire gives identical params."""
     small = dict(num_clients=24, clients_per_round=6, eval_size=64, samples_per_client=8)
-    tr = FedTrainer("rqm:c=0.05", FedConfig(**small), device=cuda)
+    fused = dict(engine="perround", fused_rounds=True)
+    tr = FedTrainer("rqm:c=0.05", FedConfig(**fused, **small), device=cuda)
     ops.reset_launches()
     tr.train(rounds=2, eval_every=2, log=lambda msg: None)
     assert dict(ops.launches) == {"rqm_round_sum_packed": 2, "unpack_decode_apply": 2}
@@ -89,7 +114,98 @@ def test_trainer_rounds_on_the_card(cuda):
     grads = tr.client_grads(tr.flat, rounds.index_batch(tr.client_data, ids.to(cuda)))
     new = {}
     for packed in (None, False):
-        cfg = FedConfig(wire_packed=packed, **small)
+        cfg = FedConfig(wire_packed=packed, **fused, **small)
         step = rounds.make_round_step(tr.mech, cfg, tr.slate, lambda flat, batch: grads)
         new[packed], _ = step(tr.flat, tr.client_data, ids=ids, seed=SEED)
     assert torch.equal(new[None], new[False])
+
+
+def _batch(cuda, rows, dim, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-0.024, 0.024, size=(rows, dim)).astype(np.float32)).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,dim,row_offset", [(1, 1, 0), (7, 127, 3), (40, 3001, 4_294_967)],
+                         ids=str)
+@pytest.mark.parametrize("name", list(QUANTIZE))
+def test_quantize_kernels_match_plain(cuda, name, rows, dim, row_offset):
+    """Rows 5-7: each kernel equals its plain version on the card bit for
+    bit; on the CPU, RQM and PBM exactly, QMGeo within its budget."""
+    params, kernel, plain = QUANTIZE[name]
+    x = _batch(cuda, rows, dim, seed=dim)
+    ops.reset_launches()
+    got = kernel(x, SEED, params, row_offset)
+    assert dict(ops.launches) == {f"{name}_quantize": 1}
+    assert got.dtype == torch.int32 and got.shape == (rows, dim)
+    assert torch.equal(got, plain(x, SEED, params, row_offset))
+    diff = (got.cpu().long() - kernel(x.cpu(), SEED, params, row_offset).long()).abs()
+    if name == "qmgeo":
+        assert int(diff.max()) <= 1
+        assert int(diff.count_nonzero()) <= math.ceil(QMGEO_CPU_BUDGET * diff.numel())
+    else:
+        assert int(diff.max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pbm", "qmgeo"])
+def test_round_sum_encoders_match_plain(cuda, name):
+    """The pbm and qmgeo encoders of the round sums (rows 1-2): equal to
+    their plain versions and to the quantize kernel's batch, summed."""
+    params = QUANTIZE[name][0]
+    x = _batch(cuda, 40, 3001, seed=1)
+    w = torch.from_numpy((np.arange(40) % 4 != 0).astype(np.int32)).to(cuda)
+    ops.reset_launches()
+    dense = fused_round_kernel.round_sum(x, w, SEED, ROW_OFFSET, params, name)
+    assert torch.equal(dense, fused_round_kernel.round_sum_plain(
+        x, w, SEED, ROW_OFFSET, params, name))
+    z = QUANTIZE[name][1](x, SEED, params, ROW_OFFSET)
+    assert torch.equal(dense, (z * w[:, None]).sum(0, dtype=torch.int32))
+    want = {f"{name}_round_sum_dense": 1, f"{name}_quantize": 1}
+    if name == "qmgeo":
+        packed = fused_round_kernel.round_sum_packed(x, w, SEED, ROW_OFFSET, params, 10, name)
+        assert torch.equal(packed, fused_round_kernel.round_sum_packed_plain(
+            x, w, SEED, ROW_OFFSET, params, 10, name))
+        assert torch.equal(packed, wire.pack_bits(dense, 10))
+        want["qmgeo_round_sum_packed"] = 1
+    else:
+        with pytest.raises(ValueError, match="never travels packed"):
+            fused_round_kernel.round_sum_packed(x, w, SEED, ROW_OFFSET, params, 10, name)
+    assert dict(ops.launches) == want
+
+
+@pytest.mark.cuda
+def test_quantize_refuses_what_the_kernel_does_not_take(cuda):
+    params = QUANTIZE["pbm"][0]
+    with pytest.raises(ValueError, match="float32"):
+        pbm_kernel.pbm_quantize(torch.zeros(4, 10, dtype=torch.float64, device=cuda),
+                                SEED, params)
+    with pytest.raises(ValueError, match="contiguous"):
+        pbm_kernel.pbm_quantize(torch.zeros(10, 4, device=cuda).t(), SEED, params)
+    with pytest.raises(ValueError, match="uint32"):
+        qmgeo_kernel.qmgeo_quantize(torch.zeros(4, 10, device=cuda), 1 << 32,
+                                    QUANTIZE["qmgeo"][0])
+    with pytest.raises(ValueError, match="rows, dim"):
+        rqm_kernel.rqm_quantize(torch.zeros(10, device=cuda), SEED, PARAMS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rqm", "pbm", "qmgeo", "none"])
+def test_default_round_on_the_card(cuda, name):
+    """FedConfig(): the materialized scan round, one quantize launch per
+    round; then one round's gradient stack through the materialized and
+    the fused round step gives identical parameters."""
+    small = dict(num_clients=24, clients_per_round=6, eval_size=64, samples_per_client=8)
+    tr = FedTrainer(f"{name}:c=0.05", FedConfig(**small), device=cuda)
+    ops.reset_launches()
+    tr.run_block(2)
+    assert dict(ops.launches) == ({} if name == "none" else {f"{name}_quantize": 2})
+    assert torch.isfinite(tr.flat).all()
+    ids = torch.arange(6)
+    grads = tr.client_grads(tr.flat, rounds.index_batch(tr.client_data, ids.to(cuda)))
+    new = {}
+    for fused in (False, True):
+        cfg = FedConfig(fused_rounds=fused, **small)
+        step = rounds.make_round_step(tr.mech, cfg, tr.slate, lambda flat, batch: grads)
+        new[fused], _ = step(tr.flat, tr.client_data, ids=ids, seed=SEED)
+    assert torch.equal(new[False], new[True])

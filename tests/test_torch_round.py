@@ -55,6 +55,9 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SMALL = dict(num_clients=24, clients_per_round=6, lr=1.0, eval_size=64,
              samples_per_client=8)
 SPEC = "rqm:c=0.05,m=16,q=0.42"
+# the fused, packed round the reference replays below (FedConfig() is the
+# materialized round: tests/test_torch_materialized.py)
+FUSED = dict(engine="perround", fused_rounds=True)
 N_DIFF_MAX = 0.001  # share of coordinates whose end-to-end sum may differ
 
 
@@ -96,8 +99,8 @@ def reference_round():
 def port_trainer(reference_round):
     """The port's trainer on the small problem, started from the
     reference's initial parameters."""
-    tr = FedTrainer(SPEC, FedConfig(collect_sums=True, **SMALL), device="cpu")
-    tr.flat, _ = ravel(params_from_numpy(reference_round["params0"]))
+    tr = FedTrainer(SPEC, FedConfig(collect_sums=True, **FUSED, **SMALL), device="cpu")
+    tr.flat, _ = ravel(params_from_numpy(reference_round["params0"], device="cpu"))
     return tr
 
 
@@ -123,7 +126,7 @@ def test_data_matches_reference(reference_round, port_trainer):
 
 
 def test_flat_layout_matches_ravel_pytree(reference_round):
-    params = params_from_numpy(reference_round["params0"])
+    params = params_from_numpy(reference_round["params0"], device="cpu")
     flat, unravel = ravel(params)
     assert flat.shape == (222_030,)
     np.testing.assert_array_equal(flat.numpy(), reference_round["flat0"])
@@ -137,7 +140,7 @@ def test_cnn_loss_and_client_grads_match_reference(reference_round, port_trainer
     ids = reference_round["ids"]
     data = reference_round["client_data"]
     params_j = reference_round["params0"]
-    params_t = params_from_numpy(params_j)
+    params_t = params_from_numpy(params_j, device="cpu")
     im, lb = data["images"][ids[0]], data["labels"][ids[0]]
     want = float(jcnn.cnn_loss(params_j, im, lb))
     got = float(cnn.cnn_loss(params_t, torch.from_numpy(im), torch.from_numpy(lb)))
@@ -216,7 +219,8 @@ def test_round_end_to_end_close_to_reference(reference_round, port_trainer, reco
 
 
 def _train(rounds_, **overrides):
-    tr = FedTrainer(SPEC, FedConfig(collect_sums=True, **{**SMALL, **overrides}), device="cpu")
+    tr = FedTrainer(SPEC, FedConfig(collect_sums=True, **{**FUSED, **SMALL, **overrides}),
+                    device="cpu")
     tr.train(rounds=rounds_, eval_every=rounds_, log=lambda msg: None)
     return tr
 
@@ -245,7 +249,8 @@ def test_cohort_stream_is_reproducible():
 
 def test_wire_width_selection():
     mech = make_mechanism(SPEC)
-    cfg = FedConfig()
+    cfg = FedConfig(fused_rounds=True)
+    assert rounds.hot_path_pack_bits(mech, FedConfig(), 40) is None  # materialized
     assert rounds.hot_path_pack_bits(mech, cfg, 40) == 10
     assert wire.packed_words(222_030, 10) == 74_010
     assert rounds.hot_path_pack_bits(mech, dataclasses.replace(cfg, wire_packed=False), 40) is None
@@ -255,7 +260,7 @@ def test_wire_width_selection():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(engine="scan"), dict(engine="shard"), dict(fused_rounds=False),
+    dict(engine="host"), dict(engine="shard"), dict(server_opt="momentum"),
     dict(subsampling="poisson"), dict(dropout=0.2), dict(local_steps=2),
     dict(server_opt="adam"), dict(task="lm"),
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))

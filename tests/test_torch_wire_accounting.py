@@ -122,7 +122,8 @@ def test_sgd_after_decode_is_the_fused_decode_apply():
     rng = np.random.default_rng(3)
     w = torch.from_numpy(rng.normal(0, 0.05, 4000).astype(np.float32))
     z = torch.from_numpy(rng.integers(0, 601, 4000).astype(np.int32))
-    new = sgd(w, grid.decode_sum(z, 40, p), 0.5)
+    new, state = sgd().update(grid.decode_sum(z, 40, p), (), w, 0.5)
+    assert state == ()
     assert torch.equal(new, decode_apply_kernel.decode_apply_sum(w, z, p, 40, 0.5))
     for name in ("momentum", "adam"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 8"):
@@ -141,8 +142,8 @@ def test_mechanism_spec():
     with pytest.raises(ValueError):
         make_mechanism("rqm:c")
     for name in ("pbm", "qmgeo", "none"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_mechanism(f"{name}:c=0.02")
+        built = make_mechanism(f"{name}:c=0.02")
+        assert built.name == name and built.clip == 0.02
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +162,7 @@ def _rqm_golden_cases():
 
 @pytest.mark.parametrize("params,n,alpha,eps,seed", list(_rqm_golden_cases()))
 def test_golden_rqm_epsilons(params, n, alpha, eps, seed):
-    renyi._rqm_aggregate_epsilon.cache_clear()
+    renyi._aggregate_epsilon.cache_clear()
     got = renyi.rqm_aggregate_epsilon(grid.RQMParams(**params), n, alpha, seed)
     assert abs(got - eps) <= 1e-9
 
