@@ -13,7 +13,9 @@ which raises and exits non-zero:
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the main paths' shapes (a cohort of 40 rows, the CNN's
      222,030 coordinates, 10-bit fields, 74,010 packed words; the quantize
-     kernels at row offset 0 and 7): results bit-exact; device times from
+     kernels at row offset 0 and 7; the wire codec also at 16 bits with
+     the top field across the sign bit; the folded decode_apply in
+     float32 and bfloat16): results bit-exact; device times from
      torch.profiler (or, should no profiling session hold the kernel, by
      CUDA events around calls queued behind a sleeping kernel), whole-call
      times by CUDA events, and the least time
@@ -27,14 +29,26 @@ which raises and exits non-zero:
      mechanism (rqm, pbm, qmgeo, none); each must launch one quantize
      kernel per round and equal, bit for bit, the same rounds on the
      perround engine and with fused rounds (packed and dense);
+  5b. shard path: ``FedConfig(engine="shard", shards=1)``, the scan
+     engine over a one-rank NCCL process group, 5 rounds for each
+     mechanism, each bit-identical to its default run of phase 5 and
+     launching pack_flat and unpack_flat once a round around the
+     all_reduce (not 'none', whose float sum is never packed); for rqm
+     also the unpacked sum, streamed staging, and the fused packed and
+     dense rounds under the shard engine, all bit-identical to it;
   6. profile: device time by kernel over 3 more rounds of each default
-     trainer and of the fused packed one (tables in build/profiles/);
+     trainer, of the fused packed one and of the rqm shard trainer
+     (tables in build/profiles/);
   7. Fig. 3 report: held-out accuracy and Renyi eps at alpha=8 after 120
      default rounds of benchmarks/fig3_fl_emnist.py's FED settings, and
      whether noise-free >= RQM >= PBM held (reported, not gated).
 
-Every run of phases 4 and 5 sets the kernels' launch counters to 0 just
-before it and reads them just after. The second-last lines are one JSON
+Every run of phases 4, 5 and 5b sets the kernels' launch counters to 0
+just before it and reads them just after. Every kernel must launch on
+one of those runs but ``decode_apply``, the folded decode + SGD, which
+no round of either package runs (its association is not bit-identical
+to decode_sum then SGD); its record has ``"path": null`` and phase 3's
+launches. The second-last lines are one JSON
 object of per-kernel measurements and the card's name and power limit;
 the last line is the run's result. Exits non-zero, printing no result,
 when CUDA is unavailable.
@@ -68,6 +82,8 @@ PROFILE_ROUNDS = 3
 KERNEL_REPS = 30
 PLAIN_REPS = 5
 PROFILE_TRIES = 3
+PROFILE_WATCH = ("quantize_kernel", "round_sum_", "decode_apply", "::pack_flat_kernel",
+                 "::unpack_flat_kernel", "nccl")
 # benchmarks/fig3_fl_emnist.py:33-34
 FIG3_ROUNDS = 120
 FIG3_FED = dict(num_clients=300, clients_per_round=20, lr=1.0, eval_size=800,
@@ -90,6 +106,9 @@ MUFU_OPS_PER_S = 132 * 16 * 1.98e9
 # u < p but for 1 draw in 65,536), the compare, and every per-element
 # step (clip, the IEEE divisions, the level arithmetic, the sum).
 INT_OPS_PER_DRAW = 7
+# kernels that no main path runs, and why
+NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
+                           "decode_sum then SGD, so no round of either package runs it"}
 
 
 def log(msg: str) -> None:
@@ -234,6 +253,7 @@ def check_kernels(torch, np):
     from repro_torch.kernels import (
         decode_apply_kernel,
         fused_round_kernel as frk,
+        ops,
         pack_kernel,
         pbm_kernel,
         qmgeo_kernel,
@@ -324,9 +344,31 @@ def check_kernels(torch, np):
              plain=lambda: pack_kernel.unpack_decode_apply_plain(
                  params_w, packed, rqm_params, n, lr, pack_bits=BITS),
              nbytes=DIM * 8 + words * 4),
+        dict(name="pack_flat", symbol=("pack_flat_kernel",),
+             source="src/repro_torch/kernels/csrc/pack.cu",
+             replaces="src/repro/kernels/pack_kernel.py:66",
+             kernel=lambda: pack_kernel.pack_flat(dense, BITS),
+             plain=lambda: pack_kernel.pack_flat_plain(dense, BITS),
+             nbytes=DIM * 4 + words * 4),
+        dict(name="unpack_flat", symbol=("unpack_flat_kernel",),
+             source="src/repro_torch/kernels/csrc/pack.cu",
+             replaces="src/repro/kernels/pack_kernel.py:102",
+             kernel=lambda: pack_kernel.unpack_flat(packed, BITS, DIM),
+             plain=lambda: pack_kernel.unpack_flat_plain(packed, BITS, DIM),
+             nbytes=DIM * 4 + words * 4),
+        dict(name="decode_apply", symbol=("decode_apply_folded_kernel",),
+             source="src/repro_torch/kernels/csrc/decode_apply.cu",
+             replaces="src/repro/kernels/decode_apply_kernel.py:33",
+             kernel=lambda: decode_apply_kernel.decode_apply(
+                 params_w, dense, rqm_params, n, lr),
+             plain=lambda: decode_apply_kernel.decode_apply_ref(
+                 params_w, dense, rqm_params, n, lr),
+             nbytes=DIM * 12),
     ]
+    check_codec(torch, pack_kernel, dense, packed)
     records = []
     for case in cases:
+        ops.reset_launches()
         got, want = case["kernel"](), case["plain"]()
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.equal(got, want):
@@ -356,12 +398,57 @@ def check_kernels(torch, np):
             "call_ms": time_ms(torch, case["kernel"], KERNEL_REPS),
             "plain_ms": time_ms(torch, case["plain"], PLAIN_REPS),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # no single PyTorch call computes a mechanism's encode (+ sum)
-            # or the decode-then-SGD association
+            # no single PyTorch call computes a mechanism's encode (+ sum),
+            # the b-bit wire codec, or either decode-then-SGD association
             "library_ms": None,
         })
+        if case["name"] == "decode_apply":
+            records[-1].update(decode_apply_bf16(torch, decode_apply_kernel, params_w, dense,
+                                                 rqm_params, n, lr))
+        records[-1]["phase3_launches"] = ops.launches[case["name"]]
         log(f"[kernels] {case['name']}: bit-exact, {dev_ms} ms on the device ({ms_by})")
     return records
+
+
+def check_codec(torch, pack_kernel, dense, packed) -> None:
+    """The wire codec's identities at the main path's shapes: pack_flat of
+    the dense round sum is the fused packed sum, unpack_flat inverts it,
+    and a 16-bit top field that sets the sign bit round-trips."""
+    if not torch.equal(pack_kernel.pack_flat(dense, BITS), packed):
+        raise AssertionError("pack_flat of the dense round sum differs from the packed sum")
+    if not torch.equal(pack_kernel.unpack_flat(packed, BITS, DIM), dense):
+        raise AssertionError("unpack_flat of the packed round sum differs from the dense sum")
+    top = torch.full((DIM,), (1 << 16) - 1, dtype=torch.int32, device="cuda")
+    words16 = pack_kernel.pack_flat(top, 16)
+    if not (int(words16.min()) < 0 and torch.equal(words16,
+                                                   pack_kernel.pack_flat_plain(top, 16))):
+        raise AssertionError("16-bit pack_flat: sign bit not set or differs from plain")
+    back = pack_kernel.unpack_flat(words16, 16, DIM)
+    if not (torch.equal(back, top)
+            and torch.equal(back, pack_kernel.unpack_flat_plain(words16, 16, DIM))):
+        raise AssertionError("16-bit unpack_flat does not round-trip the sign-bit field")
+    log(f"[kernels] codec: pack_flat(dense) == packed sum, unpack_flat inverts it, 16-bit "
+        f"sign-bit round trip over {words16.numel()} words bit-exact")
+
+
+def decode_apply_bf16(torch, decode_apply_kernel, params_w, dense, params, n, lr) -> dict:
+    """The folded decode_apply on bfloat16 parameters: bit-exact against
+    its plain version; its times beside the float32 record's."""
+    w16 = params_w.to(torch.bfloat16)
+    got = decode_apply_kernel.decode_apply(w16, dense, params, n, lr)
+    want = decode_apply_kernel.decode_apply_ref(w16, dense, params, n, lr)
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+        raise AssertionError("decode_apply (bfloat16) differs from its plain version")
+    fn = lambda: decode_apply_kernel.decode_apply(w16, dense, params, n, lr)  # noqa: E731
+    dev_ms, ms_by = device_ms(torch, fn, KERNEL_REPS, ("decode_apply_folded_kernel",))
+    bound_ms, bound_by = bound(DIM * 8)  # 2 B in, 4 B of sum in, 2 B out
+    log(f"[kernels] decode_apply bfloat16: bit-exact, {dev_ms} ms on the device ({ms_by})")
+    return {"bf16_max_abs_err": float((got.double() - want.double()).abs().max()),
+            "bf16_ms": dev_ms, "bf16_ms_by": ms_by,
+            "bf16_plain_ms": time_ms(torch, lambda: decode_apply_kernel.decode_apply_ref(
+                w16, dense, params, n, lr), PLAIN_REPS),
+            "bf16_bound_ms": bound_ms, "bf16_bound_by": bound_by}
 
 
 def profile_rounds(torch, tr, rounds: int, tag: str) -> dict:
@@ -397,6 +484,17 @@ def profile_rounds(torch, tr, rounds: int, tag: str) -> dict:
         "device_busy_share": busy_ms / wall_ms if wall_ms else None,
         "top_kernels_ms_per_round": {
             e.key[:90]: e.self_device_time_total / 1e3 / rounds for e in avgs[:6]},
+        # the port's kernels and the collective, by a piece of their names
+        "watched_ms_per_round": {
+            w: sum(e.self_device_time_total for e in avgs if w in e.key) / 1e3 / rounds
+            for w in PROFILE_WATCH},
+        # the SecAgg all_reduce's ops (nested: the outer op's times hold
+        # the inner one's): calls, host and device ms per round
+        "all_reduce_per_round": {
+            e.key: {"calls": e.count / rounds, "host_ms": e.cpu_time_total / 1e3 / rounds,
+                    "device_ms": e.device_time_total / 1e3 / rounds}
+            for e in prof.key_averages()
+            if "allreduce" in e.key.lower() or "all_reduce" in e.key.lower()},
     }
 
 
@@ -410,7 +508,7 @@ def run_path(torch, spec: str, cfg, expect: dict, tag: str):
 
     t0 = time.perf_counter()
     tr = FedTrainer(spec, cfg, device="cuda")
-    advance = tr.run_block if cfg.engine == "scan" else (
+    advance = tr.run_block if tr.engine.blocked else (
         lambda k: [tr.round() for _ in range(k)])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -438,7 +536,8 @@ def run_path(torch, spec: str, cfg, expect: dict, tag: str):
     metrics = tr.evaluate()
     log(json.dumps({
         "run": tag, "engine": cfg.engine, "fused_rounds": cfg.fused_rounds,
-        "pack_bits": tr.pack_bits, "rounds": ROUNDS, "setup_s": setup_s,
+        "pack_bits": tr.pack_bits, "shards": tr.shards, "staging": cfg.staging,
+        "staged_bytes_total": tr.staged_bytes_total, "rounds": ROUNDS, "setup_s": setup_s,
         "first_round_s": first_s, "steady_rounds_per_s": (ROUNDS - 1) / steady_s,
         "launches": counts, "rdp_alpha8": got, "eval_accuracy": metrics["accuracy"],
         "eval_loss": metrics["loss"]}))
@@ -511,11 +610,13 @@ def main() -> int:
 
     records = check_kernels(torch, np)
     counts: dict = {}  # launches by entry, summed over the main-path runs
+    paths: dict = {}  # the runs that launched each entry
 
     def run(spec, cfg, expect, tag):
         tr, run_counts = run_path(torch, spec, cfg, expect, tag)
         for k, v in run_counts.items():
             counts[k] = counts.get(k, 0) + v
+            paths.setdefault(k, []).append(tag)
         return tr
 
     # phase 4: the fused paper round, packed and dense wire
@@ -557,27 +658,70 @@ def main() -> int:
                         f"{name}: materialized and fused")
         default_trainers[name] = default
 
+    # phase 5b: the shard engine at one NCCL rank, against phase 5's runs
+    shard = dataclasses.replace(paper, engine="shard", shards=1)
+    codec = {"pack_flat": ROUNDS, "unpack_flat": ROUNDS}
+    shard_trainers = {}
+    for name, spec in SPECS.items():
+        expect = {} if name == "none" else {f"{name}_quantize": ROUNDS, **codec}
+        shard_trainers[name] = run(spec, shard, expect, f"{name} shard")
+        same_params(torch, {f"{name} default": default_trainers[name],
+                            f"{name} shard": shard_trainers[name]},
+                    f"{name}: scan and shard")
+    rqm_shard = {
+        "rqm shard": shard_trainers["rqm"],
+        "rqm shard unpacked": run(SPECS["rqm"], dataclasses.replace(shard, shard_packed=False),
+                                  {"rqm_quantize": ROUNDS}, "rqm shard unpacked"),
+        "rqm shard stream": run(SPECS["rqm"], dataclasses.replace(shard, staging="stream"),
+                                {"rqm_quantize": ROUNDS, **codec}, "rqm shard stream"),
+        "rqm shard fused packed": run(
+            SPECS["rqm"], dataclasses.replace(shard, fused_rounds=True),
+            {"rqm_round_sum_packed": ROUNDS, "unpack_decode_apply": ROUNDS},
+            "rqm shard fused packed"),
+        "rqm shard fused dense": run(
+            SPECS["rqm"], dataclasses.replace(shard, fused_rounds=True, wire_packed=False),
+            {"rqm_round_sum_dense": ROUNDS, **codec, "decode_apply_sum": ROUNDS},
+            "rqm shard fused dense"),
+    }
+    same_params(torch, {"rqm default": default_trainers["rqm"], **rqm_shard},
+                "rqm: scan and shard (packed, unpacked, streamed, fused)")
+    del rqm_shard
+
     # phase 6: where a warm round spends device time
     for name, tr in default_trainers.items():
         log(json.dumps({"round_profile": profile_rounds(
             torch, tr, PROFILE_ROUNDS, f"{name}_default")}))
     log(json.dumps({"round_profile": profile_rounds(
         torch, rqm_fused["rqm fused packed"], PROFILE_ROUNDS, "rqm_fused_packed")}))
-    del default_trainers, rqm_fused
+    log(json.dumps({"round_profile": profile_rounds(
+        torch, shard_trainers["rqm"], PROFILE_ROUNDS, "rqm_shard")}))
+    del default_trainers, rqm_fused, shard_trainers
 
     # phase 7: the paper's comparison, reported
     log(json.dumps({"fig3_report": fig3_report(torch, FedConfig)}))
 
     kernels = []
     for rec in records:
-        launches = counts.get(rec["name"], 0)
-        if launches == 0:
-            raise AssertionError(f"{rec['name']} was never launched on a main path")
-        log(json.dumps({**rec, "launches": launches}))
+        name = rec["name"]
+        if name in NO_PATH:
+            if name in counts:
+                raise AssertionError(f"{name} launched on a main path: {paths[name]}")
+            launches, path = rec["phase3_launches"], None
+            log(f"[main] {name}: on no main path ({NO_PATH[name]}); "
+                f"{launches} launches in phase 3")
+        else:
+            launches, path = counts.get(name, 0), paths.get(name)
+            if launches == 0:
+                raise AssertionError(f"{name} was never launched on a main path")
+        log(json.dumps({**rec, "launches": launches, "path": path}))
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces")}
-                       | {"launches": launches}
+                       | {"launches": launches, "path": path}
                        | {k: rec[k] for k in ("max_abs_err", "ms", "ms_by", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")})
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

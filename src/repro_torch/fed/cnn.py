@@ -14,7 +14,7 @@ from repro_torch.data.emnist import NUM_CLASSES
 
 
 def cnn_init(generator: torch.Generator, channels=(16, 32), hidden: int = 128,
-             device="cpu") -> dict:
+             device="cuda") -> dict:
     """Random CNN parameters (normal / sqrt(fan_in), zero biases), drawn
     on the CPU from ``generator`` and moved to ``device``."""
     c1, c2 = channels

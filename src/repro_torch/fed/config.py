@@ -26,7 +26,8 @@ class FedConfig:
     # one clipped gradient per client per round (Algorithm 1)
     local_steps: int = 1
     # "scan" (blocks of rounds, sums kept on the device until the block
-    # ends) or "perround" (one round per call): the same round step
+    # ends), "perround" (one round per call) or "shard" (the scan engine
+    # over a process group, one cohort slice per rank): the same round
     engine: str = "scan"
     task: str = "emnist_cnn"
     server_opt: str = "sgd"
@@ -43,6 +44,25 @@ class FedConfig:
     wire_packed: Optional[bool] = None
     # keep each round's dense SecAgg sum on the host (trainer.round_sums)
     collect_sums: bool = False
+    # the shard engine advances in chunks of at most scan_block rounds
+    scan_block: int = 64
+    # shard engine (engine="shard"). shards=None spans the default process
+    # group (one rank when there is none); clients_per_round must divide
+    # evenly across shards. staging: "full" stages the whole population
+    # on every rank once; "stream" stages only each block's cohort slice
+    # of this rank, so host and device memory stay
+    # O(scan_block * clients_per_round) client datasets whatever
+    # num_clients is. shard_packed: None packs the cross-shard level sum
+    # at the least safe width when mech.sum_bound(n) fits 16 bits; True
+    # packs or raises; False forces the plain all_reduce.
+    shards: Optional[int] = None
+    staging: str = "full"
+    shard_packed: Optional[bool] = None
+    # > 1: the reference's 2-D client x model mesh (not ported)
+    model_shards: int = 1
+
+
+STAGINGS = ("full", "stream")
 
 
 def _not_ported(what: str, item: str):
@@ -50,6 +70,23 @@ def _not_ported(what: str, item: str):
 
 
 def validate_config(cfg: FedConfig) -> None:
+    if cfg.staging not in STAGINGS:
+        raise ValueError(f"unknown staging {cfg.staging!r}; expected one of {STAGINGS}")
+    if cfg.staging == "stream" and cfg.engine != "shard":
+        raise ValueError(
+            f"staging='stream' requires a streaming-capable engine such as "
+            f"'shard'; {cfg.engine!r} does not support it")
+    if cfg.model_shards < 1:
+        raise ValueError(f"model_shards must be >= 1, got {cfg.model_shards}")
+    if cfg.model_shards > 1 and cfg.engine != "shard":
+        raise ValueError(
+            "model_shards > 1 (the 2-D client x model mesh) requires "
+            f"engine='shard', got engine={cfg.engine!r}")
+    if cfg.model_shards > 1:
+        raise _not_ported("model_shards > 1 (the 2-D client x model mesh, which needs "
+                          "the lm task)", "queue A item 12")
+    if cfg.scan_block < 1:
+        raise ValueError(f"scan_block must be >= 1, got {cfg.scan_block}")
     if not 1 <= cfg.clients_per_round <= cfg.num_clients:
         raise ValueError(
             f"clients_per_round={cfg.clients_per_round} must be in "

@@ -12,18 +12,21 @@ through the server optimizer. ``FedConfig.fused_rounds`` picks how:
     mechanisms under plain SGD, one fused (unpack ->) decode -> SGD
     kernel; other mechanisms decode and apply as above.
 
-Both give the same parameters bit for bit.
+Both give the same parameters bit for bit. The shard engine's step
+(``make_shard_round_step``) runs the same round with one cohort slice
+per rank and sums the slices' levels over a process group.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.func import grad, vmap
 
-from repro_torch.core import wire
+from repro_torch.core import secagg, wire
 from repro_torch.core.grid import GridGeometry
 from repro_torch.fed import cohort
 from repro_torch.kernels.decode_apply_kernel import decode_apply_sum
-from repro_torch.kernels.pack_kernel import unpack_decode_apply
+from repro_torch.kernels.pack_kernel import unpack_decode_apply, unpack_flat
 from repro_torch.optim.optimizers import make_optimizer
 
 
@@ -88,17 +91,40 @@ def make_server_apply(opt, cfg):
     return apply
 
 
-def make_round_step(mech, cfg, slate: int, client_grads, opt=None):
-    """``round_step(flat, data, generator, *, ids=None, seed=None)`` ->
-    ``(new_flat, z_sum)``. ``generator`` draws the cohort ids and then the
-    uint32 kernel seed; tests may inject either (the reference's cohort
-    and ``key_to_seed`` of its encode key). ``z_sum`` is the dense sum
-    when ``cfg.collect_sums`` (unpacked if it travelled packed), else
-    the round's wire form. ``opt`` defaults to ``cfg.server_opt``'s."""
+def make_decode_apply(mech, cfg, slate: int, opt=None):
+    """The server side of a round after its SecAgg sum: ``finish(flat,
+    z_sum) -> (new_flat, z_sum)``. Decodes at the cohort size and applies
+    through the server optimizer, or through the fused (unpack ->) decode
+    -> SGD kernel on the fused rounds that have it. The ``z_sum`` returned
+    is dense when ``cfg.collect_sums`` (unpacked if it travelled packed),
+    else the round's wire form."""
     apply = make_server_apply(opt or make_optimizer(cfg.server_opt), cfg)
     fused_apply = use_fused_apply(mech, cfg)
     pack_bits = hot_path_pack_bits(mech, cfg, slate)
     n = cfg.clients_per_round
+
+    def finish(flat, z_sum):
+        if not fused_apply:
+            return apply(flat, mech.decode_sum(z_sum, n)), z_sum
+        if pack_bits is None:
+            return decode_apply_sum(flat, z_sum, mech.params, n, cfg.lr), z_sum
+        new = unpack_decode_apply(flat, z_sum, mech.params, n, cfg.lr, pack_bits=pack_bits)
+        if cfg.collect_sums:
+            z_sum = unpack_flat(z_sum, pack_bits, flat.numel())
+        return new, z_sum
+
+    return finish
+
+
+def make_round_step(mech, cfg, slate: int, client_grads, opt=None):
+    """``round_step(flat, data, generator, *, ids=None, seed=None)`` ->
+    ``(new_flat, z_sum)``. ``generator`` draws the cohort ids and then the
+    uint32 kernel seed; tests may inject either (the reference's cohort
+    and ``key_to_seed`` of its encode key). ``z_sum`` as
+    ``make_decode_apply`` returns it. ``opt`` defaults to
+    ``cfg.server_opt``'s."""
+    finish = make_decode_apply(mech, cfg, slate, opt)
+    pack_bits = hot_path_pack_bits(mech, cfg, slate)
 
     def round_step(flat, data, generator=None, *, ids=None, seed=None):
         if ids is None:
@@ -112,13 +138,57 @@ def make_round_step(mech, cfg, slate: int, client_grads, opt=None):
         else:
             z = mech.quantize_batch(grads, seed)
             z_sum = z.sum(0, dtype=z.dtype)  # the SecAgg sum
-        if not fused_apply:
-            return apply(flat, mech.decode_sum(z_sum, n)), z_sum
-        if pack_bits is None:
-            return decode_apply_sum(flat, z_sum, mech.params, n, cfg.lr), z_sum
-        new = unpack_decode_apply(flat, z_sum, mech.params, n, cfg.lr, pack_bits=pack_bits)
-        if cfg.collect_sums:
-            z_sum = wire.unpack_bits(z_sum, pack_bits, flat.numel())
-        return new, z_sum
+        return finish(flat, z_sum)
+
+    return round_step
+
+
+def make_shard_round_step(mech, cfg, slate: int, shards: int, rank: int, group,
+                          client_grads, opt=None):
+    """The shard engine's round step on rank ``rank`` of ``shards``:
+    ``round_step(flat, data, generator, *, ids=None, seed=None,
+    batch=None) -> (new_flat, z_sum)``.
+
+    Every rank draws the same cohort and seed from its copy of the
+    replicated generator, takes its slice ``[rank n_per, (rank+1)
+    n_per)`` of the cohort (``batch``, when streamed staging gathered it
+    already), and encodes it at row offset ``rank n_per``, so its levels
+    are the rows of the unsharded batch. Its partial sum crosses the
+    SecAgg boundary as integers over ``group``: the fused packed sum
+    (already wire words) as one plain all_reduce of words, any other
+    through ``secagg.secure_sum_bounded`` at the full cohort's bound.
+    Then the replicated decode + apply of ``make_decode_apply``. At one
+    rank the step still packs, all-reduces and unpacks, as the
+    reference's does."""
+    finish = make_decode_apply(mech, cfg, slate, opt)
+    pack_bits = hot_path_pack_bits(mech, cfg, slate)
+    bound = mech.sum_bound(slate)
+    packed = cfg.shard_packed is None or cfg.shard_packed
+    n_per = slate // shards
+    row_offset = rank * n_per
+
+    def round_step(flat, data, generator=None, *, ids=None, seed=None, batch=None):
+        if ids is None:
+            ids = cohort.sample_slate(cfg, slate, generator)
+        if seed is None:
+            seed = cohort.draw_seed(generator)
+        if batch is None:
+            mine = torch.as_tensor(ids)[row_offset:row_offset + n_per]
+            batch = index_batch(data, mine.to(flat.device))
+        grads = client_grads(flat, batch)
+        if cfg.fused_rounds:
+            z_part = mech.quantize_sum_batch(grads, seed, row_offset=row_offset,
+                                             pack_bits=pack_bits)
+        else:
+            z = mech.quantize_batch(grads, seed, row_offset=row_offset)
+            z_part = z.sum(0, dtype=z.dtype)  # this rank's partial sum
+        if pack_bits is not None:
+            # fields add on their own in int32 words (checked against the
+            # full cohort's bound by hot_path_pack_bits)
+            z_sum = z_part
+            dist.all_reduce(z_sum, op=dist.ReduceOp.SUM, group=group)
+        else:
+            z_sum = secagg.secure_sum_bounded(z_part, group, bound, packed=packed)
+        return finish(flat, z_sum)
 
     return round_step

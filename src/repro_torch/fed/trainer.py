@@ -12,7 +12,7 @@ import torch
 from repro_torch.convert import ravel
 from repro_torch.core.mechanisms import make_mechanism
 from repro_torch.core.renyi import RenyiAccountant
-from repro_torch.fed import rounds
+from repro_torch.fed import rounds, staging
 from repro_torch.fed.config import FedConfig, validate_config
 from repro_torch.fed.engines import get_engine
 from repro_torch.fed.tasks import make_task
@@ -27,14 +27,6 @@ def resolve_device(device) -> torch.device:
             "device='cuda' but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch versions")
     return device
-
-
-def stage_full(task, cfg: FedConfig, device) -> dict:
-    """Every client's dataset stacked along a leading clients axis, on
-    ``device`` (about 213 MB at the paper's 3400 x 20 EMNIST images)."""
-    batches = [task.client_batch(i) for i in range(cfg.num_clients)]
-    return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(device)
-            for k in batches[0]}
 
 
 class FedTrainer:
@@ -59,7 +51,13 @@ class FedTrainer:
         self.server_opt = make_optimizer(fed_cfg.server_opt)
         self.pack_bits = rounds.hot_path_pack_bits(self.mech, fed_cfg, self.slate)
         self.round_sums: list = []
-        self.client_data = stage_full(self.task, fed_cfg, self.device)
+        self.shards = 1  # the shard engine sets its rank count
+        self.staged_bytes_total = 0
+        self.staged_bytes_last_block = 0
+        self.client_data = None  # streamed staging stages each block's cohorts
+        if fed_cfg.staging != "stream":
+            self.client_data, self.staged_bytes_total = staging.stage_full(
+                self.task, fed_cfg, self.device)
         self.client_grads = rounds.make_client_grad(self.mech, self.unravel, self.task)
         self.engine = engine_cls(self)
 
@@ -70,7 +68,7 @@ class FedTrainer:
     def run_block(self, n_rounds: int) -> None:
         """Advance ``n_rounds`` rounds as one block of the scan engine."""
         if not self.engine.blocked:
-            raise ValueError(f"run_block requires a blocked engine ('scan'), "
+            raise ValueError(f"run_block requires a blocked engine ('scan', 'shard'), "
                              f"got {self.cfg.engine!r}")
         self.engine.advance(n_rounds)
 

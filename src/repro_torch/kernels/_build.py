@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
 SOURCES = {"round_sum": "round_sum.cu", "decode_apply": "decode_apply.cu",
-           "quantize": "quantize.cu"}
+           "quantize": "quantize.cu", "pack": "pack.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

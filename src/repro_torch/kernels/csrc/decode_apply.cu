@@ -4,7 +4,7 @@
 //     g = -x_max + z * scale;   w' = w - lr * g
 //
 // with exactly the float association of repro's grid.decode_sum followed by
-// optim.sgd. Two entries:
+// optim.sgd. Three entries:
 //
 //  * decode_apply_sum: z is the dense int32 sum. Replaces the Pallas kernel
 //    repro/kernels/decode_apply_kernel.py:decode_apply_sum_2d (:103).
@@ -12,11 +12,18 @@
 //    straight from the wire words. Replaces the Pallas kernel
 //    repro/kernels/pack_kernel.py:unpack_decode_apply (:138). Unlike the
 //    TPU kernel it takes any word count W, not only multiples of 128.
+//  * decode_apply: the folded form w' = w - (shift + scale * z), with lr
+//    folded into shift = -lr x_max and scale = lr 2 x_max / (n (m-1)). Not
+//    bit-identical to the two above (another association), so no round
+//    runs it; w is float32 or bfloat16, computed in float32 and rounded
+//    once to w's type. Replaces the Pallas kernel
+//    repro/kernels/decode_apply_kernel.py:decode_apply_2d (:33).
 //
 // Thread i owns coordinate i. Bound on an H100: bytes (read w and the sum,
 // write w'); a handful of float ops per 12 bytes. The _rn intrinsics keep
 // every step separately rounded, so the result matches the plain version
 // bit for bit.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -52,6 +59,26 @@ __global__ void unpack_decode_apply_kernel(const float* __restrict__ w,
   out[i] = decode_apply(w[i], z, neg_x_max, scale, lr);
 }
 
+__device__ __forceinline__ float load_f32(const float* p, int i) { return p[i]; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store(float* p, int i, float v) { p[i] = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, int i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void decode_apply_folded_kernel(const T* __restrict__ w,
+                                           const int* __restrict__ z,
+                                           T* __restrict__ out, int n, float shift,
+                                           float scale) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float step = __fadd_rn(shift, __fmul_rn(scale, __int2float_rn(z[i])));
+  store(out, i, __fsub_rn(load_f32(w, i), step));
+}
+
 constexpr int kThreads = 256;
 
 }  // namespace
@@ -73,6 +100,21 @@ int unpack_decode_apply(const float* w, const int* words, float* out, int n,
   unpack_decode_apply_kernel<<<blocks, kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       w, words, out, n, n_words, bits, neg_x_max, scale, lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int decode_apply(const void* w, const int* z, void* out, int n, int bf16,
+                 float shift, float scale, void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    decode_apply_folded_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(w), z, static_cast<__nv_bfloat16*>(out), n,
+        shift, scale);
+  } else {
+    decode_apply_folded_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(w), z, static_cast<float*>(out), n, shift, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

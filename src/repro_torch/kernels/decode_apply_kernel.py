@@ -1,14 +1,20 @@
-"""Fused server decode + SGD apply on the dense SecAgg sum.
+"""Fused server decode + SGD apply on the dense SecAgg sum, two forms
+(counterparts of ``repro/kernels/decode_apply_kernel.py``):
 
-Counterpart of ``repro/kernels/decode_apply_kernel.py:decode_apply_sum``
-(its Pallas kernel ``_sum_kernel``)::
+  * ``decode_apply_sum`` (its Pallas kernel ``_sum_kernel``)::
 
-    g = -x_max + z * scale;   w' = w - lr * g,   scale = 2 x_max / (n (m-1))
+        g = -x_max + z * scale;   w' = w - lr * g,   scale = 2 x_max / (n (m-1))
 
-the literal operations of ``grid.decode_sum`` followed by SGD. Every
-scalar is the reference's Python double rounded once to float32. CUDA
-kernel in ``csrc/decode_apply.cu`` for CUDA tensors; plain version on
-the CPU.
+    the literal operations of ``grid.decode_sum`` followed by SGD, so it
+    is bit-identical to them: the fused rounds run it;
+  * ``decode_apply`` (``decode_apply_2d``): the folded
+    ``w' = w - (shift + scale_lr * z)``, lr folded into the two scalars.
+    Another float association, so no round runs it; it is the
+    reference's standalone entry, for float32 or bfloat16 ``w``.
+
+Every scalar is the reference's Python double rounded once to float32.
+CUDA kernels in ``csrc/decode_apply.cu`` for CUDA tensors; plain versions
+on the CPU.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import F32, I32, P
 
 _ARGS = (P, P, P, I32, F32, F32, F32, P)
+_FOLDED_ARGS = (P, P, P, I32, I32, F32, F32, P)
 
 
 def f32_decode_constants(params: GridGeometry, n: int, lr: float) -> dict:
@@ -63,5 +70,49 @@ def decode_apply_sum(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
             "decode_apply", "decode_apply_sum", _ARGS,
             w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(),
             k["neg_x_max"], k["scale"], k["lr"], _build.stream_of(w),
+        )
+    return out
+
+
+def folded_constants(params: GridGeometry, n: int, lr: float) -> tuple[float, float]:
+    """(shift, scale) of the folded form: the reference's Python doubles
+    ``-lr x_max`` and ``lr 2 x_max / (n (m-1))``, each rounded once to
+    float32 (as XLA does with the weakly typed scalars)."""
+    scale = lr * 2.0 * params.x_max / (n * (params.m - 1))
+    shift = -lr * params.x_max
+    return float(np.float32(shift)), float(np.float32(scale))
+
+
+def decode_apply_ref(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
+                     n: int, lr: float) -> torch.Tensor:
+    """Plain version of ``decode_apply``: in float32, rounded once to
+    ``w``'s dtype."""
+    shift, scale = folded_constants(params, n, lr)
+    step = shift + z_sum.to(torch.float32) * scale
+    return (w.to(torch.float32) - step).to(w.dtype)
+
+
+def decode_apply(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
+                 n: int, lr: float) -> torch.Tensor:
+    """Updated float32 or bfloat16 params ``w - (shift + scale * z_sum)``
+    of any shape, from an int32 sum of the same shape."""
+    if w.numel() < 1 or z_sum.shape != w.shape:
+        raise ValueError(f"w and z_sum must be non-empty and of one shape, got "
+                         f"{tuple(w.shape)} and {tuple(z_sum.shape)}")
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"cohort size n must be a positive int, got {n!r}")
+    if not w.is_cuda:
+        return decode_apply_ref(w, z_sum, params, n, lr)
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"w must be float32 or bfloat16, got {w.dtype}")
+    _build.check_cuda("w", w, w.dtype)
+    _build.check_cuda("z_sum", z_sum, torch.int32)
+    out = torch.empty_like(w)
+    shift, scale = folded_constants(params, n, lr)
+    with torch.cuda.device(w.device):
+        _build.launch(
+            "decode_apply", "decode_apply", _FOLDED_ARGS,
+            w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(),
+            int(w.dtype == torch.bfloat16), shift, scale, _build.stream_of(w),
         )
     return out

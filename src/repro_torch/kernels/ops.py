@@ -14,6 +14,11 @@ Per mechanism (rqm, pbm, qmgeo) two entries, built by one factory each:
 Seeds are explicit uint32 values here; the reference derives them from a
 JAX key (``ops.key_to_seed``), which this package does not reimplement.
 
+The wire codec, ``pack_flat(z, bits)`` and ``unpack_flat(words, bits,
+n)`` (the Pallas ``pack_flat``/``unpack_flat``; CUDA entries of the same
+names), and the folded ``decode_apply`` (``decode_apply_2d``) are
+re-exported from their modules.
+
 ``launches`` counts each CUDA kernel's launches by its C entry name (the
 ones above, ``decode_apply_sum`` and ``unpack_decode_apply``). CPU
 tensors run the plain versions and count nothing.
@@ -24,9 +29,12 @@ import torch
 
 from repro_torch.kernels import fused_round_kernel, pbm_kernel, qmgeo_kernel, rqm_kernel
 from repro_torch.kernels._build import launches, reset_launches
+from repro_torch.kernels.decode_apply_kernel import decode_apply
+from repro_torch.kernels.pack_kernel import pack_flat, unpack_flat
 
 __all__ = ["launches", "reset_launches", "rqm_batch", "pbm_batch", "qmgeo_batch",
-           "rqm_round_sum", "pbm_round_sum", "qmgeo_round_sum"]
+           "rqm_round_sum", "pbm_round_sum", "qmgeo_round_sum", "pack_flat",
+           "unpack_flat", "decode_apply"]
 
 
 def _make_batch(name: str, quantize_fn):

@@ -1,12 +1,19 @@
-"""Packed server boundary: unpack -> decode -> SGD apply in one pass.
+"""The dense b-bit wire codec as kernels (counterpart of
+``repro/kernels/pack_kernel.py``), planar layout of ``core/wire.py``:
 
-Counterpart of ``repro/kernels/pack_kernel.py:unpack_decode_apply``:
-coordinate i's level sum is field ``i // W`` of word ``i % W``, read
-with a logical shift and a mask, then decoded and applied with the float
-association of ``decode_apply_kernel``. The dense (dim,) sum never
-exists. Unlike the TPU kernel this takes any word count W (the paper's
-EMNIST round has W = 74,010, which is not a multiple of 128). CUDA
-kernel in ``csrc/decode_apply.cu``; plain version on the CPU.
+  * ``pack_flat(z, bits)``: (n,) int32 levels -> (W,) packed words;
+  * ``unpack_flat(words, bits, n)``: (W,) words -> the (n,) fields;
+  * ``unpack_decode_apply``: the packed server boundary, unpack ->
+    decode -> SGD apply in one pass: coordinate i's level sum is field
+    ``i // W`` of word ``i % W``, decoded and applied with the float
+    association of ``decode_apply_kernel``, so the dense (dim,) sum never
+    exists.
+
+Unlike the TPU kernels these take any word count W (the paper's EMNIST
+round has W = 74,010, which is not a multiple of 128). CUDA kernels in
+``csrc/pack.cu`` and ``csrc/decode_apply.cu``; on a CPU tensor each
+entry runs its plain version (``wire.pack_bits``/``unpack_bits`` for the
+codec).
 """
 from __future__ import annotations
 
@@ -23,6 +30,48 @@ from repro_torch.kernels.decode_apply_kernel import (
 )
 
 _ARGS = (P, P, P, I32, I32, I32, F32, F32, F32, P)
+_CODEC_ARGS = (P, P, I32, I32, I32, P)
+
+
+def pack_flat_plain(z: torch.Tensor, bits: int) -> torch.Tensor:
+    return wire.pack_bits(z, bits)
+
+
+def unpack_flat_plain(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    return wire.unpack_bits(words, bits, n)
+
+
+def pack_flat(z: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack a flat int32 level vector into ``bits``-wide fields, 32 // bits
+    per int32 word: (ceil(n / k),) words. Caller guarantees
+    ``0 <= z < 2**bits``."""
+    if z.ndim != 1 or z.numel() < 1:
+        raise ValueError(f"z must be a non-empty flat vector, got {tuple(z.shape)}")
+    n_words = wire.packed_words(z.numel(), bits)
+    if not z.is_cuda:
+        return pack_flat_plain(z, bits)
+    _build.check_cuda("z", z, torch.int32)
+    words = torch.empty(n_words, dtype=torch.int32, device=z.device)
+    with torch.cuda.device(z.device):
+        _build.launch("pack", "pack_flat", _CODEC_ARGS, z.data_ptr(), words.data_ptr(),
+                      z.numel(), n_words, int(bits), _build.stream_of(z))
+    return words
+
+
+def unpack_flat(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """The ``n`` leading fields of packed words, as (n,) int32."""
+    k = wire.fields_per_word(bits)
+    if words.ndim != 1 or n < 1 or k * words.numel() < n:
+        raise ValueError(f"{n} fields at {bits} bits do not fit words of shape "
+                         f"{tuple(words.shape)}")
+    if not words.is_cuda:
+        return unpack_flat_plain(words, bits, n)
+    _build.check_cuda("words", words, torch.int32)
+    z = torch.empty(n, dtype=torch.int32, device=words.device)
+    with torch.cuda.device(words.device):
+        _build.launch("pack", "unpack_flat", _CODEC_ARGS, words.data_ptr(), z.data_ptr(),
+                      n, words.numel(), int(bits), _build.stream_of(words))
+    return z
 
 
 def unpack_decode_apply_plain(w, words, params: GridGeometry, n: int, lr: float,

@@ -12,6 +12,7 @@ Each kernel must equal its plain PyTorch version bit for bit, on the card
 and against the plain version on the CPU; chip_smoke.py repeats the check
 at the main path's full shapes.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -209,3 +210,62 @@ def test_default_round_on_the_card(cuda, name):
         step = rounds.make_round_step(tr.mech, cfg, tr.slate, lambda flat, batch: grads)
         new[fused], _ = step(tr.flat, tr.client_data, ids=ids, seed=SEED)
     assert torch.equal(new[False], new[True])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,n", [(10, 222_030), (16, 257), (4, 1000), (7, 130), (1, 33)],
+                         ids=str)
+def test_codec_kernels_match_plain(cuda, bits, n):
+    """Rows 8-9: pack_flat and unpack_flat equal the plain codec on the card."""
+    z = torch.from_numpy(np.random.default_rng(n).integers(0, 1 << bits, n)
+                         .astype(np.int32)).to(cuda)
+    ops.reset_launches()
+    words = pack_kernel.pack_flat(z, bits)
+    back = pack_kernel.unpack_flat(words, bits, n)
+    assert dict(ops.launches) == {"pack_flat": 1, "unpack_flat": 1}
+    assert torch.equal(words, pack_kernel.pack_flat_plain(z, bits))
+    assert torch.equal(words.cpu(), wire.pack_bits(z.cpu(), bits))
+    assert torch.equal(back, z)
+    top = torch.full((n,), (1 << bits) - 1, dtype=torch.int32, device=cuda)
+    assert torch.equal(pack_kernel.unpack_flat(pack_kernel.pack_flat(top, bits), bits, n), top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_folded_decode_apply_matches_plain(cuda, dtype):
+    """Row 10: the folded decode_apply equals its plain version on the
+    card and on the CPU."""
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.normal(0, 0.05, 70_001).astype(np.float32)).to(dtype).to(cuda)
+    z = torch.from_numpy(rng.integers(0, 601, 70_001).astype(np.int32)).to(cuda)
+    ops.reset_launches()
+    out = decode_apply_kernel.decode_apply(w, z, PARAMS, 40, 0.5)
+    assert dict(ops.launches) == {"decode_apply": 1} and out.dtype == dtype
+    assert torch.equal(out, decode_apply_kernel.decode_apply_ref(w, z, PARAMS, 40, 0.5))
+    assert torch.equal(out.cpu(), decode_apply_kernel.decode_apply_ref(
+        w.cpu(), z.cpu(), PARAMS, 40, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rqm", "pbm", "none"])
+def test_shard_trainer_on_one_nccl_rank(cuda, name):
+    """engine='shard' at one NCCL rank: pack_flat -> all_reduce ->
+    unpack_flat each round; then one round's gradient stack through the
+    shard and the scan round step gives identical sums and parameters."""
+    small = dict(num_clients=24, clients_per_round=6, eval_size=64, samples_per_client=8,
+                 collect_sums=True)
+    tr = FedTrainer(f"{name}:c=0.05", FedConfig(engine="shard", **small), device=cuda)
+    ops.reset_launches()
+    tr.run_block(2)
+    want = {} if name == "none" else {f"{name}_quantize": 2, "pack_flat": 2, "unpack_flat": 2}
+    assert dict(ops.launches) == want
+    assert tr.shards == 1 and torch.isfinite(tr.flat).all() and len(tr.round_sums) == 2
+    ids = torch.arange(6)
+    grads = tr.client_grads(tr.flat, rounds.index_batch(tr.client_data, ids.to(cuda)))
+    cfg = FedConfig(**small)
+    scan = rounds.make_round_step(tr.mech, cfg, 6, lambda flat, batch: grads)
+    shard = rounds.make_shard_round_step(tr.mech, dataclasses.replace(cfg, engine="shard"), 6,
+                                         1, 0, tr.engine.group, lambda flat, batch: grads)
+    (a, sa), (b, sb) = (step(tr.flat, tr.client_data, ids=ids, seed=SEED)
+                        for step in (scan, shard))
+    assert torch.equal(sa, sb) and torch.equal(a, b)

@@ -18,6 +18,7 @@ clients, cohorts of 6).
 """
 import ast
 import dataclasses
+import inspect
 import math
 import os
 import re
@@ -260,13 +261,22 @@ def test_wire_width_selection():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(engine="host"), dict(engine="shard"), dict(server_opt="momentum"),
+    dict(engine="host"),
+    # the shard engine is ported; its 2-D client x model mesh is not
+    pytest.param(dict(engine="shard", model_shards=2), id="engine=shard"),
+    dict(engine="async"), dict(server_opt="momentum"),
     dict(subsampling="poisson"), dict(dropout=0.2), dict(local_steps=2),
     dict(server_opt="adam"), dict(task="lm"),
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FedTrainer(SPEC, FedConfig(**{**SMALL, **overrides}), device="cpu")
+
+
+def test_cnn_init_defaults_to_the_card():
+    assert inspect.signature(cnn.cnn_init).parameters["device"].default == "cuda"
+    params = cnn.cnn_init(torch.Generator().manual_seed(0), device="cpu")
+    assert {v.device.type for v in params.values()} == {"cpu"}
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
