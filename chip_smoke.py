@@ -13,9 +13,10 @@ which raises and exits non-zero:
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the main paths' shapes (a cohort of 40 rows, the CNN's
      222,030 coordinates, 10-bit fields, 74,010 packed words; the quantize
-     kernels at row offset 0 and 7; the wire codec also at 16 bits with
-     the top field across the sign bit; the folded decode_apply in
-     float32 and bfloat16): results bit-exact; device times from
+     kernels at row offset 0 and 7, rqm_quantize also at m=64 and q=0.5,
+     two keep-mask words; the wire codec also at 16 bits with the top
+     field across the sign bit; the folded decode_apply in float32 and
+     bfloat16): results bit-exact; device times from
      torch.profiler (or, should no profiling session hold the kernel, by
      CUDA events around calls queued behind a sleeping kernel), whole-call
      times by CUDA events, and the least time
@@ -120,6 +121,17 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def demangle(symbol: str) -> str:
+    """A kernel's C++ name without its parameter list (c++filt, where the
+    machine has it)."""
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True, text=True, timeout=60)
+        symbol = out.stdout.strip() or symbol
+    except OSError:
+        pass
+    return symbol.replace("(anonymous namespace)::", "").split("(")[0]
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -305,6 +317,15 @@ def check_kernels(torch, np):
             kernel=lambda k=kernel, p=p: k(x, seed, p, 0),
             plain=lambda k=plain, p=p: k(x, seed, p, 0),
             nbytes=in_bytes * 2, int_ops=draws[name] * INT_OPS_PER_DRAW, mufu_ops=mufu[name]))
+    # the RQM encoder's loop over keep-mask words, which m=16 unrolls
+    wide = dataclasses.replace(params["rqm"], m=64, q=0.5)
+    got, want = rqm_kernel.rqm_quantize(x, seed, wide), rqm_kernel.rqm_quantize_plain(x, seed, wide)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"rqm_quantize at m=64, q=0.5: {int((got != want).sum())} of "
+                             f"{got.numel()} levels differ from its plain version")
+    log(f"[kernels] rqm_quantize at m=64, q=0.5: {got.numel()} levels bit-exact")
+    del got, want
     dense_bytes = in_bytes + ROWS * 4 + DIM * 4
     packed_bytes = in_bytes + ROWS * 4 + words * 4
     for name, encoder in (("rqm", "RQMEncoder"), ("pbm", "PBMEncoder"),
@@ -604,9 +625,12 @@ def main() -> int:
     log(f"[build] {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.3f} s "
         f"({len(logs)} compiled) into {_build.BUILD_DIR}")
     for name, out in logs.items():
+        entry = ""
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = demangle(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}: {entry}: {line.strip()}")
 
     records = check_kernels(torch, np)
     counts: dict = {}  # launches by entry, summed over the main-path runs

@@ -1,0 +1,222 @@
+"""Time the port's RQM quantize and round-sum kernels of an earlier source
+tree against this tree's, in turns, on one CUDA card.
+
+    git archive <rev> -- src/repro_torch/kernels/csrc | tar -x -C build/parent
+    python scripts/torch_kernel_ab.py --parent build/parent/src/repro_torch/kernels/csrc
+
+Both trees' ``quantize.cu`` and ``round_sum.cu`` are built with the port's
+nvcc flags (all four builds at once), and each library is called through
+ctypes at ``chip_smoke.py`` phase 3's inputs: a cohort of 40 rows of the
+CNN's 222,030 coordinates, uniform in +-1.2 c, 10-bit packed words. Five
+cases: ``rqm_quantize`` at the paper's m=16, q=0.42 and at m=64, q=0.5,
+the two RQM round sums and ``qmgeo_round_sum_packed``. Each library's
+result must equal the plain PyTorch version bit for bit. The device times
+are then taken in turns (parent, tree, tree, parent) by
+``chip_smoke.device_ms`` (torch.profiler, mean of 30 launches) and
+``chip_smoke.queued_ms`` (CUDA events behind a sleeping kernel).
+
+The RQM entries of a tree up to commit 698c532 take the float ``q``
+(``--parent-abi q``, the default); later trees, this one among them, take
+the integer keep constants (``--parent-abi keep``). Per library the script prints ptxas's
+registers and, where the toolkit has ``cuobjdump``, the opcode counts of
+the RQM and packed QMGeo kernels' SASS (the ``I2F*`` count among them).
+Everything it writes goes under ``--out`` (default ``build/ab``): the
+builds, ptxas and SASS text, and ``times.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from repro_torch.core import wire  # noqa: E402
+from repro_torch.core.grid import RQMParams  # noqa: E402
+from repro_torch.core.mechanisms import make_mechanism  # noqa: E402
+from repro_torch.kernels import _build, qmgeo_kernel, rqm_kernel  # noqa: E402
+from repro_torch.kernels import fused_round_kernel as frk  # noqa: E402
+
+ROWS, DIM, BITS = chip_smoke.ROWS, chip_smoke.DIM, chip_smoke.BITS
+LIBS = ("quantize", "round_sum")
+P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def short(symbol: str) -> str:
+    return chip_smoke.demangle(symbol).replace("void ", "")
+
+
+def sass_report(tag: str, lib: str, path: str, out: str) -> None:
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log("[sass] no cuobjdump")
+        return
+    text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True).stdout
+    open(os.path.join(out, f"sass_{tag}_{lib}.txt"), "w").write(text)
+    fn, ops = None, {}
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = short(m.group(1))
+            ops[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and fn:
+            ops[fn][m.group(2)] += 1
+    for fn, c in ops.items():
+        if "RQM" in fn or ("QMGeo" in fn and "packed" in fn):
+            top = ", ".join(f"{k} {v}" for k, v in c.most_common(14))
+            log(f"[sass] {tag} {fn}: {sum(c.values())} instructions; "
+                f"I2F* {c['I2F'] + c['I2FP']}; {top}")
+
+
+def build_all(trees: dict, out: str) -> dict:
+    """One nvcc per (tree, library), all started together."""
+    procs = {}
+    for tag, src in trees.items():
+        for lib in LIBS:
+            so = os.path.join(out, f"{tag}_{lib}.so")
+            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", src, "-o", so,
+                   os.path.join(src, f"{lib}.cu")]
+            procs[(tag, lib)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for (tag, lib), (proc, so) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{tag} {lib}: {text}")
+        open(os.path.join(out, f"ptxas_{tag}_{lib}.txt"), "w").write(text)
+        fn = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = short(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn and ("RQM" in fn or ("QMGeo" in fn and "packed" in fn)):
+                log(f"[ptxas] {tag} {lib}: {m.group(1)} registers  {fn}")
+        libs[(tag, lib)] = ctypes.CDLL(so)
+        sass_report(tag, lib, so, out)
+    return libs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, help="an earlier tree's csrc directory")
+    ap.add_argument("--parent-abi", choices=("q", "keep"), default="q",
+                    help="the parent's RQM entries take the float q, or keep_le and keep_any")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        log("no CUDA device")
+        return 1
+    t0 = time.perf_counter()
+    os.makedirs(args.out, exist_ok=True)
+    trees = {"parent": os.path.abspath(args.parent), "tree": str(_build.CSRC)}
+    log(f"[env] {chip_smoke.nvidia_smi()}; torch {torch.__version__} cuda {torch.version.cuda}")
+    libs = build_all(trees, args.out)
+
+    params = make_mechanism(chip_smoke.SPECS["rqm"]).params
+    qparams = make_mechanism(chip_smoke.SPECS["qmgeo"]).params
+    wide = RQMParams(c=params.c, delta=params.delta, m=64, q=0.5)
+    rng = np.random.default_rng(2024)
+    c = params.c
+    x = torch.from_numpy(rng.uniform(-1.2 * c, 1.2 * c, size=(ROWS, DIM)).astype(np.float32)).cuda()
+    w = torch.ones(ROWS, dtype=torch.int32, device="cuda")
+    seed = int(rng.integers(0, 1 << 32))
+    words = wire.packed_words(DIM, BITS)
+    out = {"quantize": torch.empty((ROWS, DIM), dtype=torch.int32, device="cuda"),
+           "dense": torch.empty(DIM, dtype=torch.int32, device="cuda"),
+           "packed": torch.empty(words, dtype=torch.int32, device="cuda")}
+
+    def rqm_args(tag, p):
+        if tag == "tree" or args.parent_abi == "keep":
+            return rqm_kernel.kernel_args(p)
+        k = rqm_kernel.f32_constants(p)  # the float-q entries of commit 698c532
+        return (F, F, F, F, I), (k["c"], k["x_max"], k["step"], float(np.float32(p.q)), p.m)
+
+    def launcher(tag, lib, entry, argtypes, args_, result):
+        f = getattr(libs[(tag, lib)], entry)
+        f.argtypes, f.restype = list(argtypes), I
+
+        def call():
+            rc = f(*args_, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"{tag} {entry}: CUDA error {rc}")
+            return result
+        return call
+
+    def quantize(tag, p):
+        t, v = rqm_args(tag, p)
+        return launcher(tag, "quantize", "rqm_quantize", (P, P, I, I, U, U) + t + (P,),
+                        (x.data_ptr(), out["quantize"].data_ptr(), ROWS, DIM, seed, 0, *v),
+                        out["quantize"])
+
+    def dense(tag):
+        t, v = rqm_args(tag, params)
+        return launcher(tag, "round_sum", "rqm_round_sum_dense", (P, P, P, I, I, U, U) + t + (P,),
+                        (x.data_ptr(), w.data_ptr(), out["dense"].data_ptr(), ROWS, DIM, seed, 0,
+                         *v), out["dense"])
+
+    def packed(tag, entry="rqm_round_sum_packed"):
+        t, v = (qmgeo_kernel.kernel_args(qparams) if entry.startswith("qmgeo")
+                else rqm_args(tag, params))
+        return launcher(tag, "round_sum", entry, (P, P, P, I, I, I, I, U, U) + t + (P,),
+                        (x.data_ptr(), w.data_ptr(), out["packed"].data_ptr(), ROWS, DIM, words,
+                         BITS, seed, 0, *v), out["packed"])
+
+    cases = {
+        "rqm_quantize": (lambda tag: quantize(tag, params), ("quantize_kernel", "RQMEncoder"),
+                         lambda: rqm_kernel.rqm_quantize_plain(x, seed, params, 0)),
+        "rqm_quantize m=64 q=0.5": (lambda tag: quantize(tag, wide),
+                                    ("quantize_kernel", "RQMEncoder"),
+                                    lambda: rqm_kernel.rqm_quantize_plain(x, seed, wide, 0)),
+        "rqm_round_sum_dense": (dense, ("round_sum_dense_kernel", "RQMEncoder"),
+                                lambda: frk.round_sum_plain(x, w, seed, 0, params)),
+        "rqm_round_sum_packed": (packed, ("round_sum_packed_kernel", "RQMEncoder"),
+                                 lambda: frk.round_sum_packed_plain(x, w, seed, 0, params, BITS)),
+        "qmgeo_round_sum_packed": (lambda tag: packed(tag, "qmgeo_round_sum_packed"),
+                                   ("round_sum_packed_kernel", "QMGeoEncoder"),
+                                   lambda: frk.round_sum_packed_plain(x, w, seed, 0, qparams,
+                                                                      BITS, "qmgeo")),
+    }
+    results = {"card": chip_smoke.nvidia_smi(), "times": {}}
+    for name, (make, symbol, plain) in cases.items():
+        want = plain()
+        for tag in trees:
+            got = make(tag)().clone()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {tag}: {int((got != want).sum())} of "
+                                     f"{got.numel()} differ from the plain version")
+            log(f"[check] {name} {tag}: bit-exact")
+        times = results["times"][name] = collections.defaultdict(list)
+        for tag in ("parent", "tree", "tree", "parent"):
+            fn = make(tag)
+            ms, by = chip_smoke.device_ms(torch, fn, chip_smoke.KERNEL_REPS, symbol)
+            q_ms = chip_smoke.queued_ms(torch, fn, chip_smoke.KERNEL_REPS)
+            times[tag].append({"ms": ms, "by": by, "queued_ms": q_ms})
+            log(f"[time] {name} {tag}: {ms} ms ({by}), queued {q_ms} ms")
+    results["card_after"] = chip_smoke.nvidia_smi()
+    with open(os.path.join(args.out, "times.json"), "w") as fh:
+        json.dump(results, fh, indent=1)
+    log(f"[env] {results['card_after']}; {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

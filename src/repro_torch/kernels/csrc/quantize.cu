@@ -18,11 +18,17 @@
 // bytes and writes 4, and makes the encoder's draws (15 splitmix32 draws for
 // RQM at m=16, 16 for PBM) or, for QMGeo, 2 draws and 18 expf: the bound on
 // an H100 is the larger of the 8 bytes per element and that work, which
-// chip_smoke.py computes from the run's own data.
+// chip_smoke.py computes from the run's own data. The encode's instructions,
+// not the bytes, set the time: what the RQM encoder does about that is in
+// rqm_encode.cuh. Neighbouring threads take neighbouring elements, so loads
+// and stores coalesce, and the grid (up to 16 blocks of 256 per SM, two
+// rounds of the 8 an SM holds) keeps 64 warps on every SM to hide the hash's
+// latency.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "device.cuh"
 #include "pbm_encode.cuh"
 #include "qmgeo_encode.cuh"
 #include "rqm_encode.cuh"
@@ -41,14 +47,16 @@ __global__ void quantize_kernel(const float* __restrict__ x, int* __restrict__ z
 }
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks per SM of an H100
 
 template <class Encoder>
 int launch(const float* x, int* z, int rows, int dim, uint32_t seed,
            uint32_t row_offset, Encoder encode, void* stream) {
   const int64_t n = static_cast<int64_t>(rows) * dim;
   int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  // two rounds of the blocks every SM holds: 16 an SM of an H100
+  const repro::DeviceShape card = repro::device_shape();
+  const int64_t max_blocks = static_cast<int64_t>(card.sms) * 2 * card.threads_per_sm / kThreads;
+  if (blocks > max_blocks) blocks = max_blocks;
   // (row_offset + r) * dim + c == row_offset * dim + i, mod 2^32
   const uint32_t base = row_offset * static_cast<uint32_t>(dim);
   quantize_kernel<<<static_cast<int>(blocks), kThreads, 0,
@@ -61,10 +69,11 @@ int launch(const float* x, int* z, int rows, int dim, uint32_t seed,
 extern "C" {
 
 int rqm_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
-                 uint32_t row_offset, float c, float x_max, float step, float q,
-                 int m, void* stream) {
-  return launch(x, z, rows, dim, seed, row_offset,
-                repro::RQMEncoder{{c, x_max, step, q, m}}, stream);
+                 uint32_t row_offset, float c, float x_max, float step,
+                 uint32_t keep_le, uint32_t keep_any, int m, void* stream) {
+  return repro::rqm_dispatch({c, x_max, step, keep_le, keep_any, m}, [&](auto encode) {
+    return launch(x, z, rows, dim, seed, row_offset, encode, stream);
+  });
 }
 
 int pbm_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,

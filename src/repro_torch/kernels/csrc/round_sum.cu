@@ -7,24 +7,32 @@
 // decode the packed apply performs).
 //
 // On the TPU the cohort rows are an inner sequential grid axis that revisits
-// the output block. Here one thread owns one output column (dense) or one
-// output word (packed) and loops over every cohort row in registers: no
-// atomics, no cross-block reduction, and an integer sum in a fixed order.
-// Consecutive threads read consecutive columns of x, so the loads coalesce.
-// The kernels are templates over the encoder, whose per-element body is the
-// same device function csrc/quantize.cu inlines (rqm_encode.cuh,
-// pbm_encode.cuh, qmgeo_encode.cuh).
+// the output block. Here the rows are a loop inside a thread, the sum an
+// integer one in registers: no atomics and no cross-block reduction. The
+// kernels are templates over the encoder, whose per-element body is the same
+// device function csrc/quantize.cu inlines (rqm_encode.cuh, pbm_encode.cuh,
+// qmgeo_encode.cuh), so a round sum equals the quantize kernel's batch summed.
 //
-// The RQM encoder draws all m-2 keep streams and the rounding stream of every
-// element (15 splitmix32 draws at m=16). The function needs fewer: only the
-// draws out to the nearest kept level on each side of the bin, which is what
-// chip_smoke.py counts for the kernel's bound.
+// What bounds them on an H100: the encode's instructions. A round reads the
+// (rows, dim) batch once (35.5 MB at the paper's 40 x 222,030) and writes
+// 0.9 MB dense or 0.3 MB packed; the RQM encoder makes m-1 splitmix32 draws
+// per element (15 at m=16), of which the data needs 5.5 (out to the nearest
+// kept level on each side, and the rounding draw; chip_smoke.py counts them
+// for the bound). rqm_encode.cuh says why every keep draw is still made and
+// how each costs less. What is left to the layout is to give every SM an
+// equal share of the encodes, with enough warps to hide the hash's latency.
+//
+//  * Dense: one thread per column loops over the rows (222,030 threads in 868
+//    blocks of 256 at the paper's shape, one wave: 6 or 7 blocks an SM).
+//    Consecutive threads read consecutive columns, so the loads coalesce.
+//  * Packed: see round_sum_packed_kernel.
 //
 // RNG counter of element (r, c): (row_offset + r) * dim + c, as in JAX.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "device.cuh"
 #include "pbm_encode.cuh"
 #include "qmgeo_encode.cuh"
 #include "rqm_encode.cuh"
@@ -50,34 +58,61 @@ __global__ void round_sum_dense_kernel(const float* __restrict__ x,
   out[c] = static_cast<int>(acc);
 }
 
-// Word wi carries coordinate c = f * words + wi in field f. Coordinates past
-// dim are padding and stay 0, so the words are canonical (wire.pack_bits of
-// the dense sum). Shifts and sums are uint32_t: shifting into the sign bit
-// of an int is undefined in C++17.
+// Word wi carries coordinate c = f * words + wi in field f. A block owns a
+// tile of kTile consecutive words; thread (t, f, g) = threadIdx (x, y, z)
+// encodes column f * words + wi, wi the tile's t-th word, over the rows of
+// group g, so a warp reads 32 consecutive columns of a row. The block's
+// fields x groups partial sums of a word, each shifted to its field, meet in
+// shared memory, and one thread adds them and writes the word once. All adds
+// are uint32_t and wrap: they are associative and commutative mod 2^32, so
+// any split gives the words one thread per word gives, bit for bit, at any
+// weights and any bits (a 16-bit top field sets the sign bit; shifting into
+// an int's sign bit is undefined in C++17). Coordinates past dim are padding
+// and stay 0, so the words are canonical (wire.pack_bits of the dense sum).
+//
+// The layout is for balance. One thread per word, looping over its 3 fields
+// x 40 rows (the kernel this one replaced), made 74,010 threads in 290
+// blocks of 256 at the paper's shape (40 x 222,030, 10 bits): 26 SMs ran
+// three blocks and 106 two, and the busiest SM encoded 1.37x the mean. Here
+// launch_packed gives a column's rows to one group when one thread per
+// column already fills the card (2048 threads an SM, which the register cap
+// below keeps), else splits them into groups. At the paper's shape that is
+// one group: 2313 blocks of 96 threads, each thread 40 encodes; an SM holds
+// 21 such blocks, so all 2313 run in one wave, 17 or 18 on each SM, and the
+// busiest SM's share of the encodes is 18 / (2313 / 132) = 1.03x the mean.
+constexpr int kTile = 32;         // words per block, one warp's width
+constexpr int kMaxBlock = 1024;   // kTile x fields x groups threads at most
+
 template <class Encoder>
-__global__ void round_sum_packed_kernel(const float* __restrict__ x,
-                                        const int* __restrict__ w,
-                                        int* __restrict__ out, int rows, int dim,
-                                        int words, int bits, int fields,
-                                        uint32_t seed, uint32_t row_offset,
-                                        Encoder encode) {
-  const int wi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (wi >= words) return;
-  uint32_t acc = 0;
-  for (int f = 0; f < fields; ++f) {
-    const int c = f * words + wi;
-    if (c >= dim) break;  // c grows with f: every later field is padding
-    uint32_t partial = 0;
-    for (int r = 0; r < rows; ++r) {
+__global__ void __launch_bounds__(kMaxBlock, 2)  // <= 32 registers: 2048 threads an SM
+round_sum_packed_kernel(const float* __restrict__ x, const int* __restrict__ w,
+                        int* __restrict__ out, int rows, int dim, int words, int bits,
+                        int rows_per_group, uint32_t seed, uint32_t row_offset,
+                        Encoder encode) {
+  extern __shared__ uint32_t part[];  // [group][field][kTile]
+  const int t = threadIdx.x, f = threadIdx.y, g = threadIdx.z;
+  const int wi = blockIdx.x * kTile + t;
+  const int c = f * words + wi;
+  uint32_t partial = 0;
+  if (wi < words && c < dim) {
+    const int r_end = min(rows, (g + 1) * rows_per_group);
+    for (int r = g * rows_per_group; r < r_end; ++r) {
       const uint32_t counter = (row_offset + static_cast<uint32_t>(r)) *
                                    static_cast<uint32_t>(dim) +
                                static_cast<uint32_t>(c);
       const int z = encode(x[static_cast<size_t>(r) * dim + c], seed, counter);
       partial += static_cast<uint32_t>(z) * static_cast<uint32_t>(w[r]);
     }
-    acc += partial << (f * bits);
   }
-  out[wi] = static_cast<int>(acc);
+  part[(g * blockDim.y + f) * kTile + t] = partial << (f * bits);
+  __syncthreads();
+  if (f == 0 && g == 0 && wi < words) {
+    uint32_t acc = 0;
+    for (int i = 0; i < static_cast<int>(blockDim.y * blockDim.z); ++i) {
+      acc += part[i * kTile + t];
+    }
+    out[wi] = static_cast<int>(acc);
+  }
 }
 
 constexpr int kThreads = 256;
@@ -96,9 +131,20 @@ int launch_packed(const float* x, const int* w, int* out, int rows, int dim,
                   int words, int bits, uint32_t seed, uint32_t row_offset,
                   Encoder encode, void* stream) {
   const int fields = 32 / bits;
-  const int blocks = (words + kThreads - 1) / kThreads;
-  round_sum_packed_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, out, rows, dim, words, bits, fields, seed, row_offset, encode);
+  const int tiles = (words + kTile - 1) / kTile;
+  // split the rows only as far as the card has room for more threads
+  const repro::DeviceShape card = repro::device_shape();
+  const int64_t per_group = static_cast<int64_t>(tiles) * kTile * fields;
+  int64_t groups = static_cast<int64_t>(card.sms) * card.threads_per_sm / per_group;
+  if (groups > rows) groups = rows;
+  if (groups > kMaxBlock / (kTile * fields)) groups = kMaxBlock / (kTile * fields);
+  if (groups < 1) groups = 1;
+  const int rows_per_group = static_cast<int>((rows + groups - 1) / groups);
+  groups = (rows + rows_per_group - 1) / rows_per_group;  // no empty group
+  const dim3 block(kTile, fields, static_cast<unsigned>(groups));
+  const size_t shared = sizeof(uint32_t) * kTile * fields * groups;
+  round_sum_packed_kernel<<<tiles, block, shared, static_cast<cudaStream_t>(stream)>>>(
+      x, w, out, rows, dim, words, bits, rows_per_group, seed, row_offset, encode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -108,9 +154,11 @@ extern "C" {
 
 int rqm_round_sum_dense(const float* x, const int* w, int* out, int rows, int dim,
                         uint32_t seed, uint32_t row_offset, float c, float x_max,
-                        float step, float q, int m, void* stream) {
-  return launch_dense(x, w, out, rows, dim, seed, row_offset,
-                      repro::RQMEncoder{{c, x_max, step, q, m}}, stream);
+                        float step, uint32_t keep_le, uint32_t keep_any, int m,
+                        void* stream) {
+  return repro::rqm_dispatch({c, x_max, step, keep_le, keep_any, m}, [&](auto encode) {
+    return launch_dense(x, w, out, rows, dim, seed, row_offset, encode, stream);
+  });
 }
 
 int pbm_round_sum_dense(const float* x, const int* w, int* out, int rows, int dim,
@@ -131,10 +179,12 @@ int qmgeo_round_sum_dense(const float* x, const int* w, int* out, int rows, int 
 
 int rqm_round_sum_packed(const float* x, const int* w, int* out, int rows, int dim,
                          int words, int bits, uint32_t seed, uint32_t row_offset,
-                         float c, float x_max, float step, float q, int m,
-                         void* stream) {
-  return launch_packed(x, w, out, rows, dim, words, bits, seed, row_offset,
-                       repro::RQMEncoder{{c, x_max, step, q, m}}, stream);
+                         float c, float x_max, float step, uint32_t keep_le,
+                         uint32_t keep_any, int m, void* stream) {
+  return repro::rqm_dispatch({c, x_max, step, keep_le, keep_any, m}, [&](auto encode) {
+    return launch_packed(x, w, out, rows, dim, words, bits, seed, row_offset, encode,
+                         stream);
+  });
 }
 
 int qmgeo_round_sum_packed(const float* x, const int* w, int* out, int rows, int dim,

@@ -176,6 +176,71 @@ def test_round_sum_encoders_match_plain(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 16, 34, 64])
+def test_rqm_kernels_at_edge_m(cuda, m):
+    """rqm_quantize and both RQM round sums at q=0.5 and m=2 (no interior
+    level), 16 (the paper's, one keep-mask word), 34 and 64 (two keep-mask
+    words): equal to their plain versions, and to each other."""
+    params = RQMParams(c=0.02, delta=0.02, m=m, q=0.5)
+    x = _batch(cuda, 40, 3001, seed=m)
+    w = torch.from_numpy((np.arange(40) % 5 != 0).astype(np.int32)).to(cuda)
+    ops.reset_launches()
+    z = rqm_kernel.rqm_quantize(x, SEED, params, ROW_OFFSET)
+    dense = fused_round_kernel.round_sum(x, w, SEED, ROW_OFFSET, params)
+    packed = fused_round_kernel.round_sum_packed(x, w, SEED, ROW_OFFSET, params, 16)
+    assert dict(ops.launches) == {"rqm_quantize": 1, "rqm_round_sum_dense": 1,
+                                  "rqm_round_sum_packed": 1}
+    assert torch.equal(z, rqm_kernel.rqm_quantize_plain(x, SEED, params, ROW_OFFSET))
+    assert int(z.min()) >= 0 and int(z.max()) <= m - 1
+    assert torch.equal(dense, fused_round_kernel.round_sum_plain(
+        x, w, SEED, ROW_OFFSET, params))
+    assert torch.equal(dense, (z * w[:, None]).sum(0, dtype=torch.int32))
+    assert torch.equal(packed, fused_round_kernel.round_sum_packed_plain(
+        x, w, SEED, ROW_OFFSET, params, 16))
+    assert torch.equal(packed, wire.pack_bits(dense, 16))
+
+
+def _weights(kind: str, rows: int, rng) -> np.ndarray:
+    if kind == "ones":
+        return np.ones(rows, np.int32)
+    if kind == "zeros_and_large":
+        return np.where(np.arange(rows) % 2 == 0, 0, (1 << 20) + 7).astype(np.int32)
+    if kind == "large":
+        return rng.integers(1000, 5000, rows).astype(np.int32)
+    return rng.choice(np.array([0, 1, 2, 1000], np.int32), rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,dim,bits,weights", [
+    (1, 1, 10, "ones"),              # one word; its other fields are padding
+    (1, 2000, 10, "large"),          # one row; 667 words, not a multiple of the tile
+    (7, 95, 4, "zeros_and_large"),   # 8 fields a word; row groups of 2, the last of 1
+    (23, 3001, 10, "mixed"),         # 1001 words; row groups of 3, the last of 2
+    (40, 3001, 16, "large"),         # the top field across the sign bit
+], ids=str)
+@pytest.mark.parametrize("name", ["rqm", "qmgeo"])
+def test_packed_round_sum_ragged(cuda, name, rows, dim, bits, weights):
+    """The packed kernel's tiles of 32 words and its row groups at ragged
+    edges, with zero and large weights (fields may overflow: the words
+    are sums mod 2**32 on both sides): equal to the plain version."""
+    params = QUANTIZE[name][0]
+    rng = np.random.default_rng(rows * 1000 + dim)
+    x = _batch(cuda, rows, dim, seed=dim)
+    w = torch.from_numpy(_weights(weights, rows, rng)).to(cuda)
+    ops.reset_launches()
+    got = fused_round_kernel.round_sum_packed(x, w, SEED, ROW_OFFSET, params, bits, name)
+    assert dict(ops.launches) == {f"{name}_round_sum_packed": 1}
+    assert got.shape == (wire.packed_words(dim, bits),)
+    assert torch.equal(got, fused_round_kernel.round_sum_packed_plain(
+        x, w, SEED, ROW_OFFSET, params, bits, name))
+    if bits == 16:
+        assert bool((got < 0).any())  # a word with the sign bit set
+    if weights == "ones":  # no field overflows
+        dense = fused_round_kernel.round_sum(x, w, SEED, ROW_OFFSET, params, name)
+        assert torch.equal(got, wire.pack_bits(dense, bits))
+
+
+@pytest.mark.cuda
 def test_quantize_refuses_what_the_kernel_does_not_take(cuda):
     params = QUANTIZE["pbm"][0]
     with pytest.raises(ValueError, match="float32"):
