@@ -13,10 +13,14 @@ which raises and exits non-zero:
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the main paths' shapes (a cohort of 40 rows, the CNN's
      222,030 coordinates, 10-bit fields, 74,010 packed words; the quantize
-     kernels at row offset 0 and 7, rqm_quantize also at m=64 and q=0.5,
-     two keep-mask words; the wire codec also at 16 bits with the top
-     field across the sign bit; the folded decode_apply in float32 and
-     bfloat16): results bit-exact; device times from
+     kernels at row offset 0 and 7; at edge parameters rqm_quantize at
+     m=64 and q=0.5 (two keep-mask words), pbm_quantize and its round sum
+     at theta=1/2 (p = 0 and 1 reached) and m in {1, 16, 17} with NaN
+     inputs, qmgeo_quantize and both its round sums at m in {2, 33, 100,
+     5000} (a one-node tree, a padded tree, the walk, the walk past its
+     tabled weights); the wire codec also at 16
+     bits with the top field across the sign bit; the folded decode_apply
+     in float32 and bfloat16): results bit-exact; device times from
      torch.profiler (or, should no profiling session hold the kernel, by
      CUDA events around calls queued behind a sleeping kernel), whole-call
      times by CUDA events, and the least time
@@ -90,23 +94,29 @@ FIG3_ROUNDS = 120
 FIG3_FED = dict(num_clients=300, clients_per_round=20, lr=1.0, eval_size=800,
                 samples_per_client=20, data_noise=1.5, data_deform=1.2)
 
-# H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3. Integer work is
-# bounded by instruction issue: each of an SM's 4 schedulers issues one
-# 32-lane instruction per clock, and the shifts, xors and compares (ALU
-# pipe) and the multiplies and adds (IMAD, which can also do the right
-# shifts) run on separate pipes, so no single 64-lane pipe binds tighter
-# than issue. expf issues one MUFU.EX2 on the special-function units, 16
-# results per SM per clock (CUDA programming guide, compute capability 9.0).
+# H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3, 132 SMs at
+# 1.98 GHz. Integer work runs on two pipes of 64 lanes an SM (16 a
+# scheduler; CUDA programming guide, compute capability 9.0: 64 results a
+# clock an SM for 32-bit integer add, shift, compare, logic and multiply),
+# which issue side by side: the ALU pipe (LOP3, SHF, IADD3) and the FMA
+# pipe (IMAD, and the VIADD adds). A xor runs on the ALU pipe alone and a
+# multiply on the FMA pipe alone; an add (IADD3 or VIADD) and a right shift
+# (SHF, or IMAD.HI by 2^(32-k)) run on either. The least time of a draw is
+# then the largest of its ALU-only ops on one pipe, its FMA-only ops on the
+# other, and all its ops spread over both.
 HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 132 * 4 * 32 * 1.98e9
-MUFU_OPS_PER_S = 132 * 16 * 1.98e9
-# integer operations counted per needed splitmix32 draw: the add of the
-# stream salt and mix32's first two rounds (a shift, a xor and a multiply
-# each). Not counted, so the bound stays below the least time: mix32's
-# last shift-xor (it leaves the top 16 bits as they are, and they decide
-# u < p but for 1 draw in 65,536), the compare, and every per-element
-# step (clip, the IEEE divisions, the level arithmetic, the sum).
-INT_OPS_PER_DRAW = 7
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
+FMA_OPS_PER_S = 132 * 64 * 1.98e9
+# operations counted per needed splitmix32 draw: the add of the stream
+# salt and mix32's first two rounds, a shift, a xor and a multiply each.
+# Not counted, so the bound stays below the least time: mix32's last
+# shift-xor (it leaves the top 16 bits as they are, and they decide u < p
+# but for 1 draw in 65,536), the compare, and every per-element step (clip,
+# the IEEE divisions, the level arithmetic, QMGeo's table search, the
+# sum). QMGeo's m+1 expf are made once a block, not an element: no term.
+ALU_ONLY_OPS_PER_DRAW = 2  # the xors
+FMA_ONLY_OPS_PER_DRAW = 2  # the multiplies
+EITHER_OPS_PER_DRAW = 3    # the salt's add, the two shifts
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -192,11 +202,15 @@ def device_ms(torch, fn, reps: int, symbol: tuple) -> tuple[float, str]:
     return queued_ms(torch, fn, reps), "events"
 
 
-def bound(nbytes: int, int_ops: int = 0, mufu_ops: int = 0) -> tuple[float, str]:
-    """The larger of the bytes over HBM's rate and the operations over
-    their pipes' rates (integer issue and MUFU overlap: the larger binds)."""
+def bound(nbytes: int, draws: int = 0) -> tuple[float, str]:
+    """The larger of the bytes over HBM's rate and the needed draws'
+    operations over the integer pipes' rates, scheduled as evenly as each
+    operation's pipe allows."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(int_ops / INT_OPS_PER_S, mufu_ops / MUFU_OPS_PER_S) * 1e3
+    ops = ALU_ONLY_OPS_PER_DRAW + FMA_ONLY_OPS_PER_DRAW + EITHER_OPS_PER_DRAW
+    t_ops = draws * max(ALU_ONLY_OPS_PER_DRAW / ALU_OPS_PER_S,
+                        FMA_ONLY_OPS_PER_DRAW / FMA_OPS_PER_S,
+                        ops / (ALU_OPS_PER_S + FMA_OPS_PER_S)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -225,36 +239,28 @@ def rqm_needed_draws(torch, x, seed: int, params) -> int:
 def pbm_needed_draws(torch, x, params) -> int:
     """PBM's count of successes needs all m trials of every element whose
     p is strictly inside (0, 1)."""
-    c = torch.tensor(params.c, dtype=torch.float32, device=x.device)
-    p = 0.5 + params.theta * x.clamp(-params.c, params.c) / c
+    from repro_torch.kernels.pbm_kernel import success_prob
+
+    p = success_prob(x, params)
     return params.m * int(((p > 0) & (p < 1)).sum())
 
 
-def qmgeo_needed_work(torch, x, seed: int, params) -> tuple[int, int]:
-    """(splitmix32 draws, expf) that the QMGeo encode of this (rows, dim)
-    x, at row offset 0, needs: the noise draw, the rounding draw unless
-    p_up is 0 or 1; and one exp for each distinct |k - j| the walk reaches
-    before it can stop (k up to the output level z, or m-2 when z is
-    clamped at m-1) together with the normaliser's j+1 and m-1-j."""
+def qmgeo_needed_draws(torch, x, seed: int, params) -> int:
+    """splitmix32 draws that the QMGeo encode of this (rows, dim) x, at
+    row offset 0, needs: the noise draw, and the rounding draw unless p_up
+    is 0 or 1. Its exponentials depend on the bin alone: m+1 a block, none
+    an element."""
     from repro_torch.core.qmgeo import round_to_level
     from repro_torch.kernels.prng import random_uniform
-    from repro_torch.kernels.qmgeo_kernel import qmgeo_encode_counters
     from repro_torch.kernels.quantize import batch_counters
 
-    m = params.m
     rows, dim = x.shape
-    draws = exps = 0
+    draws = 0
     for r in range(rows):
         counter = batch_counters(r, 1, dim, 0, x.device)[0]
-        j, p_up = round_to_level(x[r], random_uniform(seed, counter, 0), params)
-        z = qmgeo_encode_counters(x[r], seed, counter, params)
-        last = z.clamp(max=m - 2)
-        for d in range(m + 1):
-            walked = (((j + d <= last) & (j + d <= m - 1))
-                      | ((j - d >= 0) & (j - d <= last)))
-            exps += int((walked | (j + 1 == d) | (m - 1 - j == d)).sum())
+        _, p_up = round_to_level(x[r], random_uniform(seed, counter, 0), params)
         draws += dim + int(((p_up > 0) & (p_up < 1)).sum())
-    return draws, exps
+    return draws
 
 
 def check_kernels(torch, np):
@@ -284,13 +290,12 @@ def check_kernels(torch, np):
     n, lr = ROWS, 0.5
     elems = x.numel()
     draws = {"rqm": rqm_needed_draws(torch, x, seed, params["rqm"]),
-             "pbm": pbm_needed_draws(torch, x, params["pbm"])}
-    draws["qmgeo"], qmgeo_exps = qmgeo_needed_work(torch, x, seed, params["qmgeo"])
-    log(f"[kernels] needed per element: draws rqm {draws['rqm'] / elems} "
-        f"pbm {draws['pbm'] / elems} qmgeo {draws['qmgeo'] / elems}, "
-        f"qmgeo expf {qmgeo_exps / elems} (the kernels make 15, 16, 2 draws "
-        f"and 18 expf)")
-    mufu = {"rqm": 0, "pbm": 0, "qmgeo": qmgeo_exps}
+             "pbm": pbm_needed_draws(torch, x, params["pbm"]),
+             "qmgeo": qmgeo_needed_draws(torch, x, seed, params["qmgeo"])}
+    log(f"[kernels] needed draws per element: rqm {draws['rqm'] / elems} "
+        f"pbm {draws['pbm'] / elems} qmgeo {draws['qmgeo'] / elems} (the kernels "
+        f"make 15, 16 and 2; QMGeo's {params['qmgeo'].m + 1} expf are made once a "
+        f"block, none an element)")
 
     dense = frk.round_sum(x, w, seed, 0, params["rqm"])
     packed = frk.round_sum_packed(x, w, seed, 0, params["rqm"], BITS)
@@ -316,16 +321,8 @@ def check_kernels(torch, np):
             source="src/repro_torch/kernels/csrc/quantize.cu", replaces=replaces,
             kernel=lambda k=kernel, p=p: k(x, seed, p, 0),
             plain=lambda k=plain, p=p: k(x, seed, p, 0),
-            nbytes=in_bytes * 2, int_ops=draws[name] * INT_OPS_PER_DRAW, mufu_ops=mufu[name]))
-    # the RQM encoder's loop over keep-mask words, which m=16 unrolls
-    wide = dataclasses.replace(params["rqm"], m=64, q=0.5)
-    got, want = rqm_kernel.rqm_quantize(x, seed, wide), rqm_kernel.rqm_quantize_plain(x, seed, wide)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"rqm_quantize at m=64, q=0.5: {int((got != want).sum())} of "
-                             f"{got.numel()} levels differ from its plain version")
-    log(f"[kernels] rqm_quantize at m=64, q=0.5: {got.numel()} levels bit-exact")
-    del got, want
+            nbytes=in_bytes * 2, draws=draws[name]))
+    check_edges(torch, x, w, seed, params)
     dense_bytes = in_bytes + ROWS * 4 + DIM * 4
     packed_bytes = in_bytes + ROWS * 4 + words * 4
     for name, encoder in (("rqm", "RQMEncoder"), ("pbm", "PBMEncoder"),
@@ -337,7 +334,7 @@ def check_kernels(torch, np):
             replaces="src/repro/kernels/fused_round_kernel.py:101",
             kernel=lambda p=p, e=name: frk.round_sum(x, w, seed, 0, p, e),
             plain=lambda p=p, e=name: frk.round_sum_plain(x, w, seed, 0, p, e),
-            nbytes=dense_bytes, int_ops=draws[name] * INT_OPS_PER_DRAW, mufu_ops=mufu[name]))
+            nbytes=dense_bytes, draws=draws[name]))
         if name in frk.PACKED_KERNELS:
             cases.append(dict(
                 name=f"{name}_round_sum_packed", symbol=("round_sum_packed_kernel", encoder),
@@ -345,8 +342,7 @@ def check_kernels(torch, np):
                 replaces="src/repro/kernels/fused_round_kernel.py:227",
                 kernel=lambda p=p, e=name: frk.round_sum_packed(x, w, seed, 0, p, BITS, e),
                 plain=lambda p=p, e=name: frk.round_sum_packed_plain(x, w, seed, 0, p, BITS, e),
-                nbytes=packed_bytes, int_ops=draws[name] * INT_OPS_PER_DRAW,
-                mufu_ops=mufu[name]))
+                nbytes=packed_bytes, draws=draws[name]))
     rqm_params = params["rqm"]
     cases += [
         dict(name="decode_apply_sum", symbol=("decode_apply_sum_kernel",),
@@ -408,8 +404,7 @@ def check_kernels(torch, np):
                 raise AssertionError(f"{case['name']}: the batch's sum differs from the "
                                      f"round sum")
         err = float((got.double() - want.double()).abs().max())
-        bound_ms, bound_by = bound(case["nbytes"], case.get("int_ops", 0),
-                                   case.get("mufu_ops", 0))
+        bound_ms, bound_by = bound(case["nbytes"], case.get("draws", 0))
         dev_ms, ms_by = device_ms(torch, case["kernel"], KERNEL_REPS, case["symbol"])
         records.append({
             "name": case["name"], "route": "cuda", "source": case["source"],
@@ -429,6 +424,50 @@ def check_kernels(torch, np):
         records[-1]["phase3_launches"] = ops.launches[case["name"]]
         log(f"[kernels] {case['name']}: bit-exact, {dev_ms} ms on the device ({ms_by})")
     return records
+
+
+def check_edges(torch, x, w, seed: int, params: dict) -> None:
+    """The encoders' other instances, at the main path's shapes: each
+    kernel bit-exact against its plain version. RQM's loop over keep-mask
+    words (m=64, q=0.5; m=16 unrolls one word); PBM at theta=1/2, where
+    x = -c, +c give p = 0, 1 (the integer threshold's edges), with NaN
+    inputs, at m=1, 16 and 17 (16 unrolls); QMGeo at m=2 (a one-node tree),
+    33 (a tree padded to 64 with +inf), 100 (the walk over W) and 5000
+    (past the walk's 4096 tabled weights; 13 rows, so that a 16-bit field
+    holds the packed sum)."""
+    from repro_torch.kernels import fused_round_kernel as frk
+    from repro_torch.kernels import pbm_kernel, qmgeo_kernel, rqm_kernel
+
+    def same(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: {int((got != want).sum())} of {got.numel()} "
+                                 f"outputs differ from its plain version")
+        log(f"[kernels] {what}: {got.numel()} outputs bit-exact")
+
+    wide = dataclasses.replace(params["rqm"], m=64, q=0.5)
+    same("rqm_quantize at m=64, q=0.5", rqm_kernel.rqm_quantize(x, seed, wide),
+         rqm_kernel.rqm_quantize_plain(x, seed, wide))
+    x_nan = x.clone()
+    x_nan[::7, ::5] = float("nan")
+    for m in (1, 16, 17):
+        p = dataclasses.replace(params["pbm"], m=m, theta=0.5)
+        same(f"pbm_quantize at m={m}, theta=0.5, NaN inputs",
+             pbm_kernel.pbm_quantize(x_nan, seed, p), pbm_kernel.pbm_quantize_plain(x_nan, seed, p))
+        same(f"pbm_round_sum_dense at m={m}, theta=0.5, NaN inputs",
+             frk.round_sum(x_nan, w, seed, 0, p, "pbm"),
+             frk.round_sum_plain(x_nan, w, seed, 0, p, "pbm"))
+    del x_nan
+    for m, rows in ((2, ROWS), (33, ROWS), (100, ROWS), (5000, 13)):
+        p = dataclasses.replace(params["qmgeo"], m=m)
+        xm, wm = x[:rows], w[:rows]
+        same(f"qmgeo_quantize at m={m}", qmgeo_kernel.qmgeo_quantize(xm, seed, p),
+             qmgeo_kernel.qmgeo_quantize_plain(xm, seed, p))
+        same(f"qmgeo_round_sum_dense at m={m}", frk.round_sum(xm, wm, seed, 0, p, "qmgeo"),
+             frk.round_sum_plain(xm, wm, seed, 0, p, "qmgeo"))
+        same(f"qmgeo_round_sum_packed at m={m}",
+             frk.round_sum_packed(xm, wm, seed, 0, p, 16, "qmgeo"),
+             frk.round_sum_packed_plain(xm, wm, seed, 0, p, 16, "qmgeo"))
 
 
 def check_codec(torch, pack_kernel, dense, packed) -> None:

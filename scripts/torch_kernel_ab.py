@@ -1,5 +1,5 @@
-"""Time the port's RQM quantize and round-sum kernels of an earlier source
-tree against this tree's, in turns, on one CUDA card.
+"""Time the port's quantize and round-sum kernels of an earlier source tree
+against this tree's, in turns, on one CUDA card.
 
     git archive <rev> -- src/repro_torch/kernels/csrc | tar -x -C build/parent
     python scripts/torch_kernel_ab.py --parent build/parent/src/repro_torch/kernels/csrc
@@ -7,21 +7,24 @@ tree against this tree's, in turns, on one CUDA card.
 Both trees' ``quantize.cu`` and ``round_sum.cu`` are built with the port's
 nvcc flags (all four builds at once), and each library is called through
 ctypes at ``chip_smoke.py`` phase 3's inputs: a cohort of 40 rows of the
-CNN's 222,030 coordinates, uniform in +-1.2 c, 10-bit packed words. Five
-cases: ``rqm_quantize`` at the paper's m=16, q=0.42 and at m=64, q=0.5,
-the two RQM round sums and ``qmgeo_round_sum_packed``. Each library's
-result must equal the plain PyTorch version bit for bit. The device times
-are then taken in turns (parent, tree, tree, parent) by
+CNN's 222,030 coordinates, uniform in +-1.2 c, 10-bit packed words, the
+paper's mechanisms (rqm m=16 q=0.42, pbm m=16 theta=0.25, qmgeo m=16
+r=0.6). Ten cases: the three quantize entries and ``rqm_quantize`` at
+m=64, q=0.5; the three dense round sums; the two packed ones. Each
+library's result must equal the plain PyTorch version bit for bit. The
+device times are then taken in turns (parent, tree, tree, parent) by
 ``chip_smoke.device_ms`` (torch.profiler, mean of 30 launches) and
 ``chip_smoke.queued_ms`` (CUDA events behind a sleeping kernel).
 
 The RQM entries of a tree up to commit 698c532 take the float ``q``
 (``--parent-abi q``, the default); later trees, this one among them, take
-the integer keep constants (``--parent-abi keep``). Per library the script prints ptxas's
-registers and, where the toolkit has ``cuobjdump``, the opcode counts of
-the RQM and packed QMGeo kernels' SASS (the ``I2F*`` count among them).
-Everything it writes goes under ``--out`` (default ``build/ab``): the
-builds, ptxas and SASS text, and ``times.json``.
+the integer keep constants (``--parent-abi keep``). The PBM and QMGeo
+entries take the same arguments in every tree. Per library the script
+prints ptxas's registers and spills of every kernel instance and, where
+the toolkit has ``cuobjdump``, each instance's static SASS opcode counts
+by pipe (``PIPES``: the opcode-to-pipe map of the H100's SM, for reading,
+not for timing). Everything it writes goes under ``--out`` (default
+``build/ab``): the builds, ptxas and SASS text, and ``times.json``.
 """
 from __future__ import annotations
 
@@ -45,12 +48,28 @@ import chip_smoke  # noqa: E402
 from repro_torch.core import wire  # noqa: E402
 from repro_torch.core.grid import RQMParams  # noqa: E402
 from repro_torch.core.mechanisms import make_mechanism  # noqa: E402
-from repro_torch.kernels import _build, qmgeo_kernel, rqm_kernel  # noqa: E402
+from repro_torch.kernels import _build, pbm_kernel, qmgeo_kernel, rqm_kernel  # noqa: E402
 from repro_torch.kernels import fused_round_kernel as frk  # noqa: E402
 
 ROWS, DIM, BITS = chip_smoke.ROWS, chip_smoke.DIM, chip_smoke.BITS
 LIBS = ("quantize", "round_sum")
 P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+# SASS opcode -> the SM pipe that executes it (by base name, before the
+# first '.'); uniform-datapath opcodes (U*) count as "uniform", the rest as
+# "other" (branches, barriers, special registers). VIADD counts on the FMA
+# pipe: PERF.md's issue model of the PBM and QMGeo parents fits only so.
+PIPES = {
+    "alu": ("LOP3", "SHF", "IADD3", "ISETP", "SEL", "FSEL", "FSETP", "FMNMX", "IMNMX",
+            "LEA", "PRMT", "IABS", "FLO", "POPC", "BMSK", "SGXT", "PLOP3", "P2R", "R2P",
+            "I2FP", "F2IP", "VIMNMX", "MOV", "SHL", "SHR"),
+    "fma": ("FFMA", "FADD", "FMUL", "IMAD", "IMUL", "VIADD", "HFMA2", "HADD2", "HMUL2",
+            "FSWZADD"),
+    "mufu": ("MUFU",),
+    "conversion": ("I2F", "F2I", "F2F", "FRND"),
+    "memory": ("LDG", "STG", "LDS", "STS", "LDC", "LD", "ST", "LDL", "STL", "ATOM", "ATOMS",
+               "RED"),
+}
+PIPE_OF = {op: pipe for pipe, ops in PIPES.items() for op in ops}
 
 
 def log(msg: str) -> None:
@@ -79,10 +98,12 @@ def sass_report(tag: str, lib: str, path: str, out: str) -> None:
         if m and fn:
             ops[fn][m.group(2)] += 1
     for fn, c in ops.items():
-        if "RQM" in fn or ("QMGeo" in fn and "packed" in fn):
-            top = ", ".join(f"{k} {v}" for k, v in c.most_common(14))
-            log(f"[sass] {tag} {fn}: {sum(c.values())} instructions; "
-                f"I2F* {c['I2F'] + c['I2FP']}; {top}")
+        pipes = collections.Counter()
+        for op, n in c.items():
+            pipes[PIPE_OF.get(op, "uniform" if op.startswith("U") else "other")] += n
+        top = ", ".join(f"{k} {v}" for k, v in c.most_common(12))
+        log(f"[sass] {tag} {fn}: {sum(c.values())} instructions; by pipe "
+            f"{dict(pipes.most_common())}; {top}")
 
 
 def build_all(trees: dict, out: str) -> dict:
@@ -107,8 +128,10 @@ def build_all(trees: dict, out: str) -> dict:
             if m:
                 fn = short(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
-            if m and fn and ("RQM" in fn or ("QMGeo" in fn and "packed" in fn)):
+            if m and fn:
                 log(f"[ptxas] {tag} {lib}: {m.group(1)} registers  {fn}")
+            if fn and "spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
+                log(f"[ptxas] {tag} {lib}: {line.strip()}  {fn}")
         libs[(tag, lib)] = ctypes.CDLL(so)
         sass_report(tag, lib, so, out)
     return libs
@@ -130,8 +153,8 @@ def main() -> int:
     log(f"[env] {chip_smoke.nvidia_smi()}; torch {torch.__version__} cuda {torch.version.cuda}")
     libs = build_all(trees, args.out)
 
-    params = make_mechanism(chip_smoke.SPECS["rqm"]).params
-    qparams = make_mechanism(chip_smoke.SPECS["qmgeo"]).params
+    mech = {name: make_mechanism(chip_smoke.SPECS[name]).params for name in ("rqm", "pbm", "qmgeo")}
+    params = mech["rqm"]
     wide = RQMParams(c=params.c, delta=params.delta, m=64, q=0.5)
     rng = np.random.default_rng(2024)
     c = params.c
@@ -143,7 +166,11 @@ def main() -> int:
            "dense": torch.empty(DIM, dtype=torch.int32, device="cuda"),
            "packed": torch.empty(words, dtype=torch.int32, device="cuda")}
 
-    def rqm_args(tag, p):
+    def kernel_args(tag, name, p):
+        if name == "pbm":
+            return pbm_kernel.kernel_args(p)
+        if name == "qmgeo":
+            return qmgeo_kernel.kernel_args(p)
         if tag == "tree" or args.parent_abi == "keep":
             return rqm_kernel.kernel_args(p)
         k = rqm_kernel.f32_constants(p)  # the float-q entries of commit 698c532
@@ -160,40 +187,45 @@ def main() -> int:
             return result
         return call
 
-    def quantize(tag, p):
-        t, v = rqm_args(tag, p)
-        return launcher(tag, "quantize", "rqm_quantize", (P, P, I, I, U, U) + t + (P,),
+    def quantize(tag, name, p):
+        t, v = kernel_args(tag, name, p)
+        return launcher(tag, "quantize", f"{name}_quantize", (P, P, I, I, U, U) + t + (P,),
                         (x.data_ptr(), out["quantize"].data_ptr(), ROWS, DIM, seed, 0, *v),
                         out["quantize"])
 
-    def dense(tag):
-        t, v = rqm_args(tag, params)
-        return launcher(tag, "round_sum", "rqm_round_sum_dense", (P, P, P, I, I, U, U) + t + (P,),
+    def dense(tag, name):
+        t, v = kernel_args(tag, name, mech[name])
+        return launcher(tag, "round_sum", f"{name}_round_sum_dense",
+                        (P, P, P, I, I, U, U) + t + (P,),
                         (x.data_ptr(), w.data_ptr(), out["dense"].data_ptr(), ROWS, DIM, seed, 0,
                          *v), out["dense"])
 
-    def packed(tag, entry="rqm_round_sum_packed"):
-        t, v = (qmgeo_kernel.kernel_args(qparams) if entry.startswith("qmgeo")
-                else rqm_args(tag, params))
-        return launcher(tag, "round_sum", entry, (P, P, P, I, I, I, I, U, U) + t + (P,),
+    def packed(tag, name):
+        t, v = kernel_args(tag, name, mech[name])
+        return launcher(tag, "round_sum", f"{name}_round_sum_packed",
+                        (P, P, P, I, I, I, I, U, U) + t + (P,),
                         (x.data_ptr(), w.data_ptr(), out["packed"].data_ptr(), ROWS, DIM, words,
                          BITS, seed, 0, *v), out["packed"])
 
-    cases = {
-        "rqm_quantize": (lambda tag: quantize(tag, params), ("quantize_kernel", "RQMEncoder"),
-                         lambda: rqm_kernel.rqm_quantize_plain(x, seed, params, 0)),
-        "rqm_quantize m=64 q=0.5": (lambda tag: quantize(tag, wide),
-                                    ("quantize_kernel", "RQMEncoder"),
-                                    lambda: rqm_kernel.rqm_quantize_plain(x, seed, wide, 0)),
-        "rqm_round_sum_dense": (dense, ("round_sum_dense_kernel", "RQMEncoder"),
-                                lambda: frk.round_sum_plain(x, w, seed, 0, params)),
-        "rqm_round_sum_packed": (packed, ("round_sum_packed_kernel", "RQMEncoder"),
-                                 lambda: frk.round_sum_packed_plain(x, w, seed, 0, params, BITS)),
-        "qmgeo_round_sum_packed": (lambda tag: packed(tag, "qmgeo_round_sum_packed"),
-                                   ("round_sum_packed_kernel", "QMGeoEncoder"),
-                                   lambda: frk.round_sum_packed_plain(x, w, seed, 0, qparams,
-                                                                      BITS, "qmgeo")),
-    }
+    plain_quantize = {"rqm": rqm_kernel.rqm_quantize_plain, "pbm": pbm_kernel.pbm_quantize_plain,
+                      "qmgeo": qmgeo_kernel.qmgeo_quantize_plain}
+    encoder = {"rqm": "RQMEncoder", "pbm": "PBMEncoder", "qmgeo": "QMGeoEncoder"}
+    cases = {}
+    for name in ("rqm", "pbm", "qmgeo"):
+        cases[f"{name}_quantize"] = (
+            lambda tag, n=name: quantize(tag, n, mech[n]), ("quantize_kernel", encoder[name]),
+            lambda n=name: plain_quantize[n](x, seed, mech[n], 0))
+    cases["rqm_quantize m=64 q=0.5"] = (
+        lambda tag: quantize(tag, "rqm", wide), ("quantize_kernel", "RQMEncoder"),
+        lambda: rqm_kernel.rqm_quantize_plain(x, seed, wide, 0))
+    for name in ("rqm", "pbm", "qmgeo"):
+        cases[f"{name}_round_sum_dense"] = (
+            lambda tag, n=name: dense(tag, n), ("round_sum_dense_kernel", encoder[name]),
+            lambda n=name: frk.round_sum_plain(x, w, seed, 0, mech[n], n))
+    for name in frk.PACKED_KERNELS:
+        cases[f"{name}_round_sum_packed"] = (
+            lambda tag, n=name: packed(tag, n), ("round_sum_packed_kernel", encoder[name]),
+            lambda n=name: frk.round_sum_packed_plain(x, w, seed, 0, mech[n], BITS, n))
     results = {"card": chip_smoke.nvidia_smi(), "times": {}}
     for name, (make, symbol, plain) in cases.items():
         want = plain()

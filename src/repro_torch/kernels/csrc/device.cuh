@@ -1,6 +1,8 @@
 // The card's shape that the launchers size their grids by, read from the
 // runtime once per device and kept: a launch then makes one cheap
-// cudaGetDevice call, not three queries.
+// cudaGetDevice call, not three queries. Also the block's dynamic shared
+// memory, which the packed round sum's partial sums and the QMGeo encoder's
+// level tables (qmgeo_encode.cuh) live in.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -31,6 +33,13 @@ inline DeviceShape device_shape() {
     }
   }
   return shape;
+}
+
+// The block's dynamic shared memory: one declaration for every kernel of a
+// library, 16-byte aligned.
+__device__ __forceinline__ unsigned char* dynamic_shared() {
+  extern __shared__ __align__(16) unsigned char repro_dynamic_shared[];
+  return repro_dynamic_shared;
 }
 
 }  // namespace repro

@@ -15,15 +15,18 @@
 //
 // The per-element bodies are the same device functions the round sums inline
 // (rqm_encode.cuh, pbm_encode.cuh, qmgeo_encode.cuh). Each element reads 4
-// bytes and writes 4, and makes the encoder's draws (15 splitmix32 draws for
-// RQM at m=16, 16 for PBM) or, for QMGeo, 2 draws and 18 expf: the bound on
-// an H100 is the larger of the 8 bytes per element and that work, which
-// chip_smoke.py computes from the run's own data. The encode's instructions,
-// not the bytes, set the time: what the RQM encoder does about that is in
-// rqm_encode.cuh. Neighbouring threads take neighbouring elements, so loads
-// and stores coalesce, and the grid (up to 16 blocks of 256 per SM, two
-// rounds of the 8 an SM holds) keeps 64 warps on every SM to hide the hash's
-// latency.
+// bytes and writes 4, and makes the encoder's splitmix32 draws: 15 for RQM
+// and 16 for PBM at m=16, 2 for QMGeo, whose m+1 expf are made once a block
+// into its level tables (no expf an element). The bound on an H100 is the
+// larger of the 8 bytes per element and the draws the data needs on the
+// integer pipes, which chip_smoke.py computes from the run's own data. The
+// hashes, not the bytes, set RQM's and PBM's time: what their encoders do
+// about that is in rqm_encode.cuh and pbm_encode.cuh. An encoder's setup runs
+// once a block before the element loop (QMGeo's tables, in dynamic shared
+// memory; nothing for the others). Neighbouring threads take neighbouring
+// elements, so loads and stores coalesce, and the grid (up to 16 blocks of
+// 256 per SM, two rounds of the 8 an SM holds at 32 registers a thread)
+// keeps up to 64 warps on every SM to hide the encode's latency.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -38,10 +41,24 @@ namespace {
 template <class Encoder>
 __global__ void quantize_kernel(const float* __restrict__ x, int* __restrict__ z,
                                 int64_t n, uint32_t seed, uint32_t base,
-                                Encoder encode) {
+                                Encoder encoder) {
+  const Encoder encode = encoder.setup(repro::dynamic_shared());
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // an encoder with kBatch > 1 loads kBatch elements before it encodes
+  // them, so a thread has that many loads in flight (qmgeo_encode.cuh)
+  if constexpr (Encoder::kBatch > 1) {
+    for (; i + (Encoder::kBatch - 1) * stride < n; i += Encoder::kBatch * stride) {
+      float v[Encoder::kBatch];
+#pragma unroll
+      for (int b = 0; b < Encoder::kBatch; ++b) v[b] = x[i + b * stride];
+#pragma unroll
+      for (int b = 0; b < Encoder::kBatch; ++b) {
+        z[i + b * stride] = encode(v[b], seed, base + static_cast<uint32_t>(i + b * stride));
+      }
+    }
+  }
+  for (; i < n; i += stride) {
     z[i] = encode(x[i], seed, base + static_cast<uint32_t>(i));
   }
 }
@@ -59,7 +76,8 @@ int launch(const float* x, int* z, int rows, int dim, uint32_t seed,
   if (blocks > max_blocks) blocks = max_blocks;
   // (row_offset + r) * dim + c == row_offset * dim + i, mod 2^32
   const uint32_t base = row_offset * static_cast<uint32_t>(dim);
-  quantize_kernel<<<static_cast<int>(blocks), kThreads, 0,
+  const size_t shared = encode.shared_bytes();
+  quantize_kernel<<<static_cast<int>(blocks), kThreads, shared,
                     static_cast<cudaStream_t>(stream)>>>(x, z, n, seed, base, encode);
   return static_cast<int>(cudaGetLastError());
 }
@@ -78,17 +96,19 @@ int rqm_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
 
 int pbm_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
                  uint32_t row_offset, float c, float theta, int m, void* stream) {
-  return launch(x, z, rows, dim, seed, row_offset, repro::PBMEncoder{{c, theta, m}},
-                stream);
+  return repro::pbm_dispatch({c, theta, m}, [&](auto encode) {
+    return launch(x, z, rows, dim, seed, row_offset, encode, stream);
+  });
 }
 
 int qmgeo_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
                    uint32_t row_offset, float c, float x_max, float step,
                    float log_r, float inv_1mr, float r_over_1mr, int m,
                    void* stream) {
-  return launch(x, z, rows, dim, seed, row_offset,
-                repro::QMGeoEncoder{{c, x_max, step, log_r, inv_1mr, r_over_1mr, m}},
-                stream);
+  return repro::qmgeo_dispatch({c, x_max, step, log_r, inv_1mr, r_over_1mr, m},
+                               [&](auto encode) {
+    return launch(x, z, rows, dim, seed, row_offset, encode, stream);
+  });
 }
 
 const char* quantize_error_string(int err) {

@@ -6,6 +6,9 @@
 // (the PBM mechanism's sum never travels packed: its decode is not the grid
 // decode the packed apply performs).
 //
+// An encoder's setup runs once a block before the rows (the QMGeo encoder's
+// level tables, in dynamic shared memory beside the packed kernel's partial
+// sums; nothing for the others: qmgeo_encode.cuh).
 // On the TPU the cohort rows are an inner sequential grid axis that revisits
 // the output block. Here the rows are a loop inside a thread, the sum an
 // integer one in registers: no atomics and no cross-block reduction. The
@@ -19,7 +22,9 @@
 // per element (15 at m=16), of which the data needs 5.5 (out to the nearest
 // kept level on each side, and the rounding draw; chip_smoke.py counts them
 // for the bound). rqm_encode.cuh says why every keep draw is still made and
-// how each costs less. What is left to the layout is to give every SM an
+// how each costs less; the PBM encoder makes m draws, each a bare hash and an
+// integer compare (pbm_encode.cuh), and the QMGeo encoder 2 and a search of
+// its level tables (qmgeo_encode.cuh). What is left to the layout is to give every SM an
 // equal share of the encodes, with enough warps to hide the hash's latency.
 //
 //  * Dense: one thread per column loops over the rows (222,030 threads in 868
@@ -30,6 +35,7 @@
 // RNG counter of element (r, c): (row_offset + r) * dim + c, as in JAX.
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 #include "device.cuh"
@@ -39,23 +45,51 @@
 
 namespace {
 
+// sum_{r in [r_begin, r_end)} w[r] * encode(x[r][c]), wrapping. An encoder
+// with kBatch > 1 takes kBatch rows at once, loaded before it encodes them
+// (qmgeo_encode.cuh says why); the rest go one at a time.
 template <class Encoder>
-__global__ void round_sum_dense_kernel(const float* __restrict__ x,
-                                       const int* __restrict__ w,
-                                       int* __restrict__ out, int rows, int dim,
-                                       uint32_t seed, uint32_t row_offset,
-                                       Encoder encode) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= dim) return;
+__device__ __forceinline__ uint32_t column_sum(const float* __restrict__ x,
+                                               const int* __restrict__ w, int r_begin,
+                                               int r_end, int dim, int c, uint32_t seed,
+                                               uint32_t row_offset, const Encoder& encode) {
   uint32_t acc = 0;
-  for (int r = 0; r < rows; ++r) {
+  int r = r_begin;
+  if constexpr (Encoder::kBatch > 1) {
+    for (; r + Encoder::kBatch <= r_end; r += Encoder::kBatch) {
+      float v[Encoder::kBatch];
+#pragma unroll
+      for (int b = 0; b < Encoder::kBatch; ++b) v[b] = x[static_cast<size_t>(r + b) * dim + c];
+#pragma unroll
+      for (int b = 0; b < Encoder::kBatch; ++b) {
+        const uint32_t counter = (row_offset + static_cast<uint32_t>(r + b)) *
+                                     static_cast<uint32_t>(dim) +
+                                 static_cast<uint32_t>(c);
+        const int z = encode(v[b], seed, counter);
+        acc += static_cast<uint32_t>(z) * static_cast<uint32_t>(w[r + b]);
+      }
+    }
+  }
+  for (; r < r_end; ++r) {
     const uint32_t counter = (row_offset + static_cast<uint32_t>(r)) *
                                  static_cast<uint32_t>(dim) +
                              static_cast<uint32_t>(c);
     const int z = encode(x[static_cast<size_t>(r) * dim + c], seed, counter);
     acc += static_cast<uint32_t>(z) * static_cast<uint32_t>(w[r]);
   }
-  out[c] = static_cast<int>(acc);
+  return acc;
+}
+
+template <class Encoder>
+__global__ void round_sum_dense_kernel(const float* __restrict__ x,
+                                       const int* __restrict__ w,
+                                       int* __restrict__ out, int rows, int dim,
+                                       uint32_t seed, uint32_t row_offset,
+                                       Encoder encoder) {
+  const Encoder encode = encoder.setup(repro::dynamic_shared());
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= dim) return;
+  out[c] = static_cast<int>(column_sum(x, w, 0, rows, dim, c, seed, row_offset, encode));
 }
 
 // Word wi carries coordinate c = f * words + wi in field f. A block owns a
@@ -83,26 +117,31 @@ __global__ void round_sum_dense_kernel(const float* __restrict__ x,
 constexpr int kTile = 32;         // words per block, one warp's width
 constexpr int kMaxBlock = 1024;   // kTile x fields x groups threads at most
 
+// Shared bytes of the partial sums of `slots` = fields x groups, rounded up
+// to 16 so that the encoder's tables after them are aligned.
+__host__ __device__ constexpr size_t part_bytes(unsigned slots) {
+  return (sizeof(uint32_t) * kTile * slots + 15) & ~static_cast<size_t>(15);
+}
+static_assert(part_bytes(kMaxBlock / kTile) + repro::kQMGeoMaxTableBytes <= 48 * 1024,
+              "a block's shared memory fits the 48 KB a launch has without an opt-in");
+
 template <class Encoder>
 __global__ void __launch_bounds__(kMaxBlock, 2)  // <= 32 registers: 2048 threads an SM
 round_sum_packed_kernel(const float* __restrict__ x, const int* __restrict__ w,
                         int* __restrict__ out, int rows, int dim, int words, int bits,
                         int rows_per_group, uint32_t seed, uint32_t row_offset,
-                        Encoder encode) {
-  extern __shared__ uint32_t part[];  // [group][field][kTile]
+                        Encoder encoder) {
+  // [group][field][kTile] partial sums, then the encoder's tables
+  uint32_t* part = reinterpret_cast<uint32_t*>(repro::dynamic_shared());
+  const Encoder encode = encoder.setup(repro::dynamic_shared() +
+                                       part_bytes(blockDim.y * blockDim.z));
   const int t = threadIdx.x, f = threadIdx.y, g = threadIdx.z;
   const int wi = blockIdx.x * kTile + t;
   const int c = f * words + wi;
   uint32_t partial = 0;
   if (wi < words && c < dim) {
     const int r_end = min(rows, (g + 1) * rows_per_group);
-    for (int r = g * rows_per_group; r < r_end; ++r) {
-      const uint32_t counter = (row_offset + static_cast<uint32_t>(r)) *
-                                   static_cast<uint32_t>(dim) +
-                               static_cast<uint32_t>(c);
-      const int z = encode(x[static_cast<size_t>(r) * dim + c], seed, counter);
-      partial += static_cast<uint32_t>(z) * static_cast<uint32_t>(w[r]);
-    }
+    partial = column_sum(x, w, g * rows_per_group, r_end, dim, c, seed, row_offset, encode);
   }
   part[(g * blockDim.y + f) * kTile + t] = partial << (f * bits);
   __syncthreads();
@@ -121,7 +160,8 @@ template <class Encoder>
 int launch_dense(const float* x, const int* w, int* out, int rows, int dim,
                  uint32_t seed, uint32_t row_offset, Encoder encode, void* stream) {
   const int blocks = (dim + kThreads - 1) / kThreads;
-  round_sum_dense_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t shared = encode.shared_bytes();
+  round_sum_dense_kernel<<<blocks, kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
       x, w, out, rows, dim, seed, row_offset, encode);
   return static_cast<int>(cudaGetLastError());
 }
@@ -142,7 +182,8 @@ int launch_packed(const float* x, const int* w, int* out, int rows, int dim,
   const int rows_per_group = static_cast<int>((rows + groups - 1) / groups);
   groups = (rows + rows_per_group - 1) / rows_per_group;  // no empty group
   const dim3 block(kTile, fields, static_cast<unsigned>(groups));
-  const size_t shared = sizeof(uint32_t) * kTile * fields * groups;
+  const size_t shared = part_bytes(static_cast<unsigned>(fields * groups)) +
+                        encode.shared_bytes();
   round_sum_packed_kernel<<<tiles, block, shared, static_cast<cudaStream_t>(stream)>>>(
       x, w, out, rows, dim, words, bits, rows_per_group, seed, row_offset, encode);
   return static_cast<int>(cudaGetLastError());
@@ -164,17 +205,19 @@ int rqm_round_sum_dense(const float* x, const int* w, int* out, int rows, int di
 int pbm_round_sum_dense(const float* x, const int* w, int* out, int rows, int dim,
                         uint32_t seed, uint32_t row_offset, float c, float theta,
                         int m, void* stream) {
-  return launch_dense(x, w, out, rows, dim, seed, row_offset,
-                      repro::PBMEncoder{{c, theta, m}}, stream);
+  return repro::pbm_dispatch({c, theta, m}, [&](auto encode) {
+    return launch_dense(x, w, out, rows, dim, seed, row_offset, encode, stream);
+  });
 }
 
 int qmgeo_round_sum_dense(const float* x, const int* w, int* out, int rows, int dim,
                           uint32_t seed, uint32_t row_offset, float c, float x_max,
                           float step, float log_r, float inv_1mr, float r_over_1mr,
                           int m, void* stream) {
-  return launch_dense(
-      x, w, out, rows, dim, seed, row_offset,
-      repro::QMGeoEncoder{{c, x_max, step, log_r, inv_1mr, r_over_1mr, m}}, stream);
+  return repro::qmgeo_dispatch({c, x_max, step, log_r, inv_1mr, r_over_1mr, m},
+                               [&](auto encode) {
+    return launch_dense(x, w, out, rows, dim, seed, row_offset, encode, stream);
+  });
 }
 
 int rqm_round_sum_packed(const float* x, const int* w, int* out, int rows, int dim,
@@ -191,9 +234,11 @@ int qmgeo_round_sum_packed(const float* x, const int* w, int* out, int rows, int
                            int words, int bits, uint32_t seed, uint32_t row_offset,
                            float c, float x_max, float step, float log_r,
                            float inv_1mr, float r_over_1mr, int m, void* stream) {
-  return launch_packed(
-      x, w, out, rows, dim, words, bits, seed, row_offset,
-      repro::QMGeoEncoder{{c, x_max, step, log_r, inv_1mr, r_over_1mr, m}}, stream);
+  return repro::qmgeo_dispatch({c, x_max, step, log_r, inv_1mr, r_over_1mr, m},
+                               [&](auto encode) {
+    return launch_packed(x, w, out, rows, dim, words, bits, seed, row_offset, encode,
+                         stream);
+  });
 }
 
 const char* round_sum_error_string(int err) {

@@ -43,6 +43,7 @@
 // of the unconditional loop, and 75% to 89% of warps run to full depth anyway.
 // What shrinks is the cost of each draw, not their number.
 #pragma once
+#include <cstddef>
 #include <cstdint>
 
 #include "prng.cuh"
@@ -102,7 +103,12 @@ __device__ __forceinline__ int rqm_encode(float x, uint32_t seed, uint32_t count
 
 template <int kM>
 struct RQMEncoder {
+  // elements a thread loads at once: 4 took 2% to 6% off the m=16 entries
+  // on an H100 and added 4% at m=64 (PERF.md); 1 keeps the measured SASS
+  static constexpr int kBatch = 1;
   RQMConsts p;
+  size_t shared_bytes() const { return 0; }
+  __device__ __forceinline__ RQMEncoder setup(unsigned char*) const { return *this; }
   __device__ __forceinline__ int operator()(float x, uint32_t seed,
                                             uint32_t counter) const {
     return rqm_encode<kM>(x, seed, counter, p);

@@ -9,6 +9,10 @@ in ``csrc/pbm_encode.cuh``: m Bernoulli trials on streams 0..m-1,
 in that association. ``pbm_quantize`` encodes a (rows, dim) batch (the
 Pallas kernel ``pbm_quantize_2d``, CUDA entry ``pbm_quantize`` in
 ``csrc/quantize.cu``).
+
+The device function tests each draw in integers, ``bits <= (K << 8) - 1``
+with K = ``prob_threshold(p)``; ``pbm_encode_threshold`` transcribes that
+form for the tests, which hold it to the float compare above.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import torch
 from repro_torch.core.pbm import PBMParams
 from repro_torch.kernels import quantize
 from repro_torch.kernels._build import F32, I32
-from repro_torch.kernels.prng import random_uniform
+from repro_torch.kernels.prng import MASK32, random_bits, random_uniform
 
 
 def f32_constants(params: PBMParams) -> dict:
@@ -33,19 +37,46 @@ def kernel_args(params: PBMParams):
     return (F32, F32, I32), (k["c"], k["theta"], params.m)
 
 
-def pbm_encode_counters(x: torch.Tensor, seed: int, counter: torch.Tensor,
-                        params: PBMParams) -> torch.Tensor:
-    """int32 Binomial(m, p(x)) draws where element i draws counter ``counter[i]``."""
+def success_prob(x: torch.Tensor, params: PBMParams) -> torch.Tensor:
+    """float32 p(x) = 1/2 + (theta * clip(x)) / c; NaN stays NaN."""
     k = f32_constants(params)
     # divide by a device tensor: PyTorch's CUDA division by a Python
     # scalar multiplies by its reciprocal, which is not IEEE division
     c = torch.tensor(k["c"], dtype=torch.float32, device=x.device)
     x = x.to(torch.float32).clamp(-k["c"], k["c"])
-    p = 0.5 + (k["theta"] * x) / c
+    return 0.5 + (k["theta"] * x) / c
+
+
+def pbm_encode_counters(x: torch.Tensor, seed: int, counter: torch.Tensor,
+                        params: PBMParams) -> torch.Tensor:
+    """int32 Binomial(m, p(x)) draws where element i draws counter ``counter[i]``."""
+    p = success_prob(x, params)
     z = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
     for trial in range(params.m):
         z = z + (random_uniform(seed, counter, trial) < p).to(torch.int32)
     return z
+
+
+def prob_threshold(prob: torch.Tensor) -> torch.Tensor:
+    """int64 K = ceil(prob * 2**24), saturated to [0, 2**24], 0 where prob
+    is NaN. A draw's uniform ``k * 2**-24`` (k = bits >> 8) is below the
+    float32 prob iff the integer k is below K: the product is exact in
+    float32, and an integer is below a real iff it is below its ceiling."""
+    k = torch.ceil(prob.to(torch.float32) * float(1 << 24))
+    return torch.nan_to_num(k, nan=0.0).clamp(0, 1 << 24).to(torch.int64)
+
+
+def pbm_encode_threshold(x: torch.Tensor, seed: int, counter: torch.Tensor,
+                         params: PBMParams) -> torch.Tensor:
+    """``pbm_encode_counters`` as ``csrc/pbm_encode.cuh`` computes it: each
+    draw's 32 bits against ``(K << 8) - 1`` (mod 2**32), which K = 2**24
+    wraps to take every draw, and a count of 0 where K is 0."""
+    k = prob_threshold(success_prob(x, params))
+    threshold = ((k << 8) - 1) & MASK32
+    z = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for trial in range(params.m):
+        z = z + (random_bits(seed, counter, trial) <= threshold).to(torch.int32)
+    return torch.where(k != 0, z, 0)
 
 
 def pbm_quantize_plain(x: torch.Tensor, seed: int, params: PBMParams,

@@ -200,6 +200,61 @@ def test_rqm_kernels_at_edge_m(cuda, m):
     assert torch.equal(packed, wire.pack_bits(dense, 16))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 17])
+def test_pbm_kernels_at_edges(cuda, m):
+    """pbm_quantize and pbm_round_sum_dense at theta = 1/2, where x = -c and
+    +c give p = 0 and 1 (the integer threshold's two edges), with NaN
+    inputs (no draw succeeds), at m = 1, 16 (the unrolled instance) and 17:
+    equal to their plain versions, and to each other."""
+    params = PBMParams(c=0.02, m=m, theta=0.5)
+    x = _batch(cuda, 40, 3001, seed=m)
+    x[::7, ::5] = float("nan")
+    x[1::7, ::3] = 0.02
+    x[2::7, ::3] = -0.02
+    w = torch.from_numpy((np.arange(40) % 3 != 0).astype(np.int32)).to(cuda)
+    ops.reset_launches()
+    z = pbm_kernel.pbm_quantize(x, SEED, params, ROW_OFFSET)
+    dense = fused_round_kernel.round_sum(x, w, SEED, ROW_OFFSET, params, "pbm")
+    assert dict(ops.launches) == {"pbm_quantize": 1, "pbm_round_sum_dense": 1}
+    assert torch.equal(z, pbm_kernel.pbm_quantize_plain(x, SEED, params, ROW_OFFSET))
+    assert torch.equal(dense, fused_round_kernel.round_sum_plain(
+        x, w, SEED, ROW_OFFSET, params, "pbm"))
+    assert torch.equal(dense, (z * w[:, None]).sum(0, dtype=torch.int32))
+    assert bool((z[torch.isnan(x)] == 0).all())
+    assert bool((z[x >= 0.02] == m).all()) and bool((z[x <= -0.02] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0.1, 0.6, 0.95])
+@pytest.mark.parametrize("m", [2, 16, 33, 64, 100, 5000])
+def test_qmgeo_kernels_at_edge_m(cuda, m, r):
+    """qmgeo_quantize and both QMGeo round sums at m = 2 (a one-node
+    tree), 16 (the unrolled tree), 33 (a tree padded to 64 with +inf), 64
+    (the largest tree, 17 KB of tables), 100 (the walk over W) and 5000
+    (past the walk's 4096 tabled weights): equal to their plain versions,
+    and to each other. 13 rows at m = 5000, so that a 16-bit field holds
+    the sum."""
+    params = QMGeoParams(c=0.02, delta=0.02, m=m, r=r)
+    rows = 40 if m <= 100 else 13
+    x = _batch(cuda, rows, 3001, seed=m)
+    w = torch.from_numpy((np.arange(rows) % 5 != 0).astype(np.int32)).to(cuda)
+    ops.reset_launches()
+    z = qmgeo_kernel.qmgeo_quantize(x, SEED, params, ROW_OFFSET)
+    dense = fused_round_kernel.round_sum(x, w, SEED, ROW_OFFSET, params, "qmgeo")
+    packed = fused_round_kernel.round_sum_packed(x, w, SEED, ROW_OFFSET, params, 16, "qmgeo")
+    assert dict(ops.launches) == {"qmgeo_quantize": 1, "qmgeo_round_sum_dense": 1,
+                                  "qmgeo_round_sum_packed": 1}
+    assert torch.equal(z, qmgeo_kernel.qmgeo_quantize_plain(x, SEED, params, ROW_OFFSET))
+    assert int(z.min()) >= 0 and int(z.max()) <= m - 1
+    assert torch.equal(dense, fused_round_kernel.round_sum_plain(
+        x, w, SEED, ROW_OFFSET, params, "qmgeo"))
+    assert torch.equal(dense, (z * w[:, None]).sum(0, dtype=torch.int32))
+    assert torch.equal(packed, fused_round_kernel.round_sum_packed_plain(
+        x, w, SEED, ROW_OFFSET, params, 16, "qmgeo"))
+    assert torch.equal(packed, wire.pack_bits(dense, 16))
+
+
 def _weights(kind: str, rows: int, rng) -> np.ndarray:
     if kind == "ones":
         return np.ones(rows, np.int32)
