@@ -20,42 +20,61 @@ which raises and exits non-zero:
      5000} (a one-node tree, a padded tree, the walk, the walk past its
      tabled weights); the wire codec also at 16
      bits with the top field across the sign bit; the folded decode_apply
-     in float32 and bfloat16): results bit-exact; device times from
+     in float32 and bfloat16); each quantize and round-sum entry's _dev
+     twin, which reads the seed from device memory, with the seed as a
+     device tensor, against its plain version and its by-value entry:
+     results bit-exact; device times from
      torch.profiler (or, should no profiling session hold the kernel, by
      CUDA events around calls queued behind a sleeping kernel), whole-call
      times by CUDA events, and the least time
      the card could take (its bound), each printed as one JSON line after
      phase 7 with its launches;
   4. fused path: 5 rounds of the paper's EMNIST configuration through
-     FedTrainer with fused rounds and the packed wire, then the same 5
-     rounds with the dense wire, which must give identical parameters;
+     FedTrainer with fused rounds, packed and dense wire, on the perround
+     engine and on the scan engine (each round a replay of a captured CUDA
+     graph): identical parameters and sums;
   5. default path: ``FedTrainer(spec, FedConfig())``, the reference's
-     default round (materialized, scan engine), 5 rounds for each Fig. 3
-     mechanism (rqm, pbm, qmgeo, none); each must launch one quantize
-     kernel per round and equal, bit for bit, the same rounds on the
-     perround engine and with fused rounds (packed and dense);
-  5b. shard path: ``FedConfig(engine="shard", shards=1)``, the scan
-     engine over a one-rank NCCL process group, 5 rounds for each
-     mechanism, each bit-identical to its default run of phase 5 and
+     default round (materialized, scan engine, graphed), 5 rounds for each
+     Fig. 3 mechanism (rqm, pbm, qmgeo, none), equal in parameters, bit
+     for bit, to the same rounds on the perround engine; beside it the
+     same round keeping its sums (``collect_sums=True``), equal in
+     parameters and sums to the perround engine's and to the fused rounds
+     (packed and dense, eager and graphed). Each materialized run must
+     launch one quantize kernel per round (the _dev entry under the
+     graph, the by-value one eager);
+  5b. shard path: ``engine="shard", shards=1``, eager rounds over a
+     one-rank NCCL process group, 5 rounds for each
+     mechanism, each bit-identical to its graphed run of phase 5 that
+     keeps its sums and
      launching pack_flat and unpack_flat once a round around the
      all_reduce (not 'none', whose float sum is never packed); for rqm
      also the unpacked sum, streamed staging, and the fused packed and
      dense rounds under the shard engine, all bit-identical to it;
-  6. profile: device time by kernel over 3 more rounds of each default
-     trainer, of the fused packed one and of the rqm shard trainer
-     (tables in build/profiles/);
+  5c. host clock: FedConfig()'s rqm round, no profiler running: the eager
+     perround round's host ms by stage and wall ms, the graphed scan
+     round's host ms against its wall ms (blocks run under
+     ``torch.cuda.set_sync_debug_mode("error")``), and rounds/s of both
+     over 5 blocks of 20 rounds, median and range;
+  6. profile: device time by kernel over 3 more rounds of FedConfig()'s
+     trainer for each mechanism (graphed; phase 5's, and phase 5c's for
+     rqm), of the graphed fused packed
+     one, the rqm shard one and the eager perround one (tables in
+     build/profiles/), and what the eager round's fill kernels fill;
   7. Fig. 3 report: held-out accuracy and Renyi eps at alpha=8 after 120
-     default rounds of benchmarks/fig3_fl_emnist.py's FED settings, and
-     whether noise-free >= RQM >= PBM held (reported, not gated).
+     default rounds of benchmarks/fig3_fl_emnist.py's FED settings;
+     whether noise-free >= RQM >= PBM held, and the reference's own
+     ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
+     (reported, not gated).
 
 Every run of phases 4, 5 and 5b sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
 to decode_sum then SGD); its record has ``"path": null`` and phase 3's
-launches. The second-last lines are one JSON
-object of per-kernel measurements and the card's name and power limit;
-the last line is the run's result. Exits non-zero, printing no result,
+launches. A replayed CUDA graph adds the launches its capture recorded,
+so a graphed run too reads ROUNDS launches of each of its kernels. The
+second-last lines are one JSON object of per-kernel measurements and the
+card's name and power limit; the last line is the run's result. Exits non-zero, printing no result,
 when CUDA is unavailable.
 """
 from __future__ import annotations
@@ -84,6 +103,8 @@ SPECS = {
 }
 ROUNDS = 5
 PROFILE_ROUNDS = 3
+HOST_ROUNDS = 20  # a block of phase 5c
+HOST_REPS = 5
 KERNEL_REPS = 30
 PLAIN_REPS = 5
 PROFILE_TRIES = 3
@@ -184,8 +205,9 @@ def device_ms(torch, fn, reps: int, symbol: tuple) -> tuple[float, str]:
     around each call, torch.profiler's CUDA trace over ``reps`` calls
     leaves out the wrapper's host time, which is longer than the short
     elementwise kernels. A profiling session's trace can come back
-    without the kernel's records, so up to PROFILE_TRIES sessions are
-    made; when none holds them, the time is ``queued_ms``'s."""
+    without some or all of the kernel's records, so up to PROFILE_TRIES
+    sessions are made; when none holds all ``reps`` of them, the time is
+    ``queued_ms``'s."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -195,10 +217,9 @@ def device_ms(torch, fn, reps: int, symbol: tuple) -> tuple[float, str]:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.device_time_total for e in prof.key_averages()
-                       if all(s in e.key for s in symbol))
-        if total_us:
-            return total_us / reps / 1e3, "profiler"
+        kept = [e for e in prof.key_averages() if all(s in e.key for s in symbol)]
+        if sum(e.count for e in kept) == reps:
+            return sum(e.device_time_total for e in kept) / reps / 1e3, "profiler"
     return queued_ms(torch, fn, reps), "events"
 
 
@@ -277,6 +298,7 @@ def check_kernels(torch, np):
         qmgeo_kernel,
         rqm_kernel,
     )
+    from repro_torch.kernels.prng import seed_bits
 
     params = {name: make_mechanism(SPECS[name]).params for name in ("rqm", "pbm", "qmgeo")}
     rng = np.random.default_rng(2024)
@@ -297,6 +319,8 @@ def check_kernels(torch, np):
         f"make 15, 16 and 2; QMGeo's {params['qmgeo'].m + 1} expf are made once a "
         f"block, none an element)")
 
+    # the seed as a captured round reads it: a 1-element int32 device tensor
+    seed_t = torch.tensor([seed_bits(seed)], dtype=torch.int32, device="cuda")
     dense = frk.round_sum(x, w, seed, 0, params["rqm"])
     packed = frk.round_sum_packed(x, w, seed, 0, params["rqm"], BITS)
     in_bytes = elems * 4
@@ -319,9 +343,9 @@ def check_kernels(torch, np):
         cases.append(dict(
             name=f"{name}_quantize", symbol=("quantize_kernel", encoder),
             source="src/repro_torch/kernels/csrc/quantize.cu", replaces=replaces,
-            kernel=lambda k=kernel, p=p: k(x, seed, p, 0),
-            plain=lambda k=plain, p=p: k(x, seed, p, 0),
-            nbytes=in_bytes * 2, draws=draws[name]))
+            kernel=lambda sd, k=kernel, p=p: k(x, sd, p, 0),
+            plain=lambda sd, k=plain, p=p: k(x, sd, p, 0),
+            nbytes=in_bytes * 2, draws=draws[name], seeded=True))
     check_edges(torch, x, w, seed, params)
     dense_bytes = in_bytes + ROWS * 4 + DIM * 4
     packed_bytes = in_bytes + ROWS * 4 + words * 4
@@ -332,17 +356,18 @@ def check_kernels(torch, np):
             name=f"{name}_round_sum_dense", symbol=("round_sum_dense_kernel", encoder),
             source="src/repro_torch/kernels/csrc/round_sum.cu",
             replaces="src/repro/kernels/fused_round_kernel.py:101",
-            kernel=lambda p=p, e=name: frk.round_sum(x, w, seed, 0, p, e),
-            plain=lambda p=p, e=name: frk.round_sum_plain(x, w, seed, 0, p, e),
-            nbytes=dense_bytes, draws=draws[name]))
+            kernel=lambda sd, p=p, e=name: frk.round_sum(x, w, sd, 0, p, e),
+            plain=lambda sd, p=p, e=name: frk.round_sum_plain(x, w, sd, 0, p, e),
+            nbytes=dense_bytes, draws=draws[name], seeded=True))
         if name in frk.PACKED_KERNELS:
             cases.append(dict(
                 name=f"{name}_round_sum_packed", symbol=("round_sum_packed_kernel", encoder),
                 source="src/repro_torch/kernels/csrc/round_sum.cu",
                 replaces="src/repro/kernels/fused_round_kernel.py:227",
-                kernel=lambda p=p, e=name: frk.round_sum_packed(x, w, seed, 0, p, BITS, e),
-                plain=lambda p=p, e=name: frk.round_sum_packed_plain(x, w, seed, 0, p, BITS, e),
-                nbytes=packed_bytes, draws=draws[name]))
+                kernel=lambda sd, p=p, e=name: frk.round_sum_packed(x, w, sd, 0, p, BITS, e),
+                plain=lambda sd, p=p, e=name: frk.round_sum_packed_plain(x, w, sd, 0, p, BITS,
+                                                                         e),
+                nbytes=packed_bytes, draws=draws[name], seeded=True))
     rqm_params = params["rqm"]
     cases += [
         dict(name="decode_apply_sum", symbol=("decode_apply_sum_kernel",),
@@ -383,6 +408,7 @@ def check_kernels(torch, np):
              nbytes=DIM * 12),
     ]
     check_codec(torch, pack_kernel, dense, packed)
+    cases = [c for case in cases for c in seeded(case, seed, seed_t)]
     records = []
     for case in cases:
         ops.reset_launches()
@@ -392,6 +418,8 @@ def check_kernels(torch, np):
             differ = int((got != want).sum()) if got.shape == want.shape else "all"
             raise AssertionError(f"{case['name']}: {differ} of {want.numel()} outputs "
                                  f"differ from its plain version")
+        if "twin" in case and not torch.equal(got, case["twin"]()):
+            raise AssertionError(f"{case['name']} differs from its by-value entry")
         if case["name"].endswith("_round_sum_packed"):
             enc = case["name"].split("_")[0]
             if not torch.equal(got, wire.pack_bits(frk.round_sum(x, w, seed, 0, params[enc],
@@ -424,6 +452,19 @@ def check_kernels(torch, np):
         records[-1]["phase3_launches"] = ops.launches[case["name"]]
         log(f"[kernels] {case['name']}: bit-exact, {dev_ms} ms on the device ({ms_by})")
     return records
+
+
+def seeded(case: dict, seed: int, seed_t) -> list:
+    """A case as phase 3 runs it. A seeded case's calls take the seed: its
+    by-value entry gets the int, and its ``_dev`` twin, which reads the
+    seed from device memory as a captured round does, the tensor; the twin
+    must also equal the by-value entry's output."""
+    if not case.pop("seeded", False):
+        return [case]
+    kernel, plain = case["kernel"], case["plain"]
+    return [dict(case, kernel=lambda: kernel(seed), plain=lambda: plain(seed)),
+            dict(case, name=f"{case['name']}_dev", kernel=lambda: kernel(seed_t),
+                 plain=lambda: plain(seed_t), twin=lambda: kernel(seed))]
 
 
 def check_edges(torch, x, w, seed: int, params: dict) -> None:
@@ -515,9 +556,13 @@ def profile_rounds(torch, tr, rounds: int, tag: str) -> dict:
     """Device time by kernel over ``rounds`` more rounds of a warm
     trainer, from torch.profiler; the full table goes to
     build/profiles/<tag>.txt (git-ignored). The busy share is summed
-    kernel time over the wall time, which the profiler itself inflates."""
+    kernel time over the wall time, which the profiler itself inflates.
+    Only device events count: a CPU op's own device time is that of the
+    kernels it launched, which are events of their own."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    tr.round()  # a graphed trainer captures its round in its first block
     for _ in range(PROFILE_TRIES):  # a session's trace can come back empty
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -526,7 +571,8 @@ def profile_rounds(torch, tr, rounds: int, tag: str) -> dict:
                 tr.round()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        avgs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        avgs = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
         if avgs:
             break
     else:
@@ -595,7 +641,8 @@ def run_path(torch, spec: str, cfg, expect: dict, tag: str):
         raise AssertionError(f"{tag}: parameters are not finite")
     metrics = tr.evaluate()
     log(json.dumps({
-        "run": tag, "engine": cfg.engine, "fused_rounds": cfg.fused_rounds,
+        "run": tag, "engine": cfg.engine, "graphed": getattr(tr.engine, "graph", None) is not None,
+        "fused_rounds": cfg.fused_rounds, "collect_sums": cfg.collect_sums,
         "pack_bits": tr.pack_bits, "shards": tr.shards, "staging": cfg.staging,
         "staged_bytes_total": tr.staged_bytes_total, "rounds": ROUNDS, "setup_s": setup_s,
         "first_round_s": first_s, "steady_rounds_per_s": (ROUNDS - 1) / steady_s,
@@ -604,14 +651,140 @@ def run_path(torch, spec: str, cfg, expect: dict, tag: str):
     return tr, counts
 
 
-def same_params(torch, runs: dict, what: str) -> None:
+def same_runs(torch, runs: dict, what: str, sums: bool = True) -> None:
+    """Every run has the first one's parameters and, with ``sums``, its
+    collected sums, bit for bit."""
+    import numpy as np
+
     (first_tag, first), *rest = runs.items()
     for tag, tr in rest:
         if not torch.equal(tr.flat, first.flat):
             differ = int((tr.flat != first.flat).sum())
             raise AssertionError(f"{what}: {tag} and {first_tag} differ in {differ} "
                                  f"parameters")
-    log(f"[main] {what}: {', '.join(runs)} bit-identical")
+        if sums and (len(tr.round_sums) != len(first.round_sums) or not all(
+                np.array_equal(a, b) for a, b in zip(tr.round_sums, first.round_sums))):
+            raise AssertionError(f"{what}: {tag} and {first_tag} collected different sums")
+    log(f"[main] {what}: {', '.join(runs)} bit-identical "
+        + (f"({len(first.round_sums)} sums each)" if sums else "(parameters)"))
+
+
+def host_clock(torch, FedConfig) -> tuple[dict, dict]:
+    """Phase 5c: the rqm default round on the host's clock, no profiler
+    running, at the paper's widths. The eager perround round, taken apart
+    into its stages (each stage's host time to issue its work, and the
+    round's wall time to a synchronize after it), then the graphed scan
+    round (host time to issue a block against its wall time), each over
+    HOST_ROUNDS rounds; then rounds/s of both over HOST_REPS blocks of
+    HOST_ROUNDS rounds, as median and range. The graphed blocks run under
+    torch.cuda.set_sync_debug_mode("error"), so a synchronisation inside
+    one raises. The stage-by-stage rounds must equal the graphed scan's bit
+    for bit. Returns the report and both trainers."""
+    from repro_torch.fed import cohort, rounds
+    from repro_torch.fed.trainer import FedTrainer
+
+    per = FedTrainer(SPECS["rqm"], FedConfig(engine="perround"), device="cuda")
+    scan = FedTrainer(SPECS["rqm"], FedConfig(), device="cuda")
+    finish = rounds.make_decode_apply(per.mech, per.cfg, per.slate, per.server_opt)
+
+    def staged_round() -> dict:
+        """One perround round, stage by stage: the host's ms for each."""
+        marks = [("start", time.perf_counter())]
+
+        def mark(stage):
+            marks.append((stage, time.perf_counter()))
+
+        ids = cohort.sample_slate(per.cfg, per.slate, per.generator)
+        seed = cohort.draw_seed(per.generator)
+        mark("cohort draw")
+        ids = torch.as_tensor(ids, device=per.flat.device)
+        mark("ids copy")
+        batch = rounds.index_batch(per.client_data, ids)
+        mark("index")
+        grads = per.client_grads(per.flat, batch)
+        mark("vmap(grad) dispatch")
+        z = per.mech.quantize_batch(grads, seed)
+        mark("encode")
+        z_sum = z.sum(0, dtype=z.dtype)
+        mark("sum")
+        per.flat, _ = finish(per.flat, z_sum)
+        mark("decode+apply")
+        torch.cuda.synchronize()
+        mark("wall")
+        out = {stage: (t - marks[i][1]) * 1e3 for i, (stage, t) in enumerate(marks[1:-1])}
+        out["wall"] = (marks[-1][1] - marks[0][1]) * 1e3
+        return out
+
+    def graphed_block() -> tuple[float, float]:
+        """HOST_ROUNDS graphed rounds: host ms to issue them, wall ms."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scan.run_block(HOST_ROUNDS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    scan.run_block(1)  # warm-up and capture
+    staged_round()
+    stages = [staged_round() for _ in range(HOST_ROUNDS)]
+    host_ms, wall_ms = graphed_block()
+    if not torch.equal(per.flat, scan.flat):
+        raise AssertionError("host clock: the staged perround rounds differ from the graphed "
+                             "scan's")
+    rates = {"perround": [], "scan": []}
+    for _ in range(HOST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per.engine.advance(HOST_ROUNDS)
+        torch.cuda.synchronize()
+        rates["perround"].append(HOST_ROUNDS / (time.perf_counter() - t0))
+        rates["scan"].append(HOST_ROUNDS * 1e3 / graphed_block()[1])
+    if not torch.equal(per.flat, scan.flat):
+        raise AssertionError("host clock: perround and graphed scan differ after the reps")
+    report = {
+        "spec": SPECS["rqm"], "rounds": HOST_ROUNDS,
+        "perround_host_ms_per_stage": {
+            k: statistics.median(st[k] for st in stages) for k in stages[0] if k != "wall"},
+        "perround_wall_ms_per_round": statistics.median(st["wall"] for st in stages),
+        "scan_host_ms_per_round": host_ms / HOST_ROUNDS,
+        "scan_wall_ms_per_round": wall_ms / HOST_ROUNDS,
+        "sync_debug_mode": "error",
+        "rounds_per_s": {
+            engine: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                     "reps": len(v), "each": v}
+            for engine, v in rates.items()},
+    }
+    return report, {"perround": per, "scan": scan}
+
+
+def fill_sources(torch, tr, rounds: int) -> dict:
+    """Device ms a round of the fill kernels of an eager round, by the ops
+    above each aten::fill_ and its shape (torch.profiler)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(rounds):
+            tr.round()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.events():
+        if e.name != "aten::fill_" or not e.device_time_total:
+            continue
+        chain, parent = [], e.cpu_parent
+        while parent is not None and len(chain) < 4:
+            chain.append(parent.name)
+            parent = parent.cpu_parent
+        shape = e.input_shapes[0] if e.input_shapes else None
+        out[f"{' < '.join(chain) or 'top'} {shape}"] += e.device_time_total / 1e3 / rounds
+    return dict(out.most_common(12))
 
 
 def fig3_report(torch, FedConfig) -> dict:
@@ -627,11 +800,17 @@ def fig3_report(torch, FedConfig) -> dict:
         torch.cuda.synchronize()
         out[name] = {"accuracy": hist[-1]["accuracy"], "loss": hist[-1]["loss"],
                      "rdp_eps_alpha8": tr.accountant.rdp_epsilon(8.0),
+                     "per_round_eps_alpha8": tr.mech.per_round_epsilon(
+                         tr.cfg.clients_per_round, 8.0),
                      "seconds": time.perf_counter() - t0}
         del tr
     acc = {k: v["accuracy"] for k, v in out.items()}
+    rqm, pbm = out["rqm"], out["pbm"]
     return {"rounds": FIG3_ROUNDS, "fed": FIG3_FED, "by_mechanism": out,
-            "noise_free_ge_rqm_ge_pbm": acc["none"] >= acc["rqm"] >= acc["pbm"]}
+            "noise_free_ge_rqm_ge_pbm": acc["none"] >= acc["rqm"] >= acc["pbm"],
+            # the reference benchmark's own claim (fig3_fl_emnist.py:128)
+            "tradeoff_ok": (rqm["accuracy"] >= pbm["accuracy"] - 0.02
+                            and rqm["per_round_eps_alpha8"] < pbm["per_round_eps_alpha8"])}
 
 
 def main() -> int:
@@ -682,83 +861,120 @@ def main() -> int:
             paths.setdefault(k, []).append(tag)
         return tr
 
-    # phase 4: the fused paper round, packed and dense wire
-    paper = FedConfig()
-    fused = dataclasses.replace(paper, engine="perround", fused_rounds=True)
+    # Phases 4-5b keep every round's sum (collect_sums), so that runs
+    # compare sums as well as parameters, but for phase 5's FedConfig()
+    # runs, which compare parameters. The scan engine's runs are graphed
+    # and launch the _dev entries; perround and shard run eagerly and
+    # launch the by-value ones.
+    R = ROUNDS
+    kept = FedConfig(collect_sums=True)
+    perround = dataclasses.replace(kept, engine="perround")
+    fused = dataclasses.replace(perround, fused_rounds=True)
     fused_dense = dataclasses.replace(fused, wire_packed=False)
+    scan_fused = dataclasses.replace(kept, fused_rounds=True)
+    scan_fused_dense = dataclasses.replace(scan_fused, wire_packed=False)
+
+    def packed_expect(name, dev):
+        return {f"{name}_round_sum_packed{dev}": R, "unpack_decode_apply": R, "unpack_flat": R}
+
+    def dense_expect(name, dev):
+        return ({f"{name}_round_sum_dense{dev}": R} if name == "pbm" else
+                {f"{name}_round_sum_dense{dev}": R, "decode_apply_sum": R})
+
+    # phase 4: the fused paper round, packed and dense wire, perround and scan
     rqm_fused = {
-        "rqm fused packed": run(SPECS["rqm"], fused, {"rqm_round_sum_packed": ROUNDS,
-                                                      "unpack_decode_apply": ROUNDS},
+        "rqm fused packed": run(SPECS["rqm"], fused, packed_expect("rqm", ""),
                                 "rqm fused packed"),
-        "rqm fused dense": run(SPECS["rqm"], fused_dense, {"rqm_round_sum_dense": ROUNDS,
-                                                           "decode_apply_sum": ROUNDS},
+        "rqm fused dense": run(SPECS["rqm"], fused_dense, dense_expect("rqm", ""),
                                "rqm fused dense"),
+        "rqm scan fused packed": run(SPECS["rqm"], scan_fused, packed_expect("rqm", "_dev"),
+                                     "rqm scan fused packed"),
+        "rqm scan fused dense": run(SPECS["rqm"], scan_fused_dense,
+                                    dense_expect("rqm", "_dev"), "rqm scan fused dense"),
     }
-    same_params(torch, rqm_fused, "packed and dense wire")
+    same_runs(torch, rqm_fused, "packed and dense wire, perround and graphed scan")
+    fused_profiled = rqm_fused["rqm scan fused packed"]
 
     # phase 5: the reference's default round for every Fig. 3 mechanism,
-    # against the perround engine and the fused rounds the mechanism has
+    # graphed, against the perround engine; the same round keeping its
+    # sums against the perround engine's and the fused rounds the
+    # mechanism has, each both eager and graphed
     fused_paths = {
-        "pbm": {"pbm fused dense": (fused, {"pbm_round_sum_dense": ROUNDS})},
-        "qmgeo": {"qmgeo fused packed": (fused, {"qmgeo_round_sum_packed": ROUNDS,
-                                                  "unpack_decode_apply": ROUNDS}),
-                  "qmgeo fused dense": (fused_dense, {"qmgeo_round_sum_dense": ROUNDS,
-                                                      "decode_apply_sum": ROUNDS})},
+        "pbm": {"pbm fused dense": (fused, dense_expect("pbm", "")),
+                "pbm scan fused dense": (scan_fused, dense_expect("pbm", "_dev"))},
+        "qmgeo": {"qmgeo fused packed": (fused, packed_expect("qmgeo", "")),
+                  "qmgeo fused dense": (fused_dense, dense_expect("qmgeo", "")),
+                  "qmgeo scan fused packed": (scan_fused, packed_expect("qmgeo", "_dev")),
+                  "qmgeo scan fused dense": (scan_fused_dense, dense_expect("qmgeo", "_dev"))},
     }
-    default_trainers = {}
+    default_trainers, kept_trainers = {}, {}
     for name, spec in SPECS.items():
-        expect = {} if name == "none" else {f"{name}_quantize": ROUNDS}
-        default = run(spec, paper, expect, f"{name} default")
-        perround = run(spec, dataclasses.replace(paper, engine="perround"), expect,
-                       f"{name} perround")
-        same_params(torch, {f"{name} default": default, f"{name} perround": perround},
-                    f"{name}: scan and perround")
+        quantize = {} if name == "none" else {f"{name}_quantize": R}
+        dev = {f"{k}_dev": v for k, v in quantize.items()}
+        default = run(spec, FedConfig(), dev, f"{name} default")
+        runs = {f"{name} scan sums": run(spec, kept, dev, f"{name} scan sums"),
+                f"{name} perround": run(spec, perround, quantize, f"{name} perround")}
+        same_runs(torch, {f"{name} default": default, f"{name} perround":
+                          runs[f"{name} perround"]}, f"{name}: FedConfig(), graphed scan "
+                  "and perround", sums=False)
         others = rqm_fused if name == "rqm" else {
             tag: run(spec, cfg, fused_expect, tag)
             for tag, (cfg, fused_expect) in fused_paths.get(name, {}).items()}
-        if others:
-            same_params(torch, {f"{name} default": default, **others},
-                        f"{name}: materialized and fused")
-        default_trainers[name] = default
+        same_runs(torch, {**runs, **others}, f"{name} keeping sums: graphed scan, perround"
+                  + (", materialized and fused" if others else ""))
+        if name != "rqm":  # phase 6 profiles them; rqm's default is phase 5c's
+            default_trainers[name] = default
+        kept_trainers[name] = runs[f"{name} scan sums"]
+        del default, runs, others
+    del rqm_fused
 
     # phase 5b: the shard engine at one NCCL rank, against phase 5's runs
-    shard = dataclasses.replace(paper, engine="shard", shards=1)
-    codec = {"pack_flat": ROUNDS, "unpack_flat": ROUNDS}
-    shard_trainers = {}
+    shard = dataclasses.replace(kept, engine="shard", shards=1)
+    codec = {"pack_flat": R, "unpack_flat": R}
+    shard_profiled = None
     for name, spec in SPECS.items():
-        expect = {} if name == "none" else {f"{name}_quantize": ROUNDS, **codec}
-        shard_trainers[name] = run(spec, shard, expect, f"{name} shard")
-        same_params(torch, {f"{name} default": default_trainers[name],
-                            f"{name} shard": shard_trainers[name]},
-                    f"{name}: scan and shard")
+        expect = {} if name == "none" else {f"{name}_quantize": R, **codec}
+        tr = run(spec, shard, expect, f"{name} shard")
+        same_runs(torch, {f"{name} scan sums": kept_trainers[name], f"{name} shard": tr},
+                  f"{name}: graphed scan and shard")
+        if name == "rqm":
+            shard_profiled = tr
+        del tr
     rqm_shard = {
-        "rqm shard": shard_trainers["rqm"],
+        "rqm shard": shard_profiled,
         "rqm shard unpacked": run(SPECS["rqm"], dataclasses.replace(shard, shard_packed=False),
-                                  {"rqm_quantize": ROUNDS}, "rqm shard unpacked"),
+                                  {"rqm_quantize": R}, "rqm shard unpacked"),
         "rqm shard stream": run(SPECS["rqm"], dataclasses.replace(shard, staging="stream"),
-                                {"rqm_quantize": ROUNDS, **codec}, "rqm shard stream"),
+                                {"rqm_quantize": R, **codec}, "rqm shard stream"),
         "rqm shard fused packed": run(
             SPECS["rqm"], dataclasses.replace(shard, fused_rounds=True),
-            {"rqm_round_sum_packed": ROUNDS, "unpack_decode_apply": ROUNDS},
-            "rqm shard fused packed"),
+            packed_expect("rqm", ""), "rqm shard fused packed"),
         "rqm shard fused dense": run(
             SPECS["rqm"], dataclasses.replace(shard, fused_rounds=True, wire_packed=False),
-            {"rqm_round_sum_dense": ROUNDS, **codec, "decode_apply_sum": ROUNDS},
+            {"rqm_round_sum_dense": R, **codec, "decode_apply_sum": R},
             "rqm shard fused dense"),
     }
-    same_params(torch, {"rqm default": default_trainers["rqm"], **rqm_shard},
-                "rqm: scan and shard (packed, unpacked, streamed, fused)")
-    del rqm_shard
+    same_runs(torch, {"rqm scan sums": kept_trainers["rqm"], **rqm_shard},
+              "rqm: graphed scan and shard (packed, unpacked, streamed, fused)")
+    del rqm_shard, kept_trainers
 
-    # phase 6: where a warm round spends device time
+    # phase 5c: the round on the host's clock, no profiler running
+    clock, clocked = host_clock(torch, FedConfig)
+    log(json.dumps({"host_clock": clock}))
+
+    # phase 6: where a warm round spends device time, FedConfig()'s round
+    # for each mechanism (graphed), the graphed fused packed round, the
+    # shard round and, eager, the perround engine's
+    profiled = {"rqm_default": clocked["scan"]}
     for name, tr in default_trainers.items():
-        log(json.dumps({"round_profile": profile_rounds(
-            torch, tr, PROFILE_ROUNDS, f"{name}_default")}))
-    log(json.dumps({"round_profile": profile_rounds(
-        torch, rqm_fused["rqm fused packed"], PROFILE_ROUNDS, "rqm_fused_packed")}))
-    log(json.dumps({"round_profile": profile_rounds(
-        torch, shard_trainers["rqm"], PROFILE_ROUNDS, "rqm_shard")}))
-    del default_trainers, rqm_fused, shard_trainers
+        profiled[f"{name}_default"] = tr
+    profiled["rqm_scan_fused_packed_collected"] = fused_profiled
+    profiled["rqm_shard_collected"] = shard_profiled
+    profiled["rqm_perround"] = clocked["perround"]
+    for tag, tr in profiled.items():
+        log(json.dumps({"round_profile": profile_rounds(torch, tr, PROFILE_ROUNDS, tag)}))
+    log(json.dumps({"fill_sources": fill_sources(torch, clocked["perround"], PROFILE_ROUNDS)}))
+    del profiled, clocked, fused_profiled, shard_profiled, default_trainers
 
     # phase 7: the paper's comparison, reported
     log(json.dumps({"fig3_report": fig3_report(torch, FedConfig)}))

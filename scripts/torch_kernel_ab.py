@@ -1,5 +1,6 @@
 """Time the port's quantize and round-sum kernels of an earlier source tree
-against this tree's, in turns, on one CUDA card.
+against this tree's, and each of this tree's by-value entries against its
+``_dev`` twin, in turns, on one CUDA card.
 
     git archive <rev> -- src/repro_torch/kernels/csrc | tar -x -C build/parent
     python scripts/torch_kernel_ab.py --parent build/parent/src/repro_torch/kernels/csrc
@@ -10,9 +11,11 @@ ctypes at ``chip_smoke.py`` phase 3's inputs: a cohort of 40 rows of the
 CNN's 222,030 coordinates, uniform in +-1.2 c, 10-bit packed words, the
 paper's mechanisms (rqm m=16 q=0.42, pbm m=16 theta=0.25, qmgeo m=16
 r=0.6). Ten cases: the three quantize entries and ``rqm_quantize`` at
-m=64, q=0.5; the three dense round sums; the two packed ones. Each
-library's result must equal the plain PyTorch version bit for bit. The
-device times are then taken in turns (parent, tree, tree, parent) by
+m=64, q=0.5; the three dense round sums; the two packed ones. Each case
+runs three ways: the parent's entry, this tree's by-value entry, and its
+``_dev`` twin with the seed as a 1-element int32 device tensor. Each
+result must equal the plain PyTorch version bit for bit. The device times
+are then taken in turns (parent, tree, dev, dev, tree, parent) by
 ``chip_smoke.device_ms`` (torch.profiler, mean of 30 launches) and
 ``chip_smoke.queued_ms`` (CUDA events behind a sleeping kernel).
 
@@ -23,8 +26,14 @@ entries take the same arguments in every tree. Per library the script
 prints ptxas's registers and spills of every kernel instance and, where
 the toolkit has ``cuobjdump``, each instance's static SASS opcode counts
 by pipe (``PIPES``: the opcode-to-pipe map of the H100's SM, for reading,
-not for timing). Everything it writes goes under ``--out`` (default
-``build/ab``): the builds, ptxas and SASS text, and ``times.json``.
+not for timing) and its innermost loops by pipe (divide by the elements
+an iteration takes for a count an element). The ``[sass-diff]`` lines
+say whether each of the parent's instances has the tree's by-value SASS,
+instruction for instruction, and how each ``_dev`` instance differs from
+its by-value twin: the opcodes it has more and fewer of, in the whole
+kernel and in each innermost loop. Everything it writes goes
+under ``--out`` (default ``build/ab``): the builds, ptxas and SASS text,
+and ``times.json``.
 """
 from __future__ import annotations
 
@@ -48,7 +57,7 @@ import chip_smoke  # noqa: E402
 from repro_torch.core import wire  # noqa: E402
 from repro_torch.core.grid import RQMParams  # noqa: E402
 from repro_torch.core.mechanisms import make_mechanism  # noqa: E402
-from repro_torch.kernels import _build, pbm_kernel, qmgeo_kernel, rqm_kernel  # noqa: E402
+from repro_torch.kernels import _build, pbm_kernel, prng, qmgeo_kernel, rqm_kernel  # noqa: E402
 from repro_torch.kernels import fused_round_kernel as frk  # noqa: E402
 
 ROWS, DIM, BITS = chip_smoke.ROWS, chip_smoke.DIM, chip_smoke.BITS
@@ -80,30 +89,75 @@ def short(symbol: str) -> str:
     return chip_smoke.demangle(symbol).replace("void ", "")
 
 
-def sass_report(tag: str, lib: str, path: str, out: str) -> None:
+def sass_report(tag: str, lib: str, path: str, out: str) -> dict:
+    """Print each kernel instance's SASS opcodes by pipe and its innermost
+    loops (the static instructions between a backward branch and its
+    target, by pipe). Return, by instance, its instruction texts
+    (addresses and encodings stripped) and those of its innermost loops,
+    keyed by the instance's name without the by-value seed's template
+    argument, so that a tree's by-value instance can be held against its
+    parent's."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         log("[sass] no cuobjdump")
-        return
+        return {}
     text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True).stdout
     open(os.path.join(out, f"sass_{tag}_{lib}.txt"), "w").write(text)
-    fn, ops = None, {}
+    fn, instrs = None, {}
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = short(m.group(1))
-            ops[fn] = collections.Counter()
+            instrs[fn] = []
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+((@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*)",
+                     line)
         if m and fn:
-            ops[fn][m.group(2)] += 1
-    for fn, c in ops.items():
-        pipes = collections.Counter()
-        for op, n in c.items():
-            pipes[PIPE_OF.get(op, "uniform" if op.startswith("U") else "other")] += n
+            instrs[fn].append((int(m.group(1), 16), m.group(4), m.group(2)))
+    found = {}
+    for fn, ins in instrs.items():
+        c = collections.Counter(op for _, op, _ in ins)
         top = ", ".join(f"{k} {v}" for k, v in c.most_common(12))
-        log(f"[sass] {tag} {fn}: {sum(c.values())} instructions; by pipe "
-            f"{dict(pipes.most_common())}; {top}")
+        log(f"[sass] {tag} {fn}: {len(ins)} instructions; by pipe "
+            f"{by_pipe(op for _, op, _ in ins)}; {top}")
+        back = []
+        for addr, op, text_ in ins:
+            m = re.search(r"\bBRA\s+0x([0-9a-f]+)", text_)
+            if op == "BRA" and m and int(m.group(1), 16) <= addr:
+                back.append((int(m.group(1), 16), addr))
+        loops = []
+        for lo, hi in back:
+            if any(lo <= a and b < hi for a, b in back if (a, b) != (lo, hi)):
+                continue  # holds an inner loop
+            body = [(op, text_) for addr, op, text_ in ins if lo <= addr <= hi]
+            loops.append([mnemonic(text_) for _, text_ in body])
+            log(f"[loops] {tag} {fn}: loop {lo:#x}-{hi:#x}, {len(body)} instructions, "
+                f"by pipe {by_pipe(op for op, _ in body)}")
+        key = re.sub(r"\s+>", ">", fn).replace(", unsigned int>", ">")
+        found[key] = {"body": [re.sub(r"0x[0-9a-f]+", "#", t).strip() for _, _, t in ins],
+                      "ops": [mnemonic(t) for _, _, t in ins], "loops": loops}
+    return found
+
+
+def mnemonic(text_: str) -> str:
+    """An instruction's opcode with its modifiers, without predicate or
+    operands (register numbers differ between two allocations)."""
+    return re.sub(r"^@!?U?P\w+\s+", "", text_.strip()).split()[0]
+
+
+def by_pipe(opcodes) -> dict:
+    pipes = collections.Counter()
+    for op in opcodes:
+        pipes[PIPE_OF.get(op, "uniform" if op.startswith("U") else "other")] += 1
+    return dict(pipes.most_common())
+
+
+def op_delta(a: list, b: list) -> str:
+    """The opcodes ``b`` has more (+) and fewer (-) of than ``a``."""
+    more, fewer = collections.Counter(b) - collections.Counter(a), \
+        collections.Counter(a) - collections.Counter(b)
+    return ", ".join([f"+{k} {v}" for k, v in sorted(more.items())]
+                     + [f"-{k} {v}" for k, v in sorted(fewer.items())]) or "same opcodes"
 
 
 def build_all(trees: dict, out: str) -> dict:
@@ -116,7 +170,7 @@ def build_all(trees: dict, out: str) -> dict:
                    os.path.join(src, f"{lib}.cu")]
             procs[(tag, lib)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                   stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
+    libs, sass = {}, {}
     for (tag, lib), (proc, so) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode:
@@ -133,19 +187,38 @@ def build_all(trees: dict, out: str) -> dict:
             if fn and "spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
                 log(f"[ptxas] {tag} {lib}: {line.strip()}  {fn}")
         libs[(tag, lib)] = ctypes.CDLL(so)
-        sass_report(tag, lib, so, out)
+        sass[(tag, lib)] = sass_report(tag, lib, so, out)
+    for lib in LIBS:
+        parent, tree = sass.get(("parent", lib), {}), sass.get(("tree", lib), {})
+        for fn, got in parent.items():  # the parent's instances against the tree's by-value ones
+            if fn not in tree:
+                log(f"[sass-diff] {lib} {fn}: not in the tree")
+                continue
+            same = got["body"] == tree[fn]["body"]
+            log(f"[sass-diff] {lib} {fn}: {'same SASS' if same else 'differs'} "
+                f"({len(got['body'])} -> {len(tree[fn]['body'])} instructions)")
+        for fn, dev in tree.items():  # each _dev instance against its by-value twin
+            twin = tree.get(fn.replace(", unsigned int const*>", ">"))
+            if twin is None or twin is dev:
+                continue
+            log(f"[sass-diff] dev {lib} {fn}: {len(twin['ops'])} -> {len(dev['ops'])} "
+                f"instructions ({op_delta(twin['ops'], dev['ops'])}); innermost loops "
+                + "; ".join(f"{len(a)} -> {len(b)} ({op_delta(a, b)})"
+                            for a, b in zip(twin["loops"], dev["loops"]))
+                + ("" if len(twin["loops"]) == len(dev["loops"]) else
+                   f"; {len(twin['loops'])} loops -> {len(dev['loops'])}"))
     return libs
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True, help="an earlier tree's csrc directory")
+    ap.add_argument("--parent", help="an earlier tree's csrc directory")
     ap.add_argument("--parent-abi", choices=("q", "keep"), default="q",
                     help="the parent's RQM entries take the float q, or keep_le and keep_any")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        log("no CUDA device")
+    if not torch.cuda.is_available() or not args.parent:
+        log("needs a CUDA device and --parent")
         return 1
     t0 = time.perf_counter()
     os.makedirs(args.out, exist_ok=True)
@@ -161,6 +234,8 @@ def main() -> int:
     x = torch.from_numpy(rng.uniform(-1.2 * c, 1.2 * c, size=(ROWS, DIM)).astype(np.float32)).cuda()
     w = torch.ones(ROWS, dtype=torch.int32, device="cuda")
     seed = int(rng.integers(0, 1 << 32))
+    # the _dev entries read it from device memory, as a captured round does
+    seed_t = torch.tensor([prng.seed_bits(seed)], dtype=torch.int32, device="cuda")
     words = wire.packed_words(DIM, BITS)
     out = {"quantize": torch.empty((ROWS, DIM), dtype=torch.int32, device="cuda"),
            "dense": torch.empty(DIM, dtype=torch.int32, device="cuda"),
@@ -171,14 +246,16 @@ def main() -> int:
             return pbm_kernel.kernel_args(p)
         if name == "qmgeo":
             return qmgeo_kernel.kernel_args(p)
-        if tag == "tree" or args.parent_abi == "keep":
+        if tag != "parent" or args.parent_abi == "keep":
             return rqm_kernel.kernel_args(p)
         k = rqm_kernel.f32_constants(p)  # the float-q entries of commit 698c532
         return (F, F, F, F, I), (k["c"], k["x_max"], k["step"], float(np.float32(p.q)), p.m)
 
     def launcher(tag, lib, entry, argtypes, args_, result):
-        f = getattr(libs[(tag, lib)], entry)
-        f.argtypes, f.restype = list(argtypes), I
+        """``tag``: "parent", "tree", or "dev" (the tree's _dev entry)."""
+        f = getattr(libs[("parent" if tag == "parent" else "tree", lib)],
+                    entry + ("_dev" if tag == "dev" else ""))
+        f.argtypes, f.restype = list(argtypes) + [P], I
 
         def call():
             rc = f(*args_, torch.cuda.current_stream().cuda_stream)
@@ -187,25 +264,32 @@ def main() -> int:
             return result
         return call
 
+    def seed_arg(tag):
+        """The seed's C type and value: a _dev entry takes its device pointer."""
+        return (P, seed_t.data_ptr()) if tag == "dev" else (U, seed)
+
     def quantize(tag, name, p):
         t, v = kernel_args(tag, name, p)
-        return launcher(tag, "quantize", f"{name}_quantize", (P, P, I, I, U, U) + t + (P,),
-                        (x.data_ptr(), out["quantize"].data_ptr(), ROWS, DIM, seed, 0, *v),
+        st, sv = seed_arg(tag)
+        return launcher(tag, "quantize", f"{name}_quantize", (P, P, I, I, st, U) + t,
+                        (x.data_ptr(), out["quantize"].data_ptr(), ROWS, DIM, sv, 0, *v),
                         out["quantize"])
 
     def dense(tag, name):
         t, v = kernel_args(tag, name, mech[name])
+        st, sv = seed_arg(tag)
         return launcher(tag, "round_sum", f"{name}_round_sum_dense",
-                        (P, P, P, I, I, U, U) + t + (P,),
-                        (x.data_ptr(), w.data_ptr(), out["dense"].data_ptr(), ROWS, DIM, seed, 0,
+                        (P, P, P, I, I, st, U) + t,
+                        (x.data_ptr(), w.data_ptr(), out["dense"].data_ptr(), ROWS, DIM, sv, 0,
                          *v), out["dense"])
 
     def packed(tag, name):
         t, v = kernel_args(tag, name, mech[name])
+        st, sv = seed_arg(tag)
         return launcher(tag, "round_sum", f"{name}_round_sum_packed",
-                        (P, P, P, I, I, I, I, U, U) + t + (P,),
+                        (P, P, P, I, I, I, I, st, U) + t,
                         (x.data_ptr(), w.data_ptr(), out["packed"].data_ptr(), ROWS, DIM, words,
-                         BITS, seed, 0, *v), out["packed"])
+                         BITS, sv, 0, *v), out["packed"])
 
     plain_quantize = {"rqm": rqm_kernel.rqm_quantize_plain, "pbm": pbm_kernel.pbm_quantize_plain,
                       "qmgeo": qmgeo_kernel.qmgeo_quantize_plain}
@@ -229,7 +313,7 @@ def main() -> int:
     results = {"card": chip_smoke.nvidia_smi(), "times": {}}
     for name, (make, symbol, plain) in cases.items():
         want = plain()
-        for tag in trees:
+        for tag in ("parent", "tree", "dev"):
             got = make(tag)().clone()
             torch.cuda.synchronize()
             if not torch.equal(got, want):
@@ -237,7 +321,7 @@ def main() -> int:
                                      f"{got.numel()} differ from the plain version")
             log(f"[check] {name} {tag}: bit-exact")
         times = results["times"][name] = collections.defaultdict(list)
-        for tag in ("parent", "tree", "tree", "parent"):
+        for tag in ("parent", "tree", "dev", "dev", "tree", "parent"):
             fn = make(tag)
             ms, by = chip_smoke.device_ms(torch, fn, chip_smoke.KERNEL_REPS, symbol)
             q_ms = chip_smoke.queued_ms(torch, fn, chip_smoke.KERNEL_REPS)

@@ -17,13 +17,15 @@ grammar:
 Options inline in the spec are explicit (unknown ones raise); keyword
 options are defaults (unknown ones are dropped per mechanism).
 
-Seeds replace keys: every encode takes the round's uint32 kernel seed.
+Seeds replace keys: every encode takes the round's uint32 kernel seed (an
+int, or the 1-element int32 device tensor a captured round reads).
 The reference's ``use_kernel=False`` path draws from ``jax.random``
 (threefry), which this package does not reimplement, so it is refused.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 from typing import Callable, ClassVar, Dict, Type, Union
 
@@ -85,12 +87,12 @@ class Mechanism:
     name: ClassVar[str] = "?"
 
     # -- interface (overridden by subclasses) -------------------------------
-    def encode_batch(self, x: torch.Tensor, seed: int, *, row_offset: int = 0) -> torch.Tensor:
+    def encode_batch(self, x: torch.Tensor, seed, *, row_offset: int = 0) -> torch.Tensor:
         """Messages of a (clients, dim) batch that plays rows
         ``[row_offset, row_offset + clients)`` of the round's batch."""
         raise NotImplementedError
 
-    def encode_sum_batch(self, x: torch.Tensor, seed: int, *, weights=None,
+    def encode_sum_batch(self, x: torch.Tensor, seed, *, weights=None,
                          row_offset: int = 0, pack_bits: int | None = None) -> torch.Tensor:
         """``sum_i weights[i] * encode(x[i])`` over the client axis, packed
         into wire words when ``pack_bits`` is set. The default encodes the
@@ -130,15 +132,15 @@ class Mechanism:
     def _clip(self, g: torch.Tensor) -> torch.Tensor:
         return g.to(torch.float32).clamp(-self.clip, self.clip)
 
-    def quantize(self, g: torch.Tensor, seed: int) -> torch.Tensor:
+    def quantize(self, g: torch.Tensor, seed) -> torch.Tensor:
         """Clip then encode one client's vector (any shape)."""
         return self.encode_batch(self._clip(g).reshape(1, -1), seed).reshape(g.shape)
 
-    def quantize_batch(self, g: torch.Tensor, seed: int, *, row_offset: int = 0) -> torch.Tensor:
+    def quantize_batch(self, g: torch.Tensor, seed, *, row_offset: int = 0) -> torch.Tensor:
         """Clip then encode a stacked (clients, dim) batch."""
         return self.encode_batch(self._clip(g), seed, row_offset=row_offset)
 
-    def quantize_sum_batch(self, g: torch.Tensor, seed: int, *, weights=None,
+    def quantize_sum_batch(self, g: torch.Tensor, seed, *, weights=None,
                            row_offset: int = 0, pack_bits: int | None = None) -> torch.Tensor:
         """Clip then the fused encode-and-sum: the SecAgg sum of the batch."""
         return self.encode_sum_batch(self._clip(g), seed, weights=weights,
@@ -327,7 +329,7 @@ class NoiseFreeMechanism(Mechanism):
 
     def decode_sum(self, g_sum, n):
         # divide by a device tensor: IEEE division on the card too
-        return g_sum / torch.tensor(float(n), dtype=g_sum.dtype, device=g_sum.device)
+        return g_sum / _cohort_size(n, g_sum.dtype, g_sum.device)
 
     def sum_bound(self, n):
         return 0
@@ -342,6 +344,13 @@ class NoiseFreeMechanism(Mechanism):
     @property
     def clip(self):
         return self.c
+
+
+@functools.lru_cache(maxsize=None)
+def _cohort_size(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``n`` as a 0-d tensor, made once per (n, dtype, device): making it
+    copies host to device, which a captured round may not do."""
+    return torch.tensor(float(n), dtype=dtype, device=device)
 
 
 def _coerce(text: str):

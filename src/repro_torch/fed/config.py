@@ -25,9 +25,10 @@ class FedConfig:
     data_noise: float = 0.25
     # one clipped gradient per client per round (Algorithm 1)
     local_steps: int = 1
-    # "scan" (blocks of rounds, sums kept on the device until the block
-    # ends), "perround" (one round per call) or "shard" (the scan engine
-    # over a process group, one cohort slice per rank): the same round
+    # "scan" (blocks of rounds, each round a replay of a captured CUDA
+    # graph on the card, sums kept on the device until the block ends),
+    # "perround" (one eager round per call) or "shard" (eager rounds over
+    # a process group, one cohort slice per rank): the same round
     engine: str = "scan"
     task: str = "emnist_cnn"
     server_opt: str = "sgd"
@@ -44,7 +45,8 @@ class FedConfig:
     wire_packed: Optional[bool] = None
     # keep each round's dense SecAgg sum on the host (trainer.round_sums)
     collect_sums: bool = False
-    # the shard engine advances in chunks of at most scan_block rounds
+    # the scan and shard engines advance in blocks of at most scan_block
+    # rounds
     scan_block: int = 64
     # shard engine (engine="shard"). shards=None spans the default process
     # group (one rank when there is none); clients_per_round must divide

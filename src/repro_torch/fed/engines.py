@@ -2,25 +2,36 @@
 engines run the same round, so a fixed seed gives bit-identical
 parameters under any of them:
 
-  * ``scan`` (the default): blocks of rounds (``FedTrainer.run_block``);
-    a block keeps its SecAgg sums on the device and accounts its rounds
-    when it ends, as the reference's scanned block does;
-  * ``perround``: one round per step, accounted as it ends;
-  * ``shard``: the scan engine over a ``torch.distributed`` process group
-    (``launch/mesh.py``), one process per rank: each rank computes and
-    encodes its slice of the cohort, and the integer level sums cross
-    the ranks in one all_reduce, packed when the bound allows
-    (``core/secagg.py``). Every round is accounted at the full
-    cross-shard cohort. At one rank it equals ``scan`` bit for bit.
+  * ``scan`` (the default): blocks of at most ``cfg.scan_block`` rounds,
+    as the reference's jitted ``lax.scan`` block. A block's cohorts and
+    seeds are drawn on the host and copied to the device once; on CUDA
+    each round is one replay of a captured CUDA graph (``RoundGraph``),
+    with no host->device copy and no synchronisation inside the block.
+    The block keeps its SecAgg sums on the device and accounts its rounds
+    when it ends;
+  * ``perround``: one eager round per step, accounted as it ends;
+  * ``shard``: the perround step over a ``torch.distributed`` process
+    group (``launch/mesh.py``), in eager chunks of ``cfg.scan_block``
+    rounds, one process per rank: each rank computes and encodes its
+    slice of the cohort, and the integer level sums cross the ranks in
+    one all_reduce, packed when the bound allows (``core/secagg.py``).
+    Every round is accounted at the full cross-shard cohort. At one rank
+    it equals ``scan`` bit for bit.
 
 The reference's other engines are refused, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
+import collections
+import os
+import traceback
+
+import torch
 import torch.distributed as dist
 
 from repro_torch.core import wire
-from repro_torch.fed import rounds, staging
+from repro_torch.fed import cohort, rounds, staging
+from repro_torch.kernels import _build
 from repro_torch.launch.mesh import shard_group
 
 _NOT_PORTED = {
@@ -62,22 +73,156 @@ class PerRoundEngine:
 
 
 class ScanEngine(PerRoundEngine):
-    """The same round step over a block of rounds: nothing returns to
-    the host until the block ends."""
+    """The same round step over blocks of at most ``cfg.scan_block``
+    rounds. At the start of a block the host draws every round's cohort and
+    seed from ``tr.generator`` in perround's order (``cohort.draw_block``)
+    and copies them to the device in one piece; round t then reads its
+    ids and seed from row t, at a round index that lives on the device
+    and that each round advances. The parameters live in a static buffer:
+    the block copies ``tr.flat`` in when it starts and hands it back when
+    it ends. On CUDA the round is captured once as a CUDA graph and each
+    round is one replay (``RoundGraph``); on the CPU the same round runs
+    eagerly over the same buffers. Nothing returns to the host until the
+    block ends: then the collected sums, in one read, and the accountant's
+    steps."""
 
     name = "scan"
     blocked = True
 
+    def __init__(self, trainer):
+        super().__init__(trainer)
+        self.draws = None  # (scan_block, slate + 1) int32: ids, then the seed's bits
+        self.flat = None   # the static parameters
+        self.t = None      # (1,) int64: the round index within the block
+        self.sums = None   # (scan_block, dim): row t is round t's sum, if collected
+        self.graph = None  # the captured round, on CUDA
+
     def advance(self, n_rounds: int) -> None:
-        self._finish([self._round() for _ in range(n_rounds)])
+        done = 0
+        while done < n_rounds:
+            length = min(self.tr.cfg.scan_block, n_rounds - done)
+            self._block(length)
+            done += length
+
+    def _block(self, length: int) -> None:
+        tr = self.tr
+        cuda = tr.device.type == "cuda"
+        if self.draws is None:
+            # zeros: client 0 and seed 0 for the warm-up rounds before any draw
+            self.draws = torch.zeros((tr.cfg.scan_block, tr.slate + 1), dtype=torch.int32,
+                                     device=tr.device)
+            self.flat = torch.empty_like(tr.flat)
+            self.t = torch.zeros(1, dtype=torch.int64, device=tr.device)
+        self.flat.copy_(tr.flat)
+        self.t.zero_()
+        if cuda and self.graph is None:
+            # before the block's draws, so that a capture that fails leaves
+            # the generator where it was
+            self.graph = RoundGraph(self)
+        draws = cohort.draw_block(tr.cfg, tr.slate, tr.generator, length)
+        # the block's one host->device copy, asynchronous from pinned memory
+        self.draws[:length].copy_(draws.pin_memory() if cuda else draws, non_blocking=cuda)
+        if cuda:
+            for _ in range(length):
+                self.graph.replay()
+        else:
+            for _ in range(length):
+                self.step(self.flat, self.t)
+        tr.flat = self.flat.clone()
+        # the block's one read of its sums
+        self._finish(list(self.sums[:length].to("cpu", copy=True)) if self.sums is not None
+                     else [None] * length)
+
+    def round_at(self, flat: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Round ``t`` of the block on the parameters ``flat``, updated in
+        place (the same bits); returns the round's sum."""
+        slate = self.tr.slate
+        row = self.draws.index_select(0, t)[0]
+        new, z_sum = self.round_step(flat, self.tr.client_data, ids=row[:slate],
+                                     seed=row[slate:])
+        flat.copy_(new)
+        return z_sum
+
+    def keep_sums_like(self, z_sum: torch.Tensor) -> None:
+        if self.tr.cfg.collect_sums and self.sums is None:
+            self.sums = z_sum.new_empty((self.tr.cfg.scan_block,) + tuple(z_sum.shape))
+
+    def step(self, flat: torch.Tensor, t: torch.Tensor) -> None:
+        """Round ``t``, its sum kept in row ``t`` when collected; then the
+        next round's index."""
+        z_sum = self.round_at(flat, t)
+        self.keep_sums_like(z_sum)
+        if self.sums is not None:
+            self.sums.index_copy_(0, t, z_sum[None])
+        t.add_(1)
 
 
-class ShardEngine(ScanEngine):
-    """The scan engine over a process group of ``shards`` ranks, in chunks
-    of ``cfg.scan_block`` rounds; with ``staging="stream"`` each chunk
-    first stages this rank's slices of its cohorts."""
+class RoundGraph:
+    """One round of the scan engine captured as a CUDA graph.
+
+    Warm-up rounds first run on a side stream, on a spare copy of the
+    parameters and a spare round index, so that cuBLAS and cuDNN set up
+    their handles and workspaces and the kernels are built and loaded;
+    they run before the first block's draws (on the draws buffer's zeros:
+    client 0, seed 0), leave the generator alone and count no launches. Then ``engine.step`` on the static buffers is captured:
+    every replay runs the round at the device's round index and advances
+    it. The kernels launched in the capture are recorded here and counted
+    once per replay. There is no eager fallback: an op that cannot be
+    captured (one that synchronises or copies from the host) raises,
+    naming the line that made it."""
+
+    WARMUP_ROUNDS = 2
+
+    def __init__(self, engine: ScanEngine):
+        device = engine.tr.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), _build.moved_to(collections.Counter()):
+            flat, t = engine.flat.clone(), torch.zeros_like(engine.t)
+            for _ in range(self.WARMUP_ROUNDS):
+                engine.keep_sums_like(engine.round_at(flat, t))
+        torch.cuda.current_stream(device).wait_stream(side)
+        del flat, t
+        self.launches: collections.Counter = collections.Counter()
+        self.graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.Stream(device)
+        try:
+            # the outer stream context restores the current stream even when
+            # ending the capture raises
+            with (_build.moved_to(self.launches), torch.cuda.stream(capture),
+                  torch.cuda.graph(self.graph, stream=capture)):
+                engine.step(engine.flat, engine.t)
+        except RuntimeError as err:
+            raise RuntimeError(f"the scan engine's round cannot be captured as a CUDA "
+                               f"graph: {_first_failure(err)}") from err
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _build.replayed(self.launches)
+
+
+def _first_failure(err: BaseException) -> str:
+    """The first error of a failed capture (ending the capture raises its
+    own) and the last line outside PyTorch that it passed: the op that
+    could not be captured."""
+    while err.__context__ is not None:
+        err = err.__context__
+    torch_dir = os.path.dirname(torch.__file__)
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if not f.filename.startswith(torch_dir)]
+    where = f" at {frames[-1].filename}:{frames[-1].lineno}: {frames[-1].line}" if frames else ""
+    return f"{type(err).__name__}: {err}{where}"
+
+
+class ShardEngine(PerRoundEngine):
+    """The eager round step over a process group of ``shards`` ranks, in
+    chunks of ``cfg.scan_block`` rounds; with ``staging="stream"`` each
+    chunk first stages this rank's slices of its cohorts. Not captured:
+    its round crosses the ranks in a collective (ROADMAP.md queue A item
+    9)."""
 
     name = "shard"
+    blocked = True
 
     def __init__(self, trainer):
         tr, cfg = trainer, trainer.cfg

@@ -41,11 +41,7 @@ def replay_cohorts(cfg: FedConfig, slate: int, generator: torch.Generator,
     seed), so the trainer's own generator does not move."""
     replay = torch.Generator()
     replay.set_state(generator.get_state())
-    ids = np.empty((length, slate), np.int64)
-    for t in range(length):
-        ids[t] = cohort.sample_slate(cfg, slate, replay).numpy()
-        cohort.draw_seed(replay)
-    return ids
+    return cohort.draw_block(cfg, slate, replay, length)[:, :slate].numpy().astype(np.int64)
 
 
 def stage_stream_block(task, cfg: FedConfig, slate: int, generator: torch.Generator,

@@ -66,7 +66,8 @@ class FedTrainer:
         self.engine.advance(1)
 
     def run_block(self, n_rounds: int) -> None:
-        """Advance ``n_rounds`` rounds as one block of the scan engine."""
+        """Advance ``n_rounds`` rounds on a blocked engine, in blocks of at
+        most ``cfg.scan_block`` rounds."""
         if not self.engine.blocked:
             raise ValueError(f"run_block requires a blocked engine ('scan', 'shard'), "
                              f"got {self.cfg.engine!r}")

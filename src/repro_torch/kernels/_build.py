@@ -10,12 +10,16 @@ Flags: ``sm_90a`` (Hopper), and ``-fmad=false`` so no multiply-add is
 contracted into an FMA: the kernels then give the same float32 bits as
 their plain PyTorch versions and as the JAX reference.
 
-``launches`` counts kernel launches by name. ``launch`` is the one place
-that adds to it, right after a launch that the runtime accepted.
+``launches`` counts kernel launches by name. ``launch`` adds to it, right
+after a launch that the runtime accepted. A launch made while a CUDA graph
+is captured (or in the warm-up before) runs nothing yet: ``moved_to``
+takes such launches out of ``launches`` into the graph holder's record,
+and ``replayed`` adds that record back at each replay of the graph.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +44,24 @@ _funcs: dict = {}
 
 def reset_launches() -> None:
     launches.clear()
+
+
+@contextlib.contextmanager
+def moved_to(record: collections.Counter):
+    """Launches made inside the block are added to ``record`` instead of
+    ``launches``."""
+    before = launches.copy()
+    try:
+        yield record
+    finally:
+        record.update(launches - before)
+        launches.clear()
+        launches.update(before)
+
+
+def replayed(record: collections.Counter) -> None:
+    """Count one replay of a graph whose capture launched ``record``."""
+    launches.update(record)
 
 
 def nvcc() -> str:

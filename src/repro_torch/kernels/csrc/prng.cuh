@@ -29,4 +29,10 @@ __device__ __forceinline__ float random_uniform(uint32_t seed, uint32_t counter,
   return uniform01(random_bits(seed, counter, stream));
 }
 
+// A kernel's seed: passed by value, or (the _dev entries) read once from
+// device memory, so that a captured CUDA graph takes a new seed at each
+// replay. The by-value instance is the kernel as it was before.
+__device__ __forceinline__ uint32_t load_seed(uint32_t seed) { return seed; }
+__device__ __forceinline__ uint32_t load_seed(const uint32_t* seed) { return __ldg(seed); }
+
 }  // namespace repro

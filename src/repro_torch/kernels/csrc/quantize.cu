@@ -27,6 +27,11 @@
 // elements, so loads and stores coalesce, and the grid (up to 16 blocks of
 // 256 per SM, two rounds of the 8 an SM holds at 32 registers a thread)
 // keeps up to 64 warps on every SM to hide the encode's latency.
+//
+// Each entry has a _dev twin that reads the seed from device memory (one
+// load a thread) where the entry takes it by value: a captured CUDA graph
+// replays the launch with the seed its buffer holds then. Both are one
+// template, so they give the same levels.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -38,11 +43,12 @@
 
 namespace {
 
-template <class Encoder>
+template <class Encoder, class Seed>
 __global__ void quantize_kernel(const float* __restrict__ x, int* __restrict__ z,
-                                int64_t n, uint32_t seed, uint32_t base,
+                                int64_t n, Seed seed_arg, uint32_t base,
                                 Encoder encoder) {
   const Encoder encode = encoder.setup(repro::dynamic_shared());
+  const uint32_t seed = repro::load_seed(seed_arg);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   // an encoder with kBatch > 1 loads kBatch elements before it encodes
@@ -65,8 +71,8 @@ __global__ void quantize_kernel(const float* __restrict__ x, int* __restrict__ z
 
 constexpr int kThreads = 256;
 
-template <class Encoder>
-int launch(const float* x, int* z, int rows, int dim, uint32_t seed,
+template <class Encoder, class Seed>
+int launch(const float* x, int* z, int rows, int dim, Seed seed,
            uint32_t row_offset, Encoder encode, void* stream) {
   const int64_t n = static_cast<int64_t>(rows) * dim;
   int64_t blocks = (n + kThreads - 1) / kThreads;
@@ -86,30 +92,36 @@ int launch(const float* x, int* z, int rows, int dim, uint32_t seed,
 
 extern "C" {
 
-int rqm_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
-                 uint32_t row_offset, float c, float x_max, float step,
-                 uint32_t keep_le, uint32_t keep_any, int m, void* stream) {
-  return repro::rqm_dispatch({c, x_max, step, keep_le, keep_any, m}, [&](auto encode) {
-    return launch(x, z, rows, dim, seed, row_offset, encode, stream);
-  });
-}
+#define REPRO_QUANTIZE_ENTRIES(SEED_T, SUFFIX)                                      \
+  int rqm_quantize##SUFFIX(const float* x, int* z, int rows, int dim, SEED_T seed,     \
+                           uint32_t row_offset, float c, float x_max, float step,     \
+                           uint32_t keep_le, uint32_t keep_any, int m, void* stream) { \
+    return repro::rqm_dispatch({c, x_max, step, keep_le, keep_any, m},                 \
+                               [&](auto encode) {                                      \
+      return launch(x, z, rows, dim, seed, row_offset, encode, stream);                \
+    });                                                                                \
+  }                                                                                    \
+  int pbm_quantize##SUFFIX(const float* x, int* z, int rows, int dim, SEED_T seed,     \
+                           uint32_t row_offset, float c, float theta, int m,           \
+                           void* stream) {                                             \
+    return repro::pbm_dispatch({c, theta, m}, [&](auto encode) {                       \
+      return launch(x, z, rows, dim, seed, row_offset, encode, stream);                \
+    });                                                                                \
+  }                                                                                    \
+  int qmgeo_quantize##SUFFIX(const float* x, int* z, int rows, int dim, SEED_T seed,   \
+                             uint32_t row_offset, float c, float x_max, float step,   \
+                             float log_r, float inv_1mr, float r_over_1mr, int m,     \
+                             void* stream) {                                           \
+    return repro::qmgeo_dispatch({c, x_max, step, log_r, inv_1mr, r_over_1mr, m},      \
+                                 [&](auto encode) {                                    \
+      return launch(x, z, rows, dim, seed, row_offset, encode, stream);                \
+    });                                                                                \
+  }
 
-int pbm_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
-                 uint32_t row_offset, float c, float theta, int m, void* stream) {
-  return repro::pbm_dispatch({c, theta, m}, [&](auto encode) {
-    return launch(x, z, rows, dim, seed, row_offset, encode, stream);
-  });
-}
-
-int qmgeo_quantize(const float* x, int* z, int rows, int dim, uint32_t seed,
-                   uint32_t row_offset, float c, float x_max, float step,
-                   float log_r, float inv_1mr, float r_over_1mr, int m,
-                   void* stream) {
-  return repro::qmgeo_dispatch({c, x_max, step, log_r, inv_1mr, r_over_1mr, m},
-                               [&](auto encode) {
-    return launch(x, z, rows, dim, seed, row_offset, encode, stream);
-  });
-}
+// the seed by value: rqm_quantize, pbm_quantize, qmgeo_quantize
+REPRO_QUANTIZE_ENTRIES(uint32_t, )
+// the seed from device memory: rqm_quantize_dev, pbm_quantize_dev, qmgeo_quantize_dev
+REPRO_QUANTIZE_ENTRIES(const uint32_t*, _dev)
 
 const char* quantize_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

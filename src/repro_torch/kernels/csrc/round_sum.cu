@@ -27,10 +27,15 @@
 // its level tables (qmgeo_encode.cuh). What is left to the layout is to give every SM an
 // equal share of the encodes, with enough warps to hide the hash's latency.
 //
-//  * Dense: one thread per column loops over the rows (222,030 threads in 868
-//    blocks of 256 at the paper's shape, one wave: 6 or 7 blocks an SM).
-//    Consecutive threads read consecutive columns, so the loads coalesce.
+//  * Dense: see round_sum_dense_kernel.
 //  * Packed: see round_sum_packed_kernel.
+// In both, a warp reads 32 consecutive columns of a row, so the loads
+// coalesce.
+//
+// Each entry has a _dev twin that reads the seed from device memory (one
+// load a thread) where the entry takes it by value: a captured CUDA graph
+// replays the launch with the seed its buffer holds then. Both are one
+// template, so they give the same sums.
 //
 // RNG counter of element (r, c): (row_offset + r) * dim + c, as in JAX.
 #include <cuda_runtime.h>
@@ -80,18 +85,6 @@ __device__ __forceinline__ uint32_t column_sum(const float* __restrict__ x,
   return acc;
 }
 
-template <class Encoder>
-__global__ void round_sum_dense_kernel(const float* __restrict__ x,
-                                       const int* __restrict__ w,
-                                       int* __restrict__ out, int rows, int dim,
-                                       uint32_t seed, uint32_t row_offset,
-                                       Encoder encoder) {
-  const Encoder encode = encoder.setup(repro::dynamic_shared());
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= dim) return;
-  out[c] = static_cast<int>(column_sum(x, w, 0, rows, dim, c, seed, row_offset, encode));
-}
-
 // Word wi carries coordinate c = f * words + wi in field f. A block owns a
 // tile of kTile consecutive words; thread (t, f, g) = threadIdx (x, y, z)
 // encodes column f * words + wi, wi the tile's t-th word, over the rows of
@@ -125,16 +118,17 @@ __host__ __device__ constexpr size_t part_bytes(unsigned slots) {
 static_assert(part_bytes(kMaxBlock / kTile) + repro::kQMGeoMaxTableBytes <= 48 * 1024,
               "a block's shared memory fits the 48 KB a launch has without an opt-in");
 
-template <class Encoder>
+template <class Encoder, class Seed>
 __global__ void __launch_bounds__(kMaxBlock, 2)  // <= 32 registers: 2048 threads an SM
 round_sum_packed_kernel(const float* __restrict__ x, const int* __restrict__ w,
                         int* __restrict__ out, int rows, int dim, int words, int bits,
-                        int rows_per_group, uint32_t seed, uint32_t row_offset,
+                        int rows_per_group, Seed seed_arg, uint32_t row_offset,
                         Encoder encoder) {
   // [group][field][kTile] partial sums, then the encoder's tables
   uint32_t* part = reinterpret_cast<uint32_t*>(repro::dynamic_shared());
   const Encoder encode = encoder.setup(repro::dynamic_shared() +
                                        part_bytes(blockDim.y * blockDim.z));
+  const uint32_t seed = repro::load_seed(seed_arg);
   const int t = threadIdx.x, f = threadIdx.y, g = threadIdx.z;
   const int wi = blockIdx.x * kTile + t;
   const int c = f * words + wi;
@@ -154,21 +148,53 @@ round_sum_packed_kernel(const float* __restrict__ x, const int* __restrict__ w,
   }
 }
 
-constexpr int kThreads = 256;
+// The dense sum's layout is for balance over the SMs. One thread per column
+// loops over the rows, so a block's share of the encodes is its columns'.
+// The kernel this one replaced used blocks of 256: 868 blocks at the paper's
+// 40 x 222,030, 6 or 7 an SM, and the busiest SMs encoded 7 / 6.58 = 1.064x
+// the mean. Here a block is kDenseThreads = 96 threads at most 32 registers
+// (the bound below), so an SM holds 21 blocks and a grid of up to 132 x 21 =
+// 2772 blocks runs in one wave: at the paper's shape 2313 blocks, 17 or 18
+// an SM, and the busiest SM encodes 18 / 17.52 = 1.027x the mean, as the
+// packed kernel's do.
+//
+// What that bought on an H100 (PERF.md, scripts/torch_kernel_ab.py): the
+// three encoders' sums within 0.5% of the 256-thread layout's; no layout
+// that evened the SMs or their schedulers out made any of them faster.
+// Blocks of 64 and 128 gave the same times; splitting each column's rows
+// over the four warps of a block (one on each scheduler, their partial sums
+// added in shared memory; 1.008x the mean on the busiest scheduler) made
+// the RQM sum 0% to 6% slower, PBM's 3% to 6% and QMGeo's 7% to 12%. What
+// did take 2% off the RQM sum was loading 4 rows at once with 80 registers
+// a thread, 3 blocks of 256 an SM; within 32 registers that costs 8% more
+// ALU operations a row and the sum 4% (rqm_encode.cuh).
+constexpr int kDenseThreads = 96;
 
-template <class Encoder>
-int launch_dense(const float* x, const int* w, int* out, int rows, int dim,
-                 uint32_t seed, uint32_t row_offset, Encoder encode, void* stream) {
-  const int blocks = (dim + kThreads - 1) / kThreads;
-  const size_t shared = encode.shared_bytes();
-  round_sum_dense_kernel<<<blocks, kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
-      x, w, out, rows, dim, seed, row_offset, encode);
+template <class Encoder, class Seed>
+__global__ void __launch_bounds__(kDenseThreads, 2048 / kDenseThreads)  // <= 32 registers
+round_sum_dense_kernel(const float* __restrict__ x, const int* __restrict__ w,
+                       int* __restrict__ out, int rows, int dim, Seed seed_arg,
+                       uint32_t row_offset, Encoder encoder) {
+  const Encoder encode = encoder.setup(repro::dynamic_shared());
+  const uint32_t seed = repro::load_seed(seed_arg);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= dim) return;
+  out[c] = static_cast<int>(column_sum(x, w, 0, rows, dim, c, seed, row_offset, encode));
+}
+
+template <class Encoder, class Seed>
+int launch_dense(const float* x, const int* w, int* out, int rows, int dim, Seed seed,
+                 uint32_t row_offset, Encoder encode, void* stream) {
+  const int blocks = (dim + kDenseThreads - 1) / kDenseThreads;
+  round_sum_dense_kernel<<<blocks, kDenseThreads, encode.shared_bytes(),
+                           static_cast<cudaStream_t>(stream)>>>(x, w, out, rows, dim, seed,
+                                                                row_offset, encode);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Encoder>
+template <class Encoder, class Seed>
 int launch_packed(const float* x, const int* w, int* out, int rows, int dim,
-                  int words, int bits, uint32_t seed, uint32_t row_offset,
+                  int words, int bits, Seed seed, uint32_t row_offset,
                   Encoder encode, void* stream) {
   const int fields = 32 / bits;
   const int tiles = (words + kTile - 1) / kTile;
@@ -193,53 +219,57 @@ int launch_packed(const float* x, const int* w, int* out, int rows, int dim,
 
 extern "C" {
 
-int rqm_round_sum_dense(const float* x, const int* w, int* out, int rows, int dim,
-                        uint32_t seed, uint32_t row_offset, float c, float x_max,
-                        float step, uint32_t keep_le, uint32_t keep_any, int m,
-                        void* stream) {
-  return repro::rqm_dispatch({c, x_max, step, keep_le, keep_any, m}, [&](auto encode) {
-    return launch_dense(x, w, out, rows, dim, seed, row_offset, encode, stream);
-  });
-}
+#define REPRO_ROUND_SUM_ENTRIES(SEED_T, SUFFIX)                                          \
+  int rqm_round_sum_dense##SUFFIX(const float* x, const int* w, int* out, int rows,        \
+                                  int dim, SEED_T seed, uint32_t row_offset, float c,      \
+                                  float x_max, float step, uint32_t keep_le,               \
+                                  uint32_t keep_any, int m, void* stream) {                \
+    return repro::rqm_dispatch({c, x_max, step, keep_le, keep_any, m}, [&](auto encode) { \
+      return launch_dense(x, w, out, rows, dim, seed, row_offset, encode, stream);         \
+    });                                                                                    \
+  }                                                                                        \
+  int pbm_round_sum_dense##SUFFIX(const float* x, const int* w, int* out, int rows,        \
+                                  int dim, SEED_T seed, uint32_t row_offset, float c,      \
+                                  float theta, int m, void* stream) {                      \
+    return repro::pbm_dispatch({c, theta, m}, [&](auto encode) {                           \
+      return launch_dense(x, w, out, rows, dim, seed, row_offset, encode, stream);         \
+    });                                                                                    \
+  }                                                                                        \
+  int qmgeo_round_sum_dense##SUFFIX(const float* x, const int* w, int* out, int rows,      \
+                                    int dim, SEED_T seed, uint32_t row_offset, float c,    \
+                                    float x_max, float step, float log_r, float inv_1mr,   \
+                                    float r_over_1mr, int m, void* stream) {               \
+    return repro::qmgeo_dispatch({c, x_max, step, log_r, inv_1mr, r_over_1mr, m},          \
+                                 [&](auto encode) {                                        \
+      return launch_dense(x, w, out, rows, dim, seed, row_offset, encode, stream);         \
+    });                                                                                    \
+  }                                                                                        \
+  int rqm_round_sum_packed##SUFFIX(const float* x, const int* w, int* out, int rows,       \
+                                   int dim, int words, int bits, SEED_T seed,              \
+                                   uint32_t row_offset, float c, float x_max, float step,  \
+                                   uint32_t keep_le, uint32_t keep_any, int m,             \
+                                   void* stream) {                                         \
+    return repro::rqm_dispatch({c, x_max, step, keep_le, keep_any, m}, [&](auto encode) { \
+      return launch_packed(x, w, out, rows, dim, words, bits, seed, row_offset, encode,    \
+                           stream);                                                        \
+    });                                                                                    \
+  }                                                                                        \
+  int qmgeo_round_sum_packed##SUFFIX(const float* x, const int* w, int* out, int rows,     \
+                                     int dim, int words, int bits, SEED_T seed,            \
+                                     uint32_t row_offset, float c, float x_max,            \
+                                     float step, float log_r, float inv_1mr,               \
+                                     float r_over_1mr, int m, void* stream) {              \
+    return repro::qmgeo_dispatch({c, x_max, step, log_r, inv_1mr, r_over_1mr, m},          \
+                                 [&](auto encode) {                                        \
+      return launch_packed(x, w, out, rows, dim, words, bits, seed, row_offset, encode,    \
+                           stream);                                                        \
+    });                                                                                    \
+  }
 
-int pbm_round_sum_dense(const float* x, const int* w, int* out, int rows, int dim,
-                        uint32_t seed, uint32_t row_offset, float c, float theta,
-                        int m, void* stream) {
-  return repro::pbm_dispatch({c, theta, m}, [&](auto encode) {
-    return launch_dense(x, w, out, rows, dim, seed, row_offset, encode, stream);
-  });
-}
-
-int qmgeo_round_sum_dense(const float* x, const int* w, int* out, int rows, int dim,
-                          uint32_t seed, uint32_t row_offset, float c, float x_max,
-                          float step, float log_r, float inv_1mr, float r_over_1mr,
-                          int m, void* stream) {
-  return repro::qmgeo_dispatch({c, x_max, step, log_r, inv_1mr, r_over_1mr, m},
-                               [&](auto encode) {
-    return launch_dense(x, w, out, rows, dim, seed, row_offset, encode, stream);
-  });
-}
-
-int rqm_round_sum_packed(const float* x, const int* w, int* out, int rows, int dim,
-                         int words, int bits, uint32_t seed, uint32_t row_offset,
-                         float c, float x_max, float step, uint32_t keep_le,
-                         uint32_t keep_any, int m, void* stream) {
-  return repro::rqm_dispatch({c, x_max, step, keep_le, keep_any, m}, [&](auto encode) {
-    return launch_packed(x, w, out, rows, dim, words, bits, seed, row_offset, encode,
-                         stream);
-  });
-}
-
-int qmgeo_round_sum_packed(const float* x, const int* w, int* out, int rows, int dim,
-                           int words, int bits, uint32_t seed, uint32_t row_offset,
-                           float c, float x_max, float step, float log_r,
-                           float inv_1mr, float r_over_1mr, int m, void* stream) {
-  return repro::qmgeo_dispatch({c, x_max, step, log_r, inv_1mr, r_over_1mr, m},
-                               [&](auto encode) {
-    return launch_packed(x, w, out, rows, dim, words, bits, seed, row_offset, encode,
-                         stream);
-  });
-}
+// the seed by value: <rqm,pbm,qmgeo>_round_sum_dense, <rqm,qmgeo>_round_sum_packed
+REPRO_ROUND_SUM_ENTRIES(uint32_t, )
+// the seed from device memory: the same names with _dev
+REPRO_ROUND_SUM_ENTRIES(const uint32_t*, _dev)
 
 const char* round_sum_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -104,7 +104,10 @@ __device__ __forceinline__ int rqm_encode(float x, uint32_t seed, uint32_t count
 template <int kM>
 struct RQMEncoder {
   // elements a thread loads at once: 4 took 2% to 6% off the m=16 entries
-  // on an H100 and added 4% at m=64 (PERF.md); 1 keeps the measured SASS
+  // on an H100 and added 4% at m=64, but only with the registers to hold
+  // four encodes in flight (80 a thread in the dense sum); within the 32
+  // registers that keep the dense grid in one wave, 4 made the dense sum 4%
+  // slower (PERF.md). 1 keeps the measured SASS.
   static constexpr int kBatch = 1;
   RQMConsts p;
   size_t shared_bytes() const { return 0; }

@@ -14,7 +14,9 @@ that transcribes the reference's CPU twin:
 qmgeo), as ``round_sum_jnp`` does. Element (r, c) draws RNG counter
 ``(row_offset + r) * dim + c`` (mod 2**32), so a sum equals the
 reference's for the same uint32 seed. Weights are one int32 per row (0
-drops a row). The wrappers launch the kernel for CUDA tensors and run the
+drops a row). The seed is an int or a 1-element int32 device tensor, as
+in ``quantize`` (a tensor seed launches the ``_dev`` entry, which reads it
+from device memory). The wrappers launch the kernel for CUDA tensors and run the
 plain version for CPU tensors. The CUDA packed kernel takes rqm and qmgeo:
 the PBM mechanism's sum never travels packed.
 """
@@ -36,11 +38,8 @@ ENCODERS = {
 }
 PACKED_KERNELS = ("rqm", "qmgeo")
 
-_DENSE_ARGS = (P, P, P, I32, I32, U32, U32)
-_PACKED_ARGS = (P, P, P, I32, I32, I32, I32, U32, U32)
 
-
-def _check(x: torch.Tensor, w: torch.Tensor, seed: int, row_offset: int, encode_name: str):
+def _check(x: torch.Tensor, w: torch.Tensor, seed, row_offset: int, encode_name: str):
     quantize.check_batch(x, seed, row_offset)
     if w.shape != (x.shape[0],):
         raise ValueError(f"weights must be ({x.shape[0]},), got {tuple(w.shape)}")
@@ -59,7 +58,7 @@ def _chunk_sums(x, w, seed, row_offset, params, encode_name):
         yield (z.to(torch.int64) * w[start:stop, None].to(torch.int64)).sum(0)
 
 
-def round_sum_plain(x, w, seed: int, row_offset: int, params,
+def round_sum_plain(x, w, seed, row_offset: int, params,
                     encode_name: str = "rqm") -> torch.Tensor:
     """Plain version of the dense round sum (``round_sum_jnp``)."""
     _check(x, w, seed, row_offset, encode_name)
@@ -69,7 +68,7 @@ def round_sum_plain(x, w, seed: int, row_offset: int, params,
     return wire.to_int32(acc)
 
 
-def round_sum_packed_plain(x, w, seed: int, row_offset: int, params, bits: int,
+def round_sum_packed_plain(x, w, seed, row_offset: int, params, bits: int,
                            encode_name: str = "rqm") -> torch.Tensor:
     """Plain version of the packed round sum (``round_sum_packed_jnp``):
     each chunk's partial sum is packed and the words accumulate."""
@@ -86,7 +85,7 @@ def _check_cuda(x, w):
     _build.check_cuda("weights", w, torch.int32)
 
 
-def round_sum(x, w, seed: int, row_offset: int, params,
+def round_sum(x, w, seed, row_offset: int, params,
               encode_name: str = "rqm") -> torch.Tensor:
     """Dense fused round sum: x (rows, dim) float32, w (rows,) int32 ->
     (dim,) int32. CUDA kernel for CUDA tensors, plain version on the CPU."""
@@ -97,16 +96,17 @@ def round_sum(x, w, seed: int, row_offset: int, params,
     rows, dim = x.shape
     out = torch.empty(dim, dtype=torch.int32, device=x.device)
     types, values = ENCODERS[encode_name][1](params)
+    entry, seed_type, seed = quantize.seed_arg(f"{encode_name}_round_sum_dense", seed)
     with torch.cuda.device(x.device):
         _build.launch(
-            "round_sum", f"{encode_name}_round_sum_dense", _DENSE_ARGS + types + (P,),
+            "round_sum", entry, (P, P, P, I32, I32, seed_type, U32) + types + (P,),
             x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, dim,
-            int(seed), int(row_offset), *values, _build.stream_of(x),
+            seed, int(row_offset), *values, _build.stream_of(x),
         )
     return out
 
 
-def round_sum_packed(x, w, seed: int, row_offset: int, params, bits: int,
+def round_sum_packed(x, w, seed, row_offset: int, params, bits: int,
                      encode_name: str = "rqm") -> torch.Tensor:
     """Packed fused round sum: (rows, dim) float32 -> (ceil(dim / (32 //
     bits)),) int32 words. Any word count; pad coordinates are zero."""
@@ -122,10 +122,11 @@ def round_sum_packed(x, w, seed: int, row_offset: int, params, bits: int,
     words = wire.packed_words(dim, bits)
     out = torch.empty(words, dtype=torch.int32, device=x.device)
     types, values = ENCODERS[encode_name][1](params)
+    entry, seed_type, seed = quantize.seed_arg(f"{encode_name}_round_sum_packed", seed)
     with torch.cuda.device(x.device):
         _build.launch(
-            "round_sum", f"{encode_name}_round_sum_packed", _PACKED_ARGS + types + (P,),
+            "round_sum", entry, (P, P, P, I32, I32, I32, I32, seed_type, U32) + types + (P,),
             x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, dim, words,
-            int(bits), int(seed), int(row_offset), *values, _build.stream_of(x),
+            int(bits), seed, int(row_offset), *values, _build.stream_of(x),
         )
     return out

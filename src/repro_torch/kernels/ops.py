@@ -11,8 +11,11 @@ Per mechanism (rqm, pbm, qmgeo) two entries, built by one factory each:
     (dim,) int32 sum or its packed words (CUDA ``<name>_round_sum_dense``
     / ``<name>_round_sum_packed``).
 
-Seeds are explicit uint32 values here; the reference derives them from a
-JAX key (``ops.key_to_seed``), which this package does not reimplement.
+Seeds are explicit uint32 values here, as Python ints or as 1-element
+int32 device tensors of their bit pattern (``prng.seed_bits``; the kernels'
+``_dev`` entries read those from device memory, so a captured round takes
+a new seed at each replay); the reference derives them from a JAX key
+(``ops.key_to_seed``), which this package does not reimplement.
 
 The wire codec, ``pack_flat(z, bits)`` and ``unpack_flat(words, bits,
 n)`` (the Pallas ``pack_flat``/``unpack_flat``; CUDA entries of the same
@@ -20,8 +23,10 @@ names), and the folded ``decode_apply`` (``decode_apply_2d``) are
 re-exported from their modules.
 
 ``launches`` counts each CUDA kernel's launches by its C entry name (the
-ones above, ``decode_apply_sum`` and ``unpack_decode_apply``). CPU
-tensors run the plain versions and count nothing.
+ones above, their ``_dev`` twins, ``decode_apply_sum`` and
+``unpack_decode_apply``); a replayed CUDA graph adds the launches it
+captured (``_build.replayed``). CPU tensors run the plain versions and
+count nothing.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ __all__ = ["launches", "reset_launches", "rqm_batch", "pbm_batch", "qmgeo_batch"
 
 
 def _make_batch(name: str, quantize_fn):
-    def batch(x: torch.Tensor, seed: int, params, *, row_offset: int = 0) -> torch.Tensor:
+    def batch(x: torch.Tensor, seed, params, *, row_offset: int = 0) -> torch.Tensor:
         """Levels of a (clients, dim) batch; the batch plays rows
         ``[row_offset, row_offset + clients)`` of a larger one encoded
         with the same seed."""
@@ -49,7 +54,7 @@ def _make_batch(name: str, quantize_fn):
 
 
 def _make_round_sum(name: str):
-    def round_sum(x: torch.Tensor, seed: int, params, *, weights: torch.Tensor | None = None,
+    def round_sum(x: torch.Tensor, seed, params, *, weights: torch.Tensor | None = None,
                   row_offset: int = 0, pack_bits: int | None = None) -> torch.Tensor:
         """Fused clip -> encode -> weighted sum over the rows of a
         (rows, dim) cohort batch: the (dim,) int32 sum, or with

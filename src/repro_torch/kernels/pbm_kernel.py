@@ -47,7 +47,7 @@ def success_prob(x: torch.Tensor, params: PBMParams) -> torch.Tensor:
     return 0.5 + (k["theta"] * x) / c
 
 
-def pbm_encode_counters(x: torch.Tensor, seed: int, counter: torch.Tensor,
+def pbm_encode_counters(x: torch.Tensor, seed, counter: torch.Tensor,
                         params: PBMParams) -> torch.Tensor:
     """int32 Binomial(m, p(x)) draws where element i draws counter ``counter[i]``."""
     p = success_prob(x, params)
@@ -66,7 +66,7 @@ def prob_threshold(prob: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(k, nan=0.0).clamp(0, 1 << 24).to(torch.int64)
 
 
-def pbm_encode_threshold(x: torch.Tensor, seed: int, counter: torch.Tensor,
+def pbm_encode_threshold(x: torch.Tensor, seed, counter: torch.Tensor,
                          params: PBMParams) -> torch.Tensor:
     """``pbm_encode_counters`` as ``csrc/pbm_encode.cuh`` computes it: each
     draw's 32 bits against ``(K << 8) - 1`` (mod 2**32), which K = 2**24
@@ -79,13 +79,13 @@ def pbm_encode_threshold(x: torch.Tensor, seed: int, counter: torch.Tensor,
     return torch.where(k != 0, z, 0)
 
 
-def pbm_quantize_plain(x: torch.Tensor, seed: int, params: PBMParams,
+def pbm_quantize_plain(x: torch.Tensor, seed, params: PBMParams,
                        row_offset: int = 0) -> torch.Tensor:
     """Plain version of ``pbm_quantize``."""
     return quantize.quantize_plain(pbm_encode_counters, x, seed, params, row_offset)
 
 
-def pbm_quantize(x: torch.Tensor, seed: int, params: PBMParams,
+def pbm_quantize(x: torch.Tensor, seed, params: PBMParams,
                  row_offset: int = 0) -> torch.Tensor:
     """int32 PBM levels (0..m) of a (rows, dim) float32 batch; element
     (r, c) draws counter ``(row_offset + r) * dim + c``."""

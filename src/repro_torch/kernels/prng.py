@@ -12,6 +12,11 @@ PyTorch cannot shift or add ``torch.uint32`` on the CPU, so the plain
 version keeps every uint32 value in an int64 tensor in ``[0, 2**32)``
 and masks after each add. Multiplies are split into 16-bit halves so no
 int64 product overflows.
+
+A seed is a Python int in ``[0, 2**32)`` or, where it must stay on the
+device (a round replayed from a CUDA graph reads its seed from a buffer),
+a 1-element int32 tensor holding the uint32's bit pattern
+(``seed_bits``). Both give the same draws.
 """
 from __future__ import annotations
 
@@ -41,9 +46,26 @@ def mix32(z: torch.Tensor) -> torch.Tensor:
     return z ^ (z >> 16)
 
 
+def seed_bits(seed: int) -> int:
+    """The int32 bit pattern of a uint32 seed, as a device seed tensor
+    holds it; raises unless ``0 <= seed < 2**32``."""
+    if not 0 <= seed <= MASK32:
+        raise ValueError(f"seed must be a uint32, got {seed}")
+    return seed - (1 << 32) if seed >> 31 else seed
+
+
+def seed_value(seed):
+    """A seed as the uint32 the draws add: the int itself, or a 0-d int64
+    tensor in ``[0, 2**32)`` read on the tensor's device (no copy to the
+    host)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & MASK32
+    return int(seed)
+
+
 def random_bits(seed, counter: torch.Tensor, stream: int) -> torch.Tensor:
     """uint32 random bits (held in int64) for (seed, counter, stream)."""
-    s = (int(seed) + ((int(stream) * STREAM_SALT) & MASK32)) & MASK32
+    s = (seed_value(seed) + ((int(stream) * STREAM_SALT) & MASK32)) & MASK32
     return mix32(s + mul32(counter.to(torch.int64) & MASK32, GOLDEN))
 
 

@@ -36,7 +36,7 @@ def kernel_args(params: QMGeoParams):
              params.m))
 
 
-def qmgeo_encode_counters(x: torch.Tensor, seed: int, counter: torch.Tensor,
+def qmgeo_encode_counters(x: torch.Tensor, seed, counter: torch.Tensor,
                           params: QMGeoParams) -> torch.Tensor:
     """int32 QMGeo levels where element i draws counter ``counter[i]``."""
     return quantize_with_uniforms(x, random_uniform(seed, counter, 0),
@@ -98,7 +98,7 @@ def level_search(tables, j: torch.Tensor, target: torch.Tensor, m: int) -> torch
     return z.clamp(max=m - 1).to(torch.int32)
 
 
-def qmgeo_encode_tabled(x: torch.Tensor, seed: int, counter: torch.Tensor,
+def qmgeo_encode_tabled(x: torch.Tensor, seed, counter: torch.Tensor,
                         params: QMGeoParams) -> torch.Tensor:
     """``qmgeo_encode_counters`` as ``csrc/qmgeo_encode.cuh`` computes it:
     the rounding, then ``target = u_noise * Z[j]`` searched in the tables."""
@@ -108,13 +108,13 @@ def qmgeo_encode_tabled(x: torch.Tensor, seed: int, counter: torch.Tensor,
     return level_search(tables, j, target, params.m)
 
 
-def qmgeo_quantize_plain(x: torch.Tensor, seed: int, params: QMGeoParams,
+def qmgeo_quantize_plain(x: torch.Tensor, seed, params: QMGeoParams,
                          row_offset: int = 0) -> torch.Tensor:
     """Plain version of ``qmgeo_quantize``."""
     return quantize.quantize_plain(qmgeo_encode_counters, x, seed, params, row_offset)
 
 
-def qmgeo_quantize(x: torch.Tensor, seed: int, params: QMGeoParams,
+def qmgeo_quantize(x: torch.Tensor, seed, params: QMGeoParams,
                    row_offset: int = 0) -> torch.Tensor:
     """int32 QMGeo levels of a (rows, dim) float32 batch; element (r, c)
     draws counter ``(row_offset + r) * dim + c``."""

@@ -17,15 +17,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import I32, P, U32
 from repro_torch.kernels.prng import MASK32, mul32
 
-_ARGS = (P, P, I32, I32, U32, U32)
 
-
-def check_batch(x: torch.Tensor, seed: int, row_offset: int) -> None:
+def check_batch(x: torch.Tensor, seed, row_offset: int) -> None:
     if x.ndim != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"x must be a non-empty (rows, dim) batch, got {tuple(x.shape)}")
-    for name, v in (("seed", seed), ("row_offset", row_offset)):
-        if not 0 <= int(v) <= MASK32:
-            raise ValueError(f"{name} must be a uint32, got {v}")
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype != torch.int32 or seed.device != x.device:
+            raise ValueError(f"a tensor seed must be 1 int32 element on {x.device}, got "
+                             f"{tuple(seed.shape)} {seed.dtype} on {seed.device}")
+    elif not 0 <= int(seed) <= MASK32:
+        raise ValueError(f"seed must be a uint32, got {seed}")
+    if not 0 <= int(row_offset) <= MASK32:
+        raise ValueError(f"row_offset must be a uint32, got {row_offset}")
+
+
+def seed_arg(entry: str, seed):
+    """The C entry and its seed argument: ``entry`` with the uint32 by
+    value, or ``entry + "_dev"`` with the tensor seed's device pointer."""
+    if isinstance(seed, torch.Tensor):
+        return f"{entry}_dev", P, seed.data_ptr()
+    return entry, U32, int(seed)
 
 
 def batch_counters(row_start: int, rows: int, dim: int, row_offset: int, device) -> torch.Tensor:
@@ -37,7 +48,7 @@ def batch_counters(row_start: int, rows: int, dim: int, row_offset: int, device)
     return (mul32((row_offset + r) & MASK32, dim)[:, None] + cols) & MASK32
 
 
-def quantize_plain(encode, x: torch.Tensor, seed: int, params, row_offset: int = 0) -> torch.Tensor:
+def quantize_plain(encode, x: torch.Tensor, seed, params, row_offset: int = 0) -> torch.Tensor:
     """Plain version: ``encode(x, seed, counters, params)`` on the batch's
     counters, int32 levels of x's shape."""
     check_batch(x, seed, row_offset)
@@ -45,7 +56,7 @@ def quantize_plain(encode, x: torch.Tensor, seed: int, params, row_offset: int =
     return encode(x, seed, batch_counters(0, rows, dim, row_offset, x.device), params)
 
 
-def quantize(entry: str, encode, kernel_args, x: torch.Tensor, seed: int, params,
+def quantize(entry: str, encode, kernel_args, x: torch.Tensor, seed, params,
              row_offset: int = 0) -> torch.Tensor:
     """(rows, dim) float32 -> (rows, dim) int32 levels: the CUDA entry
     ``entry`` for a CUDA tensor, the plain version on the CPU.
@@ -58,8 +69,9 @@ def quantize(entry: str, encode, kernel_args, x: torch.Tensor, seed: int, params
     rows, dim = x.shape
     out = torch.empty((rows, dim), dtype=torch.int32, device=x.device)
     types, values = kernel_args
+    entry, seed_type, seed = seed_arg(entry, seed)
     with torch.cuda.device(x.device):
-        _build.launch("quantize", entry, _ARGS + types + (P,),
-                      x.data_ptr(), out.data_ptr(), rows, dim, int(seed), int(row_offset),
+        _build.launch("quantize", entry, (P, P, I32, I32, seed_type, U32) + types + (P,),
+                      x.data_ptr(), out.data_ptr(), rows, dim, seed, int(row_offset),
                       *values, _build.stream_of(x))
     return out

@@ -85,7 +85,7 @@ def _lowest_bit(v: torch.Tensor) -> torch.Tensor:
     return _highest_bit(v & -v)
 
 
-def keep_mask(seed: int, counter: torch.Tensor, params: RQMParams, base: int) -> torch.Tensor:
+def keep_mask(seed, counter: torch.Tensor, params: RQMParams, base: int) -> torch.Tensor:
     """int64 keep bits of the interior levels ``base .. base + 31`` (bit b
     for level base + b) of each counter."""
     keep_le, keep_any = keep_constants(params.q)
@@ -96,7 +96,7 @@ def keep_mask(seed: int, counter: torch.Tensor, params: RQMParams, base: int) ->
     return mask & keep_any
 
 
-def rqm_bracket(x: torch.Tensor, seed: int, counter: torch.Tensor, params: RQMParams):
+def rqm_bracket(x: torch.Tensor, seed, counter: torch.Tensor, params: RQMParams):
     """Steps 1-3 of the encode: ``(j, i_lo, i_hi, p_up)``, the bin, the
     nearest kept levels below and above it, and the probability of
     rounding up to ``i_hi``."""
@@ -125,7 +125,7 @@ def rqm_bracket(x: torch.Tensor, seed: int, counter: torch.Tensor, params: RQMPa
     return j, i_lo, i_hi, p_up
 
 
-def rqm_encode_counters(x: torch.Tensor, seed: int, counter: torch.Tensor,
+def rqm_encode_counters(x: torch.Tensor, seed, counter: torch.Tensor,
                         params: RQMParams) -> torch.Tensor:
     """int32 RQM levels of ``x`` where element i draws counter ``counter[i]``."""
     _, i_lo, i_hi, p_up = rqm_bracket(x, seed, counter, params)
@@ -133,13 +133,13 @@ def rqm_encode_counters(x: torch.Tensor, seed: int, counter: torch.Tensor,
     return torch.where(u_round < p_up, i_hi, i_lo).to(torch.int32)
 
 
-def rqm_quantize_plain(x: torch.Tensor, seed: int, params: RQMParams,
+def rqm_quantize_plain(x: torch.Tensor, seed, params: RQMParams,
                        row_offset: int = 0) -> torch.Tensor:
     """Plain version of ``rqm_quantize``."""
     return quantize.quantize_plain(rqm_encode_counters, x, seed, params, row_offset)
 
 
-def rqm_quantize(x: torch.Tensor, seed: int, params: RQMParams,
+def rqm_quantize(x: torch.Tensor, seed, params: RQMParams,
                  row_offset: int = 0) -> torch.Tensor:
     """int32 RQM levels of a (rows, dim) float32 batch; element (r, c)
     draws counter ``(row_offset + r) * dim + c``."""

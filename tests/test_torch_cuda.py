@@ -320,7 +320,8 @@ def test_default_round_on_the_card(cuda, name):
     tr = FedTrainer(f"{name}:c=0.05", FedConfig(**small), device=cuda)
     ops.reset_launches()
     tr.run_block(2)
-    assert dict(ops.launches) == ({} if name == "none" else {f"{name}_quantize": 2})
+    # the scan engine replays its captured round, which launches the _dev entry
+    assert dict(ops.launches) == ({} if name == "none" else {f"{name}_quantize_dev": 2})
     assert torch.isfinite(tr.flat).all()
     ids = torch.arange(6)
     grads = tr.client_grads(tr.flat, rounds.index_batch(tr.client_data, ids.to(cuda)))
@@ -389,3 +390,163 @@ def test_shard_trainer_on_one_nccl_rank(cuda, name):
     (a, sa), (b, sb) = (step(tr.flat, tr.client_data, ids=ids, seed=SEED)
                         for step in (scan, shard))
     assert torch.equal(sa, sb) and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the scan engine's captured round and the _dev entries
+# ---------------------------------------------------------------------------
+
+SMALL = dict(num_clients=24, clients_per_round=6, eval_size=64, samples_per_client=8)
+SPECS = {"rqm": "rqm:c=0.05", "pbm": "pbm:c=0.05", "qmgeo": "qmgeo:c=0.05",
+         "none": "none:c=0.05"}
+
+
+@pytest.fixture
+def deterministic(cuda, monkeypatch):
+    """The graph and the eager rounds it is held against must pick the
+    same cuBLAS and cuDNN algorithms, in full float32, as chip_smoke.py
+    sets them."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    flags = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.use_deterministic_algorithms(flags[0])
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags[1:]
+
+
+def _dev_launches(name: str, fused: bool, packed, rounds_: int, dev: str) -> dict:
+    if name == "none":
+        return {}
+    if not fused:
+        return {f"{name}_quantize{dev}": rounds_}
+    if packed is None and name != "pbm":
+        return {f"{name}_round_sum_packed{dev}": rounds_, "unpack_decode_apply": rounds_,
+                "unpack_flat": rounds_}
+    decode = {} if name == "pbm" else {"decode_apply_sum": rounds_}
+    return {f"{name}_round_sum_dense{dev}": rounds_, **decode}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fused,packed", [
+    ("rqm", False, None), ("pbm", False, None), ("qmgeo", False, None), ("none", False, None),
+    ("rqm", True, None), ("rqm", True, False), ("qmgeo", True, None), ("qmgeo", True, False),
+    ("pbm", True, None),
+], ids=str)
+def test_graphed_scan_equals_eager_perround(deterministic, name, fused, packed):
+    """5 rounds of the scan engine in blocks of 2, each round a replay of
+    the captured graph, against 5 eager perround rounds: parameters,
+    collected sums and RDP bit for bit; the graph launched the _dev
+    entries once a round, the eager rounds the by-value ones."""
+    cfg = FedConfig(collect_sums=True, fused_rounds=fused, wire_packed=packed, scan_block=2,
+                    **SMALL)
+    scan = FedTrainer(SPECS[name], cfg, device=deterministic)
+    ops.reset_launches()
+    scan.run_block(5)
+    assert dict(ops.launches) == _dev_launches(name, fused, packed, 5, "_dev")
+    assert scan.engine.graph is not None
+    per = FedTrainer(SPECS[name], dataclasses.replace(cfg, engine="perround"),
+                     device=deterministic)
+    ops.reset_launches()
+    for _ in range(5):
+        per.round()
+    assert dict(ops.launches) == _dev_launches(name, fused, packed, 5, "")
+    assert torch.equal(scan.flat, per.flat)
+    assert len(scan.round_sums) == 5
+    for a, b in zip(scan.round_sums, per.round_sums):
+        np.testing.assert_array_equal(a, b)
+    assert scan.accountant.rdp_epsilon(8.0) == per.accountant.rdp_epsilon(8.0)
+    assert torch.equal(scan.generator.get_state(), per.generator.get_state())
+
+
+# entry -> a call of it with the seed as given (the paper's widths, small)
+def _seeded_calls(x, w):
+    pb, qm = QUANTIZE["pbm"][0], QUANTIZE["qmgeo"][0]
+    return {
+        "rqm_quantize": lambda s: rqm_kernel.rqm_quantize(x, s, PARAMS, ROW_OFFSET),
+        "pbm_quantize": lambda s: pbm_kernel.pbm_quantize(x, s, pb, ROW_OFFSET),
+        "qmgeo_quantize": lambda s: qmgeo_kernel.qmgeo_quantize(x, s, qm, ROW_OFFSET),
+        "rqm_round_sum_dense": lambda s: fused_round_kernel.round_sum(
+            x, w, s, ROW_OFFSET, PARAMS),
+        "pbm_round_sum_dense": lambda s: fused_round_kernel.round_sum(
+            x, w, s, ROW_OFFSET, pb, "pbm"),
+        "qmgeo_round_sum_dense": lambda s: fused_round_kernel.round_sum(
+            x, w, s, ROW_OFFSET, qm, "qmgeo"),
+        "rqm_round_sum_packed": lambda s: fused_round_kernel.round_sum_packed(
+            x, w, s, ROW_OFFSET, PARAMS, 10),
+        "qmgeo_round_sum_packed": lambda s: fused_round_kernel.round_sum_packed(
+            x, w, s, ROW_OFFSET, qm, 10, "qmgeo"),
+    }
+
+
+_PLAIN = {"rqm_quantize": rqm_kernel.rqm_quantize_plain,
+          "pbm_quantize": pbm_kernel.pbm_quantize_plain,
+          "qmgeo_quantize": qmgeo_kernel.qmgeo_quantize_plain}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [SEED >> 1, SEED], ids=str)  # the second's bits are negative
+@pytest.mark.parametrize("entry", list(_seeded_calls(None, None)))
+def test_dev_entry_equals_its_by_value_entry(cuda, entry, seed):
+    """Each of the eight _dev entries, given the seed as a device tensor,
+    equals its by-value entry given the int, and the plain version."""
+    from repro_torch.kernels.prng import seed_bits
+
+    x = _batch(cuda, 40, 3001, seed=7)
+    w = torch.from_numpy((np.arange(40) % 3 != 0).astype(np.int32)).to(cuda)
+    seed_t = torch.tensor([seed_bits(seed)], dtype=torch.int32, device=cuda)
+    call = _seeded_calls(x, w)[entry]
+    ops.reset_launches()
+    got, want = call(seed_t), call(seed)
+    assert dict(ops.launches) == {f"{entry}_dev": 1, entry: 1}
+    assert torch.equal(got, want)
+    if entry in _PLAIN:
+        name = entry.split("_")[0]
+        plain = _PLAIN[entry](x, seed_t, QUANTIZE[name][0] if name != "rqm" else PARAMS,
+                              ROW_OFFSET)
+        assert torch.equal(got, plain)
+    elif entry.endswith("_dense"):
+        name = entry.split("_")[0]
+        params = PARAMS if name == "rqm" else QUANTIZE[name][0]
+        assert torch.equal(got, fused_round_kernel.round_sum_plain(
+            x, w, seed_t, ROW_OFFSET, params, name))
+
+
+@pytest.mark.cuda
+def test_launches_count_once_per_replay(deterministic):
+    """Warm-up and capture launch nothing that counts; each replay adds the
+    captured launches once."""
+    cfg = FedConfig(fused_rounds=True, **SMALL)
+    tr = FedTrainer(SPECS["rqm"], cfg, device=deterministic)
+    ops.reset_launches()
+    tr.run_block(1)
+    assert dict(tr.engine.graph.launches) == {"rqm_round_sum_packed_dev": 1,
+                                              "unpack_decode_apply": 1}
+    assert dict(ops.launches) == {"rqm_round_sum_packed_dev": 1, "unpack_decode_apply": 1}
+    graph = tr.engine.graph
+    tr.run_block(3)
+    assert tr.engine.graph is graph  # captured once
+    assert dict(ops.launches) == {"rqm_round_sum_packed_dev": 4, "unpack_decode_apply": 4}
+
+
+@pytest.mark.cuda
+def test_uncapturable_round_raises_without_fallback(deterministic, monkeypatch):
+    """A round op that copies from the host fails the capture: the block
+    raises, naming the line, runs no round eagerly instead and leaves the
+    generator where it was, so that a retry draws perround's cohorts."""
+    from repro_torch.core import mechanisms
+
+    def decode_with_a_host_copy(self, g_sum, n):
+        return g_sum / torch.tensor(float(n), dtype=g_sum.dtype, device=g_sum.device)
+
+    monkeypatch.setattr(mechanisms.NoiseFreeMechanism, "decode_sum", decode_with_a_host_copy)
+    tr = FedTrainer(SPECS["none"], FedConfig(**SMALL), device=deterministic)
+    start, state = tr.flat.clone(), tr.generator.get_state()
+    for _ in range(2):  # no graph is kept, and no round runs
+        with pytest.raises(RuntimeError, match="cannot be captured") as err:
+            tr.run_block(1)
+        assert "torch.tensor(float(n)" in str(err.value)
+        assert tr.engine.graph is None and tr.accountant.rounds == 0
+        assert torch.equal(tr.flat, start)
+        assert torch.equal(tr.generator.get_state(), state)
