@@ -19,7 +19,10 @@ which raises and exits non-zero:
      inputs, qmgeo_quantize and both its round sums at m in {2, 33, 100,
      5000} (a one-node tree, a padded tree, the walk, the walk past its
      tabled weights); the wire codec also at 16
-     bits with the top field across the sign bit; the folded decode_apply
+     bits with the top field across the sign bit, and both its entries on
+     views 1 to 3 words past an aligned address at 10 and 16 bits, each
+     launch's walk (its width V and grid: the C entry's, which must equal
+     ``pack_kernel.codec_walk``'s) recorded; the folded decode_apply
      in float32 and bfloat16); each quantize and round-sum entry's _dev
      twin, which reads the seed from device memory, with the seed as a
      device tensor, against its plain version and its by-value entry:
@@ -28,7 +31,9 @@ which raises and exits non-zero:
      CUDA events around calls queued behind a sleeping kernel), whole-call
      times by CUDA events, and the least time
      the card could take (its bound), each printed as one JSON line after
-     phase 7 with its launches;
+     phase 7 with its launches; for the codec and decode entries
+     (FLOOR_ROWS) also ``floor_ms``, the same entry's device time at n = 1
+     (one block: the fixed cost of a launch), beside the bound;
   4. fused path: 5 rounds of the paper's EMNIST configuration through
      FedTrainer with fused rounds, packed and dense wire, on the perround
      engine and on the scan engine (each round a replay of a captured CUDA
@@ -138,6 +143,9 @@ FMA_OPS_PER_S = 132 * 64 * 1.98e9
 ALU_ONLY_OPS_PER_DRAW = 2  # the xors
 FMA_ONLY_OPS_PER_DRAW = 2  # the multiplies
 EITHER_OPS_PER_DRAW = 3    # the salt's add, the two shifts
+# the entries whose fixed cost phase 3 reads at n = 1 (one block)
+FLOOR_ROWS = ("decode_apply_sum", "unpack_decode_apply", "pack_flat", "unpack_flat",
+              "decode_apply")
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -373,38 +381,45 @@ def check_kernels(torch, np):
         dict(name="decode_apply_sum", symbol=("decode_apply_sum_kernel",),
              source="src/repro_torch/kernels/csrc/decode_apply.cu",
              replaces="src/repro/kernels/decode_apply_kernel.py:103",
-             kernel=lambda: decode_apply_kernel.decode_apply_sum(
-                 params_w, dense, rqm_params, n, lr),
-             plain=lambda: decode_apply_kernel.decode_apply_plain(
-                 params_w, dense, rqm_params, n, lr),
+             kernel=lambda d=DIM: decode_apply_kernel.decode_apply_sum(
+                 params_w[:d], dense[:d], rqm_params, n, lr),
+             plain=lambda d=DIM: decode_apply_kernel.decode_apply_plain(
+                 params_w[:d], dense[:d], rqm_params, n, lr),
              nbytes=DIM * 12),
         dict(name="unpack_decode_apply", symbol=("unpack_decode_apply_kernel",),
              source="src/repro_torch/kernels/csrc/decode_apply.cu",
              replaces="src/repro/kernels/pack_kernel.py:138",
-             kernel=lambda: pack_kernel.unpack_decode_apply(
-                 params_w, packed, rqm_params, n, lr, pack_bits=BITS),
-             plain=lambda: pack_kernel.unpack_decode_apply_plain(
-                 params_w, packed, rqm_params, n, lr, pack_bits=BITS),
+             kernel=lambda d=DIM: pack_kernel.unpack_decode_apply(
+                 params_w[:d], packed[:wire.packed_words(d, BITS)], rqm_params, n, lr,
+                 pack_bits=BITS),
+             plain=lambda d=DIM: pack_kernel.unpack_decode_apply_plain(
+                 params_w[:d], packed[:wire.packed_words(d, BITS)], rqm_params, n, lr,
+                 pack_bits=BITS),
              nbytes=DIM * 8 + words * 4),
         dict(name="pack_flat", symbol=("pack_flat_kernel",),
              source="src/repro_torch/kernels/csrc/pack.cu",
              replaces="src/repro/kernels/pack_kernel.py:66",
-             kernel=lambda: pack_kernel.pack_flat(dense, BITS),
-             plain=lambda: pack_kernel.pack_flat_plain(dense, BITS),
+             kernel=lambda d=DIM: pack_kernel.pack_flat(dense[:d], BITS),
+             plain=lambda d=DIM: pack_kernel.pack_flat_plain(dense[:d], BITS),
+             walk=lambda out, d=DIM: (d, out.numel(), BITS, (dense.data_ptr(), out.data_ptr())),
              nbytes=DIM * 4 + words * 4),
         dict(name="unpack_flat", symbol=("unpack_flat_kernel",),
              source="src/repro_torch/kernels/csrc/pack.cu",
              replaces="src/repro/kernels/pack_kernel.py:102",
-             kernel=lambda: pack_kernel.unpack_flat(packed, BITS, DIM),
-             plain=lambda: pack_kernel.unpack_flat_plain(packed, BITS, DIM),
+             kernel=lambda d=DIM: pack_kernel.unpack_flat(
+                 packed[:wire.packed_words(d, BITS)], BITS, d),
+             plain=lambda d=DIM: pack_kernel.unpack_flat_plain(
+                 packed[:wire.packed_words(d, BITS)], BITS, d),
+             walk=lambda out, d=DIM: (d, wire.packed_words(d, BITS), BITS,
+                                      (packed.data_ptr(), out.data_ptr())),
              nbytes=DIM * 4 + words * 4),
         dict(name="decode_apply", symbol=("decode_apply_folded_kernel",),
              source="src/repro_torch/kernels/csrc/decode_apply.cu",
              replaces="src/repro/kernels/decode_apply_kernel.py:33",
-             kernel=lambda: decode_apply_kernel.decode_apply(
-                 params_w, dense, rqm_params, n, lr),
-             plain=lambda: decode_apply_kernel.decode_apply_ref(
-                 params_w, dense, rqm_params, n, lr),
+             kernel=lambda d=DIM: decode_apply_kernel.decode_apply(
+                 params_w[:d], dense[:d], rqm_params, n, lr),
+             plain=lambda d=DIM: decode_apply_kernel.decode_apply_ref(
+                 params_w[:d], dense[:d], rqm_params, n, lr),
              nbytes=DIM * 12),
     ]
     check_codec(torch, pack_kernel, dense, packed)
@@ -434,6 +449,19 @@ def check_kernels(torch, np):
         err = float((got.double() - want.double()).abs().max())
         bound_ms, bound_by = bound(case["nbytes"], case.get("draws", 0))
         dev_ms, ms_by = device_ms(torch, case["kernel"], KERNEL_REPS, case["symbol"])
+        extra = {}
+        if "walk" in case:  # the codec: the width and grid its C entry took
+            extra["walk"] = checked_walk(pack_kernel, *case["walk"](got))
+        if case["name"] in FLOOR_ROWS:  # the same entry at n = 1: one block
+            one = lambda k=case["kernel"]: k(1)  # noqa: E731
+            out1, want1 = one(), case["plain"](1)
+            torch.cuda.synchronize()
+            if not torch.equal(out1, want1):
+                raise AssertionError(f"{case['name']} at n = 1 differs from its plain version")
+            extra["floor_ms"], extra["floor_ms_by"] = device_ms(torch, one, KERNEL_REPS,
+                                                                case["symbol"])
+            if "walk" in case:
+                extra["floor_walk"] = checked_walk(pack_kernel, *case["walk"](out1, 1))
         records.append({
             "name": case["name"], "route": "cuda", "source": case["source"],
             "replaces": case["replaces"], "max_abs_err": err,
@@ -445,13 +473,26 @@ def check_kernels(torch, np):
             # no single PyTorch call computes a mechanism's encode (+ sum),
             # the b-bit wire codec, or either decode-then-SGD association
             "library_ms": None,
+            **extra,
         })
         if case["name"] == "decode_apply":
             records[-1].update(decode_apply_bf16(torch, decode_apply_kernel, params_w, dense,
                                                  rqm_params, n, lr))
         records[-1]["phase3_launches"] = ops.launches[case["name"]]
-        log(f"[kernels] {case['name']}: bit-exact, {dev_ms} ms on the device ({ms_by})")
+        log(f"[kernels] {case['name']}: bit-exact, {dev_ms} ms on the device ({ms_by})"
+            + "".join(f", {k} {v}" for k, v in extra.items() if k != "floor_ms_by"))
     return records
+
+
+def checked_walk(pack_kernel, n: int, n_words: int, bits: int, addrs) -> dict:
+    """The width V and grid of a codec launch: ``pack_kernel.codec_walk``'s,
+    which must equal the built C entry's."""
+    want = pack_kernel.codec_walk(n, n_words, bits, addrs)
+    got = pack_kernel.built_walk(n, n_words, bits, addrs)
+    if got != want:
+        raise AssertionError(f"codec walk of {n} fields in {n_words} words at {bits} bits: "
+                             f"the C entry takes (V, blocks) {got}, codec_walk {want}")
+    return {"v": want[0], "blocks": want[1]}
 
 
 def seeded(case: dict, seed: int, seed_t) -> list:
@@ -514,7 +555,11 @@ def check_edges(torch, x, w, seed: int, params: dict) -> None:
 def check_codec(torch, pack_kernel, dense, packed) -> None:
     """The wire codec's identities at the main path's shapes: pack_flat of
     the dense round sum is the fused packed sum, unpack_flat inverts it,
-    and a 16-bit top field that sets the sign bit round-trips."""
+    and a 16-bit top field that sets the sign bit round-trips. Then both
+    entries on views that start 1 to 3 words past the tensors' aligned
+    addresses, at 10 and 16 bits, bit-exact against their plain versions;
+    each launch's walk (V, blocks) as the C entry takes it and as
+    ``codec_walk`` picks it."""
     if not torch.equal(pack_kernel.pack_flat(dense, BITS), packed):
         raise AssertionError("pack_flat of the dense round sum differs from the packed sum")
     if not torch.equal(pack_kernel.unpack_flat(packed, BITS, DIM), dense):
@@ -528,8 +573,25 @@ def check_codec(torch, pack_kernel, dense, packed) -> None:
     if not (torch.equal(back, top)
             and torch.equal(back, pack_kernel.unpack_flat_plain(words16, 16, DIM))):
         raise AssertionError("16-bit unpack_flat does not round-trip the sign-bit field")
+    walks = []
+    for bits, z, words in ((BITS, dense, packed), (16, top, words16)):
+        for offset in range(4):
+            zv, wv = (torch.cat([t.new_zeros(offset), t])[offset:] for t in (z, words))
+            got_words = pack_kernel.pack_flat(zv, bits)
+            got_z = pack_kernel.unpack_flat(wv, bits, DIM)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_words, pack_kernel.pack_flat_plain(zv, bits))
+                    and torch.equal(got_z, pack_kernel.unpack_flat_plain(wv, bits, DIM))
+                    and torch.equal(got_words, words) and torch.equal(got_z, z)):
+                raise AssertionError(f"the codec at {bits} bits on views {offset} words "
+                                     f"in differs from its plain version")
+            walk = [checked_walk(pack_kernel, DIM, words.numel(), bits,
+                                 (a.data_ptr(), b.data_ptr()))
+                    for a, b in ((zv, got_words), (wv, got_z))]
+            walks.append(f"{bits} bits, offset {offset}: pack {walk[0]}, unpack {walk[1]}")
     log(f"[kernels] codec: pack_flat(dense) == packed sum, unpack_flat inverts it, 16-bit "
-        f"sign-bit round trip over {words16.numel()} words bit-exact")
+        f"sign-bit round trip over {words16.numel()} words, views at offsets 0-3 at 10 and "
+        f"16 bits: bit-exact; walks (V, blocks): " + "; ".join(walks))
 
 
 def decode_apply_bf16(torch, decode_apply_kernel, params_w, dense, params, n, lr) -> dict:
@@ -996,7 +1058,8 @@ def main() -> int:
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces")}
                        | {"launches": launches, "path": path}
                        | {k: rec[k] for k in ("max_abs_err", "ms", "ms_by", "plain_ms",
-                                              "bound_ms", "bound_by", "library_ms")})
+                                              "bound_ms", "bound_by", "library_ms")}
+                       | {"floor_ms": rec.get("floor_ms")})
     import torch.distributed as dist
 
     if dist.is_initialized():

@@ -1,23 +1,27 @@
-"""Time the port's quantize and round-sum kernels of an earlier source tree
-against this tree's, and each of this tree's by-value entries against its
-``_dev`` twin, in turns, on one CUDA card.
+"""Time the port's quantize, round-sum and wire codec kernels of an earlier
+source tree against this tree's, and each of this tree's by-value entries
+against its ``_dev`` twin, in turns, on one CUDA card.
 
     git archive <rev> -- src/repro_torch/kernels/csrc | tar -x -C build/parent
     python scripts/torch_kernel_ab.py --parent build/parent/src/repro_torch/kernels/csrc
 
-Both trees' ``quantize.cu`` and ``round_sum.cu`` are built with the port's
-nvcc flags (all four builds at once), and each library is called through
-ctypes at ``chip_smoke.py`` phase 3's inputs: a cohort of 40 rows of the
-CNN's 222,030 coordinates, uniform in +-1.2 c, 10-bit packed words, the
-paper's mechanisms (rqm m=16 q=0.42, pbm m=16 theta=0.25, qmgeo m=16
-r=0.6). Ten cases: the three quantize entries and ``rqm_quantize`` at
-m=64, q=0.5; the three dense round sums; the two packed ones. Each case
-runs three ways: the parent's entry, this tree's by-value entry, and its
-``_dev`` twin with the seed as a 1-element int32 device tensor. Each
-result must equal the plain PyTorch version bit for bit. The device times
-are then taken in turns (parent, tree, dev, dev, tree, parent) by
-``chip_smoke.device_ms`` (torch.profiler, mean of 30 launches) and
-``chip_smoke.queued_ms`` (CUDA events behind a sleeping kernel).
+Both trees' ``quantize.cu``, ``round_sum.cu`` and ``pack.cu`` are built
+with the port's nvcc flags (all six builds at once), and each library is called through ctypes at ``chip_smoke.py`` phase 3's
+inputs: a cohort of 40 rows of the CNN's 222,030 coordinates, uniform in
++-1.2 c, 10-bit packed words, the paper's mechanisms (rqm m=16 q=0.42, pbm
+m=16 theta=0.25, qmgeo m=16 r=0.6). Ten seeded cases: the three quantize
+entries and ``rqm_quantize`` at m=64, q=0.5; the three dense round sums;
+the two packed ones. Each runs three ways: the parent's entry, this tree's
+by-value entry, and its ``_dev`` twin with the seed as a 1-element int32
+device tensor. Six codec cases run two ways, parent and tree (the C ABI
+is the same): ``pack_flat`` and ``unpack_flat`` of the RQM round's dense
+sum at 10 bits, at 16 bits with every field 2^16 - 1 (the top field sets
+the sign bit), and at n = 1 (one block: the entry's floor). Each result
+must equal the plain PyTorch version bit for bit. The device times are
+then taken in turns (parent, tree, dev, dev, tree, parent; the codec's
+parent, tree, tree, parent) by ``chip_smoke.device_ms`` (torch.profiler,
+mean of 30 launches) and ``chip_smoke.queued_ms`` (CUDA events behind a
+sleeping kernel).
 
 The RQM entries of a tree up to commit 698c532 take the float ``q``
 (``--parent-abi q``, the default); later trees, this one among them, take
@@ -57,11 +61,18 @@ import chip_smoke  # noqa: E402
 from repro_torch.core import wire  # noqa: E402
 from repro_torch.core.grid import RQMParams  # noqa: E402
 from repro_torch.core.mechanisms import make_mechanism  # noqa: E402
-from repro_torch.kernels import _build, pbm_kernel, prng, qmgeo_kernel, rqm_kernel  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build,
+    pack_kernel,
+    pbm_kernel,
+    prng,
+    qmgeo_kernel,
+    rqm_kernel,
+)
 from repro_torch.kernels import fused_round_kernel as frk  # noqa: E402
 
 ROWS, DIM, BITS = chip_smoke.ROWS, chip_smoke.DIM, chip_smoke.BITS
-LIBS = ("quantize", "round_sum")
+LIBS = ("quantize", "round_sum", "pack")
 P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # SASS opcode -> the SM pipe that executes it (by base name, before the
 # first '.'); uniform-datapath opcodes (U*) count as "uniform", the rest as
@@ -210,6 +221,33 @@ def build_all(trees: dict, out: str) -> dict:
     return libs
 
 
+def codec_cases(launcher, dense) -> dict:
+    """``pack_flat`` and ``unpack_flat`` of ``dense`` (the RQM round's sum)
+    at BITS, of 2^16 - 1 everywhere at 16 bits, and of one field (the
+    floor); both trees' entries take the same arguments."""
+    top = torch.full_like(dense, (1 << 16) - 1)
+    cases = {}
+    for what, z, bits in ((f"{BITS}-bit", dense, BITS), ("16-bit top field", top, 16),
+                          ("n=1", dense[:1], BITS)):
+        n, words = z.numel(), pack_kernel.pack_flat_plain(z, bits)
+        packed_out = torch.empty_like(words)
+        unpacked_out = torch.empty_like(z)
+        cases[f"pack_flat {what}"] = (
+            lambda tag, z=z, o=packed_out, n=n, b=bits: launcher(
+                tag, "pack", "pack_flat", (P, P, I, I, I),
+                (z.data_ptr(), o.data_ptr(), n, o.numel(), b), o),
+            ("::pack_flat_kernel",), lambda z=z, b=bits: pack_kernel.pack_flat_plain(z, b),
+            ("parent", "tree"))
+        cases[f"unpack_flat {what}"] = (
+            lambda tag, words=words, o=unpacked_out, b=bits: launcher(
+                tag, "pack", "unpack_flat", (P, P, I, I, I),
+                (words.data_ptr(), o.data_ptr(), o.numel(), words.numel(), b), o),
+            ("::unpack_flat_kernel",),
+            lambda words=words, n=n, b=bits: pack_kernel.unpack_flat_plain(words, b, n),
+            ("parent", "tree"))
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier tree's csrc directory")
@@ -294,26 +332,31 @@ def main() -> int:
     plain_quantize = {"rqm": rqm_kernel.rqm_quantize_plain, "pbm": pbm_kernel.pbm_quantize_plain,
                       "qmgeo": qmgeo_kernel.qmgeo_quantize_plain}
     encoder = {"rqm": "RQMEncoder", "pbm": "PBMEncoder", "qmgeo": "QMGeoEncoder"}
-    cases = {}
+    seeded = ("parent", "tree", "dev")
+    cases = {}  # name -> (make(tag), profiler symbol, plain version, tags)
     for name in ("rqm", "pbm", "qmgeo"):
         cases[f"{name}_quantize"] = (
-            lambda tag, n=name: quantize(tag, n, mech[n]), ("quantize_kernel", encoder[name]),
-            lambda n=name: plain_quantize[n](x, seed, mech[n], 0))
+            lambda tag, n=name: quantize(tag, n, mech[n]),
+            ("quantize_kernel", encoder[name]),
+            lambda n=name: plain_quantize[n](x, seed, mech[n], 0), seeded)
     cases["rqm_quantize m=64 q=0.5"] = (
         lambda tag: quantize(tag, "rqm", wide), ("quantize_kernel", "RQMEncoder"),
-        lambda: rqm_kernel.rqm_quantize_plain(x, seed, wide, 0))
+        lambda: rqm_kernel.rqm_quantize_plain(x, seed, wide, 0), seeded)
     for name in ("rqm", "pbm", "qmgeo"):
         cases[f"{name}_round_sum_dense"] = (
-            lambda tag, n=name: dense(tag, n), ("round_sum_dense_kernel", encoder[name]),
-            lambda n=name: frk.round_sum_plain(x, w, seed, 0, mech[n], n))
+            lambda tag, n=name: dense(tag, n),
+            ("round_sum_dense_kernel", encoder[name]),
+            lambda n=name: frk.round_sum_plain(x, w, seed, 0, mech[n], n), seeded)
     for name in frk.PACKED_KERNELS:
         cases[f"{name}_round_sum_packed"] = (
-            lambda tag, n=name: packed(tag, n), ("round_sum_packed_kernel", encoder[name]),
-            lambda n=name: frk.round_sum_packed_plain(x, w, seed, 0, mech[n], BITS, n))
+            lambda tag, n=name: packed(tag, n),
+            ("round_sum_packed_kernel", encoder[name]),
+            lambda n=name: frk.round_sum_packed_plain(x, w, seed, 0, mech[n], BITS, n), seeded)
+    cases.update(codec_cases(launcher, frk.round_sum_plain(x, w, seed, 0, params, "rqm")))
     results = {"card": chip_smoke.nvidia_smi(), "times": {}}
-    for name, (make, symbol, plain) in cases.items():
+    for name, (make, symbol, plain, tags) in cases.items():
         want = plain()
-        for tag in ("parent", "tree", "dev"):
+        for tag in tags:
             got = make(tag)().clone()
             torch.cuda.synchronize()
             if not torch.equal(got, want):
@@ -321,7 +364,7 @@ def main() -> int:
                                      f"{got.numel()} differ from the plain version")
             log(f"[check] {name} {tag}: bit-exact")
         times = results["times"][name] = collections.defaultdict(list)
-        for tag in ("parent", "tree", "dev", "dev", "tree", "parent"):
+        for tag in tags + tags[::-1]:
             fn = make(tag)
             ms, by = chip_smoke.device_ms(torch, fn, chip_smoke.KERNEL_REPS, symbol)
             q_ms = chip_smoke.queued_ms(torch, fn, chip_smoke.KERNEL_REPS)

@@ -124,14 +124,20 @@ def _function(lib: str, fn: str, argtypes):
     return _funcs[key]
 
 
+def call(lib: str, fn: str, argtypes, *args) -> None:
+    """Call C entry ``fn`` of library ``lib``, which returns a CUDA error
+    code; raise if it is not 0."""
+    rc = _function(lib, fn, argtypes)(*args)
+    if rc:
+        msg = getattr(_libs[lib], f"{lib}_error_string")(rc).decode()
+        raise RuntimeError(f"C entry {fn} of {lib} failed: {msg} ({rc})")
+
+
 def launch(lib: str, fn: str, argtypes, *args) -> None:
     """Launch C entry ``fn`` of library ``lib`` (it enqueues its kernel on
     the stream passed last and returns ``cudaGetLastError()``); raise if
     the launch was refused, else count it under ``fn``."""
-    rc = _function(lib, fn, argtypes)(*args)
-    if rc:
-        msg = getattr(_libs[lib], f"{lib}_error_string")(rc).decode()
-        raise RuntimeError(f"CUDA kernel {fn} failed to launch: {msg} ({rc})")
+    call(lib, fn, argtypes, *args)
     launches[fn] += 1
 
 

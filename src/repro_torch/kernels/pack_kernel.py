@@ -14,8 +14,15 @@ round has W = 74,010, which is not a multiple of 128). CUDA kernels in
 ``csrc/pack.cu`` and ``csrc/decode_apply.cu``; on a CPU tensor each
 entry runs its plain version (``wire.pack_bits``/``unpack_bits`` for the
 codec).
+
+The codec kernels walk the words in V-groups (``codec_walk``, which the C
+entries mirror): group j is words ``[j*V, j*V + V)`` and, for each field
+f, the levels ``[f*W + j*V, f*W + j*V + V)``; a thread walks GROUPS groups,
+THREADS apart.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -31,6 +38,35 @@ from repro_torch.kernels.decode_apply_kernel import (
 
 _ARGS = (P, P, P, I32, I32, I32, F32, F32, F32, P)
 _CODEC_ARGS = (P, P, I32, I32, I32, P)
+THREADS = 256  # a block of the codec kernels (csrc/pack.cu: kThreads)
+GROUPS = 2  # V-groups a thread walks (csrc/pack.cu: kGroups)
+INT_MAX = (1 << 31) - 1
+
+
+def codec_walk(n: int, n_words: int, bits: int, addrs) -> tuple[int, int]:
+    """The codec kernels' walk over ``n`` fields of ``bits`` in ``n_words``
+    words, between operands at the byte addresses ``addrs``: ``(V,
+    blocks)``. V is 2 where 2 words divide ``n_words``, ``n`` and every
+    address, else 1, so each access is one aligned V-wide load or store
+    and a V-group of a field lies wholly below ``n`` or at or past it;
+    ``blocks`` of THREADS threads, GROUPS groups a thread, cover the
+    ``n_words / V`` groups. Field indices ``f * n_words + w`` must fit an
+    int32 (``k * n_words <= INT_MAX``)."""
+    k = wire.fields_per_word(bits)
+    if n < 1 or n_words < 1 or k * n_words > INT_MAX:
+        raise ValueError(f"{n} fields in {n_words} words of {k} fields: the walk needs "
+                         f"n, n_words >= 1 and k * n_words <= {INT_MAX}")
+    v = 2 if n_words % 2 == 0 and n % 2 == 0 and all(a % 8 == 0 for a in addrs) else 1
+    return v, -(-(n_words // v) // (THREADS * GROUPS))
+
+
+def built_walk(n: int, n_words: int, bits: int, addrs) -> tuple[int, int]:
+    """The walk the built C entries take (``codec_walk`` in
+    ``csrc/pack.cu``), which must equal ``codec_walk``'s. Needs nvcc."""
+    v, blocks = ctypes.c_int(), ctypes.c_int()
+    _build.call("pack", "codec_walk", (I32, I32, I32, P, P, P, P), n, n_words, int(bits),
+                *addrs, ctypes.addressof(v), ctypes.addressof(blocks))
+    return v.value, blocks.value
 
 
 def pack_flat_plain(z: torch.Tensor, bits: int) -> torch.Tensor:

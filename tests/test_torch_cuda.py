@@ -12,6 +12,7 @@ Each kernel must equal its plain PyTorch version bit for bit, on the card
 and against the plain version on the CPU; chip_smoke.py repeats the check
 at the main path's full shapes.
 """
+import collections
 import dataclasses
 import math
 
@@ -27,6 +28,7 @@ from repro_torch.fed import rounds
 from repro_torch.fed.config import FedConfig
 from repro_torch.fed.trainer import FedTrainer
 from repro_torch.kernels import (
+    _build,
     decode_apply_kernel,
     fused_round_kernel,
     ops,
@@ -334,21 +336,60 @@ def test_default_round_on_the_card(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,n", [(10, 222_030), (16, 257), (4, 1000), (7, 130), (1, 33)],
+@pytest.mark.parametrize("bits,n", [(10, 222_030), (16, 257), (4, 1000), (7, 130), (1, 33),
+                                    (16, 222_030), (10, 3 * 4 * 1000), (10, 3 * 4 * 1000 - 2)],
                          ids=str)
 def test_codec_kernels_match_plain(cuda, bits, n):
-    """Rows 8-9: pack_flat and unpack_flat equal the plain codec on the card."""
-    z = torch.from_numpy(np.random.default_rng(n).integers(0, 1 << bits, n)
-                         .astype(np.int32)).to(cuda)
-    ops.reset_launches()
-    words = pack_kernel.pack_flat(z, bits)
-    back = pack_kernel.unpack_flat(words, bits, n)
-    assert dict(ops.launches) == {"pack_flat": 1, "unpack_flat": 1}
-    assert torch.equal(words, pack_kernel.pack_flat_plain(z, bits))
-    assert torch.equal(words.cpu(), wire.pack_bits(z.cpu(), bits))
-    assert torch.equal(back, z)
+    """Rows 8-9: pack_flat and unpack_flat equal the plain codec on the
+    card, on views that start 0 to 3 words past an aligned address (so
+    the walk takes every width its word count allows: W = 74,010 = 2 mod
+    4, W odd, W = 4000 = 0 mod 4)."""
+    values = np.random.default_rng(n).integers(0, 1 << bits, n).astype(np.int32)
+    n_words = wire.packed_words(n, bits)
+    for offset in range(4):
+        buf = torch.zeros(n + offset, dtype=torch.int32, device=cuda)
+        z = buf[offset:]
+        z.copy_(torch.from_numpy(values))
+        ops.reset_launches()
+        words = pack_kernel.pack_flat(z, bits)
+        wbuf = torch.zeros(n_words + offset, dtype=torch.int32, device=cuda)
+        wbuf[offset:] = words
+        back = pack_kernel.unpack_flat(wbuf[offset:], bits, n)
+        assert dict(ops.launches) == {"pack_flat": 1, "unpack_flat": 1}
+        assert torch.equal(words, pack_kernel.pack_flat_plain(z, bits))
+        assert torch.equal(words.cpu(), wire.pack_bits(z.cpu(), bits))
+        assert torch.equal(back, z)
+        addrs = (z.data_ptr(), words.data_ptr())
+        assert pack_kernel.built_walk(n, n_words, bits, addrs) == \
+            pack_kernel.codec_walk(n, n_words, bits, addrs)
     top = torch.full((n,), (1 << bits) - 1, dtype=torch.int32, device=cuda)
     assert torch.equal(pack_kernel.unpack_flat(pack_kernel.pack_flat(top, bits), bits, n), top)
+
+
+@pytest.mark.cuda
+def test_unpack_flat_replays_in_a_cuda_graph(cuda):
+    """unpack_flat captured in a CUDA graph (as the graphed fused packed
+    round that keeps its sums runs it): each replay unpacks the words the
+    buffer holds then, bit for bit, and counts one launch from the
+    capture's record."""
+    bits, n = 10, 222_030
+    rng = np.random.default_rng(7)
+    words = torch.zeros(wire.packed_words(n, bits), dtype=torch.int32, device=cuda)
+    pack_kernel.unpack_flat(words, bits, n)  # build and load before the capture
+    torch.cuda.synchronize()
+    graph, record = torch.cuda.CUDAGraph(), collections.Counter()
+    with _build.moved_to(record), torch.cuda.graph(graph):
+        out = pack_kernel.unpack_flat(words, bits, n)
+    assert dict(record) == {"unpack_flat": 1}
+    ops.reset_launches()
+    for _ in range(2):
+        z = rng.integers(0, 1 << bits, n).astype(np.int32)
+        words.copy_(wire.pack_bits(torch.from_numpy(z), bits))
+        graph.replay()
+        _build.replayed(record)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), torch.from_numpy(z))
+    assert dict(ops.launches) == {"unpack_flat": 2}
 
 
 @pytest.mark.cuda
