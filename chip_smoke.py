@@ -22,7 +22,11 @@ which raises and exits non-zero:
      bits with the top field across the sign bit, and both its entries on
      views 1 to 3 words past an aligned address at 10 and 16 bits, each
      launch's walk (its width V and grid: the C entry's, which must equal
-     ``pack_kernel.codec_walk``'s) recorded; the folded decode_apply
+     ``pack_kernel.codec_walk``'s) recorded; both decode entries on views
+     0 to 3 words off at 10 and 16 bits, at n odd and even, W odd and
+     even, and n = 1, each unpack_decode_apply launch's walk (the C
+     entry's, which must equal ``codec_walk``'s) recorded;
+     the folded decode_apply
      in float32 and bfloat16); each quantize and round-sum entry's _dev
      twin, which reads the seed from device memory, with the seed as a
      device tensor, against its plain version and its by-value entry:
@@ -395,6 +399,8 @@ def check_kernels(torch, np):
              plain=lambda d=DIM: pack_kernel.unpack_decode_apply_plain(
                  params_w[:d], packed[:wire.packed_words(d, BITS)], rqm_params, n, lr,
                  pack_bits=BITS),
+             walk=lambda out, d=DIM: (d, wire.packed_words(d, BITS), BITS,
+                                      (params_w.data_ptr(), packed.data_ptr(), out.data_ptr())),
              nbytes=DIM * 8 + words * 4),
         dict(name="pack_flat", symbol=("pack_flat_kernel",),
              source="src/repro_torch/kernels/csrc/pack.cu",
@@ -423,6 +429,7 @@ def check_kernels(torch, np):
              nbytes=DIM * 12),
     ]
     check_codec(torch, pack_kernel, dense, packed)
+    check_decode(torch, pack_kernel, decode_apply_kernel, params_w, dense, rqm_params, n, lr)
     cases = [c for case in cases for c in seeded(case, seed, seed_t)]
     records = []
     for case in cases:
@@ -450,7 +457,7 @@ def check_kernels(torch, np):
         bound_ms, bound_by = bound(case["nbytes"], case.get("draws", 0))
         dev_ms, ms_by = device_ms(torch, case["kernel"], KERNEL_REPS, case["symbol"])
         extra = {}
-        if "walk" in case:  # the codec: the width and grid its C entry took
+        if "walk" in case:  # the width and grid its C entry took
             extra["walk"] = checked_walk(pack_kernel, *case["walk"](got))
         if case["name"] in FLOOR_ROWS:  # the same entry at n = 1: one block
             one = lambda k=case["kernel"]: k(1)  # noqa: E731
@@ -485,13 +492,14 @@ def check_kernels(torch, np):
 
 
 def checked_walk(pack_kernel, n: int, n_words: int, bits: int, addrs) -> dict:
-    """The width V and grid of a codec launch: ``pack_kernel.codec_walk``'s,
-    which must equal the built C entry's."""
+    """The width V and grid of a codec launch (two operands) or an
+    unpack_decode_apply launch (three: w, words, out):
+    ``pack_kernel.codec_walk``'s, which must equal the built C entry's."""
     want = pack_kernel.codec_walk(n, n_words, bits, addrs)
     got = pack_kernel.built_walk(n, n_words, bits, addrs)
     if got != want:
-        raise AssertionError(f"codec walk of {n} fields in {n_words} words at {bits} bits: "
-                             f"the C entry takes (V, blocks) {got}, codec_walk {want}")
+        raise AssertionError(f"walk of {n} fields in {n_words} words at {bits} bits: the C "
+                             f"entry takes (V, blocks) {got}, codec_walk {want}")
     return {"v": want[0], "blocks": want[1]}
 
 
@@ -592,6 +600,47 @@ def check_codec(torch, pack_kernel, dense, packed) -> None:
     log(f"[kernels] codec: pack_flat(dense) == packed sum, unpack_flat inverts it, 16-bit "
         f"sign-bit round trip over {words16.numel()} words, views at offsets 0-3 at 10 and "
         f"16 bits: bit-exact; walks (V, blocks): " + "; ".join(walks))
+
+
+def check_decode(torch, pack_kernel, decode_apply_kernel, params_w, dense, params, n: int,
+                 lr: float) -> None:
+    """Both decode entries at the main path's widths: the round's sum at
+    BITS and 2^16 - 1 everywhere at 16 bits (the top field sets the sign
+    bit), at DIM (W even at BITS, odd at 16), DIM - 1 (n odd), DIM + 1 (n
+    and W odd) and 1 coordinates, on views that start 0 to 3 words past an
+    aligned address (the parameters and the sum or words alike), each
+    bit-exact against its plain version, unpack_decode_apply also against
+    decode_apply_sum; each unpack_decode_apply launch's walk (V, blocks)
+    as the C entry takes it and as ``codec_walk`` picks it."""
+    w_all = torch.cat([params_w, params_w[:1]])
+    z_all = torch.cat([dense, dense[:1]])
+    walks = []
+    for d in (DIM, DIM - 1, DIM + 1, 1):
+        for bits, z in ((BITS, z_all[:d]), (16, torch.full_like(z_all[:d], (1 << 16) - 1))):
+            words = pack_kernel.pack_flat_plain(z, bits)
+            seen = []
+            for offset in range(4):
+                wv, zv, words_v = (torch.cat([t.new_zeros(offset), t])[offset:]
+                                   for t in (w_all[:d], z, words))
+                got = decode_apply_kernel.decode_apply_sum(wv, zv, params, n, lr)
+                got_p = pack_kernel.unpack_decode_apply(wv, words_v, params, n, lr,
+                                                        pack_bits=bits)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, decode_apply_kernel.decode_apply_plain(
+                            wv, zv, params, n, lr))
+                        and torch.equal(got_p, pack_kernel.unpack_decode_apply_plain(
+                            wv, words_v, params, n, lr, pack_bits=bits))
+                        and torch.equal(got_p, got)):
+                    raise AssertionError(f"the decode entries at {bits} bits, {d} coordinates, "
+                                         f"on views {offset} words in differ from their plain "
+                                         f"versions")
+                walk = checked_walk(pack_kernel, d, words.numel(), bits,
+                                    (wv.data_ptr(), words_v.data_ptr(), got_p.data_ptr()))
+                seen.append((walk["v"], walk["blocks"]))
+            walks.append(f"n {d}, {bits} bits: {seen}")
+    log("[kernels] decode: decode_apply_sum and unpack_decode_apply == their plain versions "
+        "and each other at 10 and 16 bits, views at offsets 0-3; unpack walks (V, blocks) "
+        "by offset: " + "; ".join(walks))
 
 
 def decode_apply_bf16(torch, decode_apply_kernel, params_w, dense, params, n, lr) -> dict:

@@ -1,27 +1,31 @@
-"""Time the port's quantize, round-sum and wire codec kernels of an earlier
-source tree against this tree's, and each of this tree's by-value entries
-against its ``_dev`` twin, in turns, on one CUDA card.
+"""Time the port's quantize, round-sum, wire codec and server decode kernels
+of an earlier source tree against this tree's, and each of this tree's
+by-value entries against its ``_dev`` twin, in turns, on one CUDA card.
 
     git archive <rev> -- src/repro_torch/kernels/csrc | tar -x -C build/parent
     python scripts/torch_kernel_ab.py --parent build/parent/src/repro_torch/kernels/csrc
 
-Both trees' ``quantize.cu``, ``round_sum.cu`` and ``pack.cu`` are built
-with the port's nvcc flags (all six builds at once), and each library is called through ctypes at ``chip_smoke.py`` phase 3's
-inputs: a cohort of 40 rows of the CNN's 222,030 coordinates, uniform in
-+-1.2 c, 10-bit packed words, the paper's mechanisms (rqm m=16 q=0.42, pbm
-m=16 theta=0.25, qmgeo m=16 r=0.6). Ten seeded cases: the three quantize
-entries and ``rqm_quantize`` at m=64, q=0.5; the three dense round sums;
-the two packed ones. Each runs three ways: the parent's entry, this tree's
-by-value entry, and its ``_dev`` twin with the seed as a 1-element int32
-device tensor. Six codec cases run two ways, parent and tree (the C ABI
-is the same): ``pack_flat`` and ``unpack_flat`` of the RQM round's dense
-sum at 10 bits, at 16 bits with every field 2^16 - 1 (the top field sets
-the sign bit), and at n = 1 (one block: the entry's floor). Each result
-must equal the plain PyTorch version bit for bit. The device times are
-then taken in turns (parent, tree, dev, dev, tree, parent; the codec's
-parent, tree, tree, parent) by ``chip_smoke.device_ms`` (torch.profiler,
-mean of 30 launches) and ``chip_smoke.queued_ms`` (CUDA events behind a
-sleeping kernel).
+Both trees' ``quantize.cu``, ``round_sum.cu``, ``pack.cu`` and
+``decode_apply.cu`` are built with the port's nvcc flags (all eight builds
+at once), and each library is called through ctypes at ``chip_smoke.py``
+phase 3's inputs: a cohort of 40 rows of the CNN's 222,030 coordinates,
+uniform in +-1.2 c, 10-bit packed words, the paper's mechanisms (rqm m=16
+q=0.42, pbm m=16 theta=0.25, qmgeo m=16 r=0.6). Ten seeded cases: the
+three quantize entries and ``rqm_quantize`` at m=64, q=0.5; the three
+dense round sums; the two packed ones. Each runs three ways: the parent's
+entry, this tree's by-value entry, and its ``_dev`` twin with the seed as
+a 1-element int32 device tensor. Eleven unseeded cases run two ways,
+parent and tree (the C ABI is the same): ``pack_flat`` and
+``unpack_flat`` of the RQM round's dense sum at 10 bits, at 16 bits with
+every field 2^16 - 1 (the top field sets the sign bit), and at n = 1 (one
+block: the entry's floor); ``decode_apply_sum`` of that sum at 222,030
+and at n = 1, and ``unpack_decode_apply`` of its 10-bit words, of the
+16-bit words of 2^16 - 1 everywhere, and at n = 1 (cohort 40, lr 0.5,
+normal parameters). Each result must equal the plain PyTorch version bit
+for bit. The device times are then taken in turns (parent, tree, dev,
+dev, tree, parent; the unseeded cases' parent, tree, tree, parent) by
+``chip_smoke.device_ms`` (torch.profiler, mean of 30 launches) and
+``chip_smoke.queued_ms`` (CUDA events behind a sleeping kernel).
 
 The RQM entries of a tree up to commit 698c532 take the float ``q``
 (``--parent-abi q``, the default); later trees, this one among them, take
@@ -63,6 +67,7 @@ from repro_torch.core.grid import RQMParams  # noqa: E402
 from repro_torch.core.mechanisms import make_mechanism  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
+    decode_apply_kernel,
     pack_kernel,
     pbm_kernel,
     prng,
@@ -72,7 +77,7 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.kernels import fused_round_kernel as frk  # noqa: E402
 
 ROWS, DIM, BITS = chip_smoke.ROWS, chip_smoke.DIM, chip_smoke.BITS
-LIBS = ("quantize", "round_sum", "pack")
+LIBS = ("quantize", "round_sum", "pack", "decode_apply")
 P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # SASS opcode -> the SM pipe that executes it (by base name, before the
 # first '.'); uniform-datapath opcodes (U*) count as "uniform", the rest as
@@ -248,6 +253,42 @@ def codec_cases(launcher, dense) -> dict:
     return cases
 
 
+def decode_cases(launcher, dense, params, lr: float = 0.5) -> dict:
+    """``decode_apply_sum`` of ``dense`` (the RQM round's sum) at its full
+    length and at n = 1 (the floor), and ``unpack_decode_apply`` of its
+    BITS-bit words, of the 16-bit words of 2^16 - 1 everywhere, and at
+    n = 1, on normal parameters at a cohort of ROWS; both trees' entries
+    take the same arguments."""
+    w = torch.from_numpy(np.random.default_rng(5).normal(0, 0.05, dense.numel())
+                         .astype(np.float32)).to(dense.device)
+    k = decode_apply_kernel.f32_decode_constants(params, ROWS, lr)
+    consts = (k["neg_x_max"], k["scale"], k["lr"])
+    top = torch.full_like(dense, (1 << 16) - 1)
+    cases = {}
+    for what, d in ((f"{dense.numel():,}", dense.numel()), ("n=1", 1)):
+        out = torch.empty(d, dtype=torch.float32, device=dense.device)
+        cases[f"decode_apply_sum {what}"] = (
+            lambda tag, d=d, o=out: launcher(
+                tag, "decode_apply", "decode_apply_sum", (P, P, P, I, F, F, F),
+                (w.data_ptr(), dense.data_ptr(), o.data_ptr(), d, *consts), o),
+            ("decode_apply_sum_kernel",),
+            lambda d=d: decode_apply_kernel.decode_apply_plain(w[:d], dense[:d], params, ROWS,
+                                                               lr), ("parent", "tree"))
+    for what, z, bits in ((f"{BITS}-bit", dense, BITS), ("16-bit top field", top, 16),
+                          ("n=1", dense[:1], BITS)):
+        d, words = z.numel(), pack_kernel.pack_flat_plain(z, bits)
+        out = torch.empty(d, dtype=torch.float32, device=dense.device)
+        cases[f"unpack_decode_apply {what}"] = (
+            lambda tag, words=words, o=out, d=d, b=bits: launcher(
+                tag, "decode_apply", "unpack_decode_apply", (P, P, P, I, I, I, F, F, F),
+                (w.data_ptr(), words.data_ptr(), o.data_ptr(), d, words.numel(), b, *consts),
+                o),
+            ("unpack_decode_apply_kernel",),
+            lambda words=words, d=d, b=bits: pack_kernel.unpack_decode_apply_plain(
+                w[:d], words, params, ROWS, lr, pack_bits=b), ("parent", "tree"))
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier tree's csrc directory")
@@ -352,7 +393,9 @@ def main() -> int:
             lambda tag, n=name: packed(tag, n),
             ("round_sum_packed_kernel", encoder[name]),
             lambda n=name: frk.round_sum_packed_plain(x, w, seed, 0, mech[n], BITS, n), seeded)
-    cases.update(codec_cases(launcher, frk.round_sum_plain(x, w, seed, 0, params, "rqm")))
+    round_sum = frk.round_sum_plain(x, w, seed, 0, params, "rqm")
+    cases.update(codec_cases(launcher, round_sum))
+    cases.update(decode_cases(launcher, round_sum, params))
     results = {"card": chip_smoke.nvidia_smi(), "times": {}}
     for name, (make, symbol, plain, tags) in cases.items():
         want = plain()

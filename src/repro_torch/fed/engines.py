@@ -23,6 +23,7 @@ The reference's other engines are refused, naming their ROADMAP.md item.
 from __future__ import annotations
 
 import collections
+import gc
 import os
 import traceback
 
@@ -169,7 +170,10 @@ class RoundGraph:
     it. The kernels launched in the capture are recorded here and counted
     once per replay. There is no eager fallback: an op that cannot be
     captured (one that synchronises or copies from the host) raises,
-    naming the line that made it."""
+    naming the line that made it. The cyclic garbage collector is off
+    while the round is captured: an earlier trainer's graph that it freed
+    then would end the capture (destroying a graph is not permitted while
+    a stream captures)."""
 
     WARMUP_ROUNDS = 2
 
@@ -186,6 +190,8 @@ class RoundGraph:
         self.launches: collections.Counter = collections.Counter()
         self.graph = torch.cuda.CUDAGraph()
         capture = torch.cuda.Stream(device)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # the outer stream context restores the current stream even when
             # ending the capture raises
@@ -195,6 +201,9 @@ class RoundGraph:
         except RuntimeError as err:
             raise RuntimeError(f"the scan engine's round cannot be captured as a CUDA "
                                f"graph: {_first_failure(err)}") from err
+        finally:
+            if collecting:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()

@@ -1,19 +1,8 @@
 // The dense b-bit wire codec: planar pack and unpack of a flat int32 vector.
 //
-// Layout (repro_torch/core/wire.py): n coordinates pack into W int32 words,
-// k = 32 / bits fields a word; coordinate c lives in field c / W of word
-// c % W, at bit offset (c / W) * bits. Fields past n are 0.
-//
-// Both kernels walk the words in V-groups: group j is the V consecutive
-// words [j*V, j*V + V), and field f of it the V levels z[f*W + j*V, + V).
-// V is 2 where 2 words divide W, n and both operands' addresses, else 1
-// (codec_walk below, mirrored by kernels/pack_kernel.py), so each access is
-// one aligned V-wide load or store, neighbouring threads touch neighbouring
-// addresses, and a group's field lies wholly below n or wholly at or past
-// it. A thread walks kGroups groups, kThreads groups apart: the
-// grid is ceil(W / (V * kThreads * kGroups)) blocks. k is a template
-// argument, so the field loops unroll and no index needs a division or a
-// 64-bit product (the entries check that k * W fits an int).
+// Both kernels take the walk of walk.cuh: the layout, the V-groups, kGroups
+// of them a thread, and the grid (codec_walk below, mirrored by
+// kernels/pack_kernel.py).
 //
 //  * pack_flat: all k V-wide loads of a thread's groups are issued before
 //    the first is used (fields at or past n read as 0); each is shifted
@@ -37,21 +26,13 @@
 // 700 W). Above that the time grows with the blocks dispatched to an SM
 // and with load round trips in series, so the loads issue together and two
 // groups a thread halve the blocks (measurements in PERF.md).
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cstdint>
-#include <type_traits>
+#include "walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kGroups = 2;  // V-groups a thread, kThreads * V words apart
-
-template <int V>
-struct __align__(4 * V) Lanes {
-  int v[V];
-};
+using repro::Lanes;
+constexpr int kThreads = repro::kWalkThreads;
+constexpr int kGroups = repro::kWalkGroups;  // V-groups a thread, kThreads * V words apart
 
 template <int K, int V>
 __global__ void __launch_bounds__(kThreads)
@@ -115,28 +96,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int N>
-using Int = std::integral_constant<int, N>;
-
-// Calls launch(Int<k>, Int<V>) for k = 32 / bits.
-template <class Launch>
-int dispatch(int bits, int v, Launch&& launch) {
-  const auto with_v = [&](auto k) {
-    return v == 2 ? launch(k, Int<2>{}) : launch(k, Int<1>{});
-  };
-  switch (32 / bits) {
-    case 32: return with_v(Int<32>{});
-    case 16: return with_v(Int<16>{});
-    case 10: return with_v(Int<10>{});
-    case 8: return with_v(Int<8>{});
-    case 6: return with_v(Int<6>{});
-    case 5: return with_v(Int<5>{});
-    case 4: return with_v(Int<4>{});
-    case 3: return with_v(Int<3>{});
-    default: return with_v(Int<2>{});
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -146,20 +105,13 @@ extern "C" {
 // for a width outside 1..16, n < 1, or k * n_words past INT_MAX.
 int codec_walk(int n, int n_words, int bits, const void* a, const void* b, int* v,
                int* blocks) {
-  if (bits < 1 || bits > 16 || n < 1 || n_words < 1 ||
-      static_cast<long long>(32 / bits) * n_words > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool pairs = n_words % 2 == 0 && n % 2 == 0 && reinterpret_cast<uintptr_t>(a) % 8 == 0 &&
-                     reinterpret_cast<uintptr_t>(b) % 8 == 0;
-  *v = pairs ? 2 : 1;
-  *blocks = (n_words / *v + kThreads * kGroups - 1) / (kThreads * kGroups);
-  return 0;
+  return repro::walk(n, n_words, bits, {a, b}, v, blocks);
 }
 
 int pack_flat(const int* z, int* words, int n, int n_words, int bits, void* stream) {
   int v, blocks;
   if (const int err = codec_walk(n, n_words, bits, z, words, &v, &blocks)) return err;
-  return dispatch(bits, v, [&](auto k, auto width) {
+  return repro::dispatch(bits, v, [&](auto k, auto width) {
     pack_flat_kernel<decltype(k)::value, decltype(width)::value>
         <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(z, words, n, n_words,
                                                                     bits);
@@ -170,7 +122,7 @@ int pack_flat(const int* z, int* words, int n, int n_words, int bits, void* stre
 int unpack_flat(const int* words, int* z, int n, int n_words, int bits, void* stream) {
   int v, blocks;
   if (const int err = codec_walk(n, n_words, bits, words, z, &v, &blocks)) return err;
-  return dispatch(bits, v, [&](auto k, auto width) {
+  return repro::dispatch(bits, v, [&](auto k, auto width) {
     unpack_flat_kernel<decltype(k)::value, decltype(width)::value>
         <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(words, z, n, n_words,
                                                                       bits);

@@ -15,10 +15,11 @@ round has W = 74,010, which is not a multiple of 128). CUDA kernels in
 entry runs its plain version (``wire.pack_bits``/``unpack_bits`` for the
 codec).
 
-The codec kernels walk the words in V-groups (``codec_walk``, which the C
-entries mirror): group j is words ``[j*V, j*V + V)`` and, for each field
-f, the levels ``[f*W + j*V, f*W + j*V + V)``; a thread walks GROUPS groups,
-THREADS apart.
+The codec kernels and ``unpack_decode_apply`` walk the words in V-groups
+(``codec_walk``, which the C entries mirror; ``csrc/walk.cuh``): group j
+is words ``[j*V, j*V + V)`` and, for each field f, the coordinates
+``[f*W + j*V, f*W + j*V + V)``; a thread walks GROUPS groups, THREADS
+apart.
 """
 from __future__ import annotations
 
@@ -38,20 +39,20 @@ from repro_torch.kernels.decode_apply_kernel import (
 
 _ARGS = (P, P, P, I32, I32, I32, F32, F32, F32, P)
 _CODEC_ARGS = (P, P, I32, I32, I32, P)
-THREADS = 256  # a block of the codec kernels (csrc/pack.cu: kThreads)
-GROUPS = 2  # V-groups a thread walks (csrc/pack.cu: kGroups)
+THREADS = 256  # a block of the walk's kernels (csrc/walk.cuh: kWalkThreads)
+GROUPS = 2  # V-groups a thread walks (csrc/walk.cuh: kWalkGroups)
 INT_MAX = (1 << 31) - 1
 
 
 def codec_walk(n: int, n_words: int, bits: int, addrs) -> tuple[int, int]:
-    """The codec kernels' walk over ``n`` fields of ``bits`` in ``n_words``
-    words, between operands at the byte addresses ``addrs``: ``(V,
-    blocks)``. V is 2 where 2 words divide ``n_words``, ``n`` and every
-    address, else 1, so each access is one aligned V-wide load or store
-    and a V-group of a field lies wholly below ``n`` or at or past it;
-    ``blocks`` of THREADS threads, GROUPS groups a thread, cover the
-    ``n_words / V`` groups. Field indices ``f * n_words + w`` must fit an
-    int32 (``k * n_words <= INT_MAX``)."""
+    """The walk of the codec kernels and ``unpack_decode_apply`` over
+    ``n`` fields of ``bits`` in ``n_words`` words, between operands at the
+    byte addresses ``addrs``: ``(V, blocks)``. V is 2 where 2 words divide
+    ``n_words``, ``n`` and every address, else 1, so each access is one
+    aligned V-wide load or store and a V-group of a field lies wholly
+    below ``n`` or at or past it; ``blocks`` of THREADS threads, GROUPS
+    groups a thread, cover the ``n_words / V`` groups. Field indices
+    ``f * n_words + w`` must fit an int32 (``k * n_words <= INT_MAX``)."""
     k = wire.fields_per_word(bits)
     if n < 1 or n_words < 1 or k * n_words > INT_MAX:
         raise ValueError(f"{n} fields in {n_words} words of {k} fields: the walk needs "
@@ -61,11 +62,16 @@ def codec_walk(n: int, n_words: int, bits: int, addrs) -> tuple[int, int]:
 
 
 def built_walk(n: int, n_words: int, bits: int, addrs) -> tuple[int, int]:
-    """The walk the built C entries take (``codec_walk`` in
-    ``csrc/pack.cu``), which must equal ``codec_walk``'s. Needs nvcc."""
+    """The walk the built C entries take, which must equal ``codec_walk``'s:
+    the codec's for its two operands (``codec_walk`` in ``csrc/pack.cu``),
+    ``unpack_decode_apply``'s for its three, ``w``, the words and the
+    output (``unpack_decode_walk`` in ``csrc/decode_apply.cu``). Needs
+    nvcc."""
     v, blocks = ctypes.c_int(), ctypes.c_int()
-    _build.call("pack", "codec_walk", (I32, I32, I32, P, P, P, P), n, n_words, int(bits),
-                *addrs, ctypes.addressof(v), ctypes.addressof(blocks))
+    lib, entry = ("pack", "codec_walk") if len(addrs) == 2 else \
+        ("decode_apply", "unpack_decode_walk")
+    _build.call(lib, entry, (I32, I32, I32) + (P,) * (len(addrs) + 2), n, n_words,
+                int(bits), *addrs, ctypes.addressof(v), ctypes.addressof(blocks))
     return v.value, blocks.value
 
 

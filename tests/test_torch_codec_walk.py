@@ -1,4 +1,5 @@
-"""The wire codec kernels' walk (``pack_kernel.codec_walk``), on the CPU.
+"""The walk of the wire codec and server decode kernels
+(``pack_kernel.codec_walk``), on the CPU.
 
 ``pack_flat``/``unpack_flat`` walk the words in V-groups: group j is
 words ``[j*V, j*V + V)`` and, for each field f, the levels ``[f*W + j*V,
@@ -17,7 +18,16 @@ the card. Here:
     below) equal ``wire.pack_bits``/``unpack_bits``, out-of-range levels
     and every word bit pattern included;
   * the walk's plain versions equal the reference's Pallas
-    ``pack_flat``/``unpack_flat`` in interpret mode, and its jnp codec.
+    ``pack_flat``/``unpack_flat`` in interpret mode, and its jnp codec;
+  * ``unpack_decode_apply`` takes the same walk over three operands (its
+    C entry held against ``codec_walk`` on the card), and
+    ``decode_apply_sum`` the walk of one field a word, SUM_GROUPS
+    coordinates a thread: ``codec_walk`` picks V and the grid of the
+    decode at the paper's round, at 16 bits, at odd W, at offsets 0 to 3
+    of each operand and at n = 1; a plain version that follows each walk
+    (``decode_walk_twin``) stores every coordinate below n and equals the
+    entry's plain version and the reference's jnp ``decode_apply_sum``,
+    bit for bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,14 +35,24 @@ import pytest
 import torch
 
 from repro.core import wire as jwire
+from repro.core.grid import RQMParams as JaxRQMParams
+from repro.kernels import decode_apply_kernel as jdecode
 from repro.kernels import pack_kernel as jpack
 from repro_torch.core import wire
-from repro_torch.kernels.pack_kernel import GROUPS, THREADS, codec_walk
+from repro_torch.core.grid import RQMParams
+from repro_torch.kernels.decode_apply_kernel import decode_apply_plain
+from repro_torch.kernels.pack_kernel import (
+    GROUPS,
+    THREADS,
+    codec_walk,
+    unpack_decode_apply_plain,
+)
 
 _U32 = 0xFFFFFFFF
 # one block and three (GROUPS * THREADS = 512 groups a block)
 WORD_COUNTS = {"W odd": (7, 1031), "W = 2 mod 4": (10, 1030), "W = 0 mod 4": (12, 1032)}
 OFFSETS = range(4)  # a view's start, in words past an aligned address
+SUM_GROUPS = 4  # coordinates a thread of decode_apply_sum (csrc/decode_apply.cu: kSumGroups)
 
 
 def _view(values: np.ndarray, offset: int) -> torch.Tensor:
@@ -48,18 +68,19 @@ def _field_counts(bits: int):
     return [(n, w) for ws in WORD_COUNTS.values() for w in ws for n in (1, k * w - 1, k * w)]
 
 
-def walk_owners(n: int, n_words: int, bits: int, v: int):
+def walk_owners(n: int, n_words: int, bits: int, v: int, groups: int = GROUPS):
     """The walk's index sets at width ``v``, one row a group, thread by
-    thread (thread i of block b walks groups ``(b * GROUPS + g) * THREADS
-    + i``, g < GROUPS, those below ``n_words / v``): ``(words, coords,
+    thread (thread i of block b walks groups ``(b * groups + g) * THREADS
+    + i``, g < groups, those below ``n_words / v``): ``(words, coords,
     live)``, the (J, v) words of each group, the (J, k, v) coordinates of
-    their k fields, and (J, k) whether field f of a group is below ``n``
-    (the kernels test its first coordinate)."""
+    their k = 32 // bits fields, and (J, k) whether field f of a group is
+    below ``n`` (the kernels test its first coordinate). ``bits`` = 32 is
+    the dense sum, one field a word."""
     if n_words % v or n % v:
         raise ValueError(f"width {v} does not divide {n_words} words and {n} fields")
-    k = wire.fields_per_word(bits)
-    t = torch.arange(-(-(n_words // v) // (THREADS * GROUPS)) * THREADS)
-    group = (t[:, None] // THREADS * GROUPS + torch.arange(GROUPS)) * THREADS + \
+    k = 32 // bits
+    t = torch.arange(-(-(n_words // v) // (THREADS * groups)) * THREADS)
+    group = (t[:, None] // THREADS * groups + torch.arange(groups)) * THREADS + \
         (t % THREADS)[:, None]
     words = group[group < n_words // v][:, None] * v + torch.arange(v)
     coords = torch.arange(k)[None, :, None] * n_words + words[:, None, :]
@@ -81,12 +102,13 @@ def pack_flat_walk(z: torch.Tensor, bits: int, v: int) -> torch.Tensor:
     return wire.to_int32(out)
 
 
-def unpack_flat_walk(words: torch.Tensor, bits: int, n: int, v: int) -> torch.Tensor:
+def unpack_flat_walk(words: torch.Tensor, bits: int, n: int, v: int,
+                     groups: int = GROUPS) -> torch.Tensor:
     """Plain version of ``unpack_flat`` that follows the kernel's walk: per
     group ``v`` words read, and per field below n ``v`` levels stored. A
     coordinate no group stores reads -1."""
     u = words.reshape(-1).to(torch.int64) & _U32
-    owned, coords, live = walk_owners(n, u.numel(), bits, v)
+    owned, coords, live = walk_owners(n, u.numel(), bits, v, groups)
     shifts = torch.arange(coords.shape[1])[None, :, None] * bits
     fields = (u[owned][:, None, :] >> shifts) & ((1 << bits) - 1)
     z = torch.full((n,), -1, dtype=torch.int64)
@@ -198,3 +220,75 @@ def test_walk_twins_match_the_reference(bits, n):
     np.testing.assert_array_equal(
         back.numpy(), np.asarray(jpack.unpack_flat(jnp.asarray(want), bits, n, interpret=True)))
     np.testing.assert_array_equal(back.numpy(), z)
+
+
+# the reference's contract: float32 scalars of Python doubles (c=0.02,
+# m=16, a cohort of 40, lr 0.5: the paper's round)
+DECODE_PARAMS, DECODE_PARAMS_J = (RQMParams(c=0.02, delta=0.02, m=16, q=0.42),
+                                  JaxRQMParams(c=0.02, delta=0.02, m=16, q=0.42))
+COHORT, LR = 40, 0.5
+
+
+def decode_walk_twin(w: torch.Tensor, z: torch.Tensor, bits: int, v: int,
+                     groups: int) -> torch.Tensor:
+    """Plain version of ``unpack_decode_apply`` (``z`` the words of
+    ``bits``-bit fields) or, at ``bits`` = 32, ``decode_apply_sum`` (``z``
+    the dense sum) that follows the kernels' walk: the levels as
+    ``unpack_flat_walk`` reads them (-1 where no group stores one, which
+    decodes to no level's value), decoded and applied by
+    ``decode_apply_plain``'s expression."""
+    levels = unpack_flat_walk(z, bits, w.numel(), v, groups)
+    return decode_apply_plain(w, levels, DECODE_PARAMS, COHORT, LR)
+
+
+@pytest.mark.parametrize("n,n_words,bits,addrs,want", [
+    (222_030, 74_010, 10, (0, 1024, 2048), (2, 73)),    # the paper's round
+    (222_030, 111_015, 16, (0, 1024, 2048), (1, 217)),  # 16 bits: W odd
+    (222_031, 74_011, 10, (0, 1024, 2048), (1, 145)),   # n and W odd
+    (222_029, 74_010, 10, (0, 1024, 2048), (1, 145)),   # n odd
+    (6000, 2000, 10, (1028, 0, 0), (1, 4)),             # w 1 word off
+    (6000, 2000, 10, (0, 1032, 0), (2, 2)),             # the words 2 words off: 8-byte aligned
+    (6000, 2000, 10, (0, 0, 1036), (1, 4)),             # the output 3 words off
+    (1, 1, 10, (0, 0, 0), (1, 1)),
+], ids=str)
+def test_decode_walk_picks_v_and_grid(n, n_words, bits, addrs, want):
+    """unpack_decode_apply's walk, between w, the words and the output."""
+    assert codec_walk(n, n_words, bits, addrs) == want
+
+
+@pytest.mark.parametrize("bits,n,levels", [
+    (10, 222_030, "round"),   # the paper's round: W = 74,010
+    (10, 6299, "round"),      # n odd, W = 2100: several blocks
+    (10, 6301, "round"),      # W = 2101 odd
+    (16, 4101, "top"),        # W = 2051 odd, every field 2^16 - 1 (the sign bit)
+    (1, 32 * 70 - 5, "round"),
+    (10, 1, "round"),
+    (32, 222_030, "round"),   # decode_apply_sum: the dense sum
+    (32, 2 * THREADS * SUM_GROUPS + 5, "round"),
+    (32, 1, "round"),
+], ids=str)
+def test_decode_walk_twins_match_plain_and_reference(bits, n, levels):
+    """The decode kernels' walk stores every coordinate below n: its plain
+    twin equals the entry's plain version and the reference's
+    jnp ``decode_apply_sum`` (packed at ``bits`` <= 16, dense at 32) bit
+    for bit, at each V that ``codec_walk`` picks for views 0 to 3 words
+    off (each V once)."""
+    rng = np.random.default_rng(n + bits)
+    w = torch.from_numpy(rng.normal(0, 0.05, n).astype(np.float32))
+    top = (1 << min(bits, 16)) - 1
+    z = torch.from_numpy((np.full(n, top) if levels == "top" else
+                          rng.integers(0, min(COHORT * 15, top) + 1, n)).astype(np.int32))
+    if bits == 32:
+        want = decode_apply_plain(w, z, DECODE_PARAMS, COHORT, LR)
+        ref = jdecode.decode_apply_sum(jnp.asarray(w.numpy()), jnp.asarray(z.numpy()),
+                                       DECODE_PARAMS_J, COHORT, LR)
+        assert torch.equal(decode_walk_twin(w, z, 32, 1, SUM_GROUPS), want)
+    else:
+        words = wire.pack_bits(z, bits)
+        want = unpack_decode_apply_plain(w, words, DECODE_PARAMS, COHORT, LR, pack_bits=bits)
+        ref = jdecode.decode_apply_sum(jnp.asarray(w.numpy()), jnp.asarray(words.numpy()),
+                                       DECODE_PARAMS_J, COHORT, LR, pack_bits=bits)
+        widths = {codec_walk(n, words.numel(), bits, (4 * o, 0, 0))[0] for o in OFFSETS}
+        for v in widths:
+            assert torch.equal(decode_walk_twin(w, words, bits, v, GROUPS), want), v
+    np.testing.assert_array_equal(want.numpy(), np.asarray(ref))

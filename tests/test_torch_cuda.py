@@ -393,6 +393,68 @@ def test_unpack_flat_replays_in_a_cuda_graph(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits,n", [(10, 222_030), (16, 222_030), (10, 6301), (16, 4101),
+                                    (1, 2235), (10, 1)], ids=str)
+def test_decode_kernels_match_plain_on_views(cuda, bits, n):
+    """Rows 3-4: decode_apply_sum and unpack_decode_apply equal their plain
+    versions, on the card and on the CPU, on views that start 0 to 3 words
+    past an aligned address (16 bits: every field 2^16 - 1, the top one
+    across the sign bit; W odd at 16 bits, 6301 and 4101); each
+    unpack_decode_apply launch takes the walk ``codec_walk`` picks."""
+    rng = np.random.default_rng(n + bits)
+    w = torch.from_numpy(rng.normal(0, 0.05, n).astype(np.float32))
+    z = torch.from_numpy((np.full(n, (1 << bits) - 1) if bits == 16 else
+                          rng.integers(0, min(601, 1 << bits), n)).astype(np.int32))
+    words = wire.pack_bits(z, bits)
+    want = decode_apply_kernel.decode_apply_plain(w, z, PARAMS, 40, 0.5)
+    for offset in range(4):
+        wv, zv, words_v = (torch.cat([t.new_zeros(offset), t]).to(cuda)[offset:]
+                           for t in (w, z, words))
+        ops.reset_launches()
+        dense = decode_apply_kernel.decode_apply_sum(wv, zv, PARAMS, 40, 0.5)
+        packed = pack_kernel.unpack_decode_apply(wv, words_v, PARAMS, 40, 0.5, pack_bits=bits)
+        assert dict(ops.launches) == {"decode_apply_sum": 1, "unpack_decode_apply": 1}
+        assert torch.equal(dense, decode_apply_kernel.decode_apply_plain(wv, zv, PARAMS, 40, 0.5))
+        assert torch.equal(packed, pack_kernel.unpack_decode_apply_plain(
+            wv, words_v, PARAMS, 40, 0.5, pack_bits=bits))
+        assert torch.equal(dense.cpu(), want) and torch.equal(packed.cpu(), want)
+        addrs = (wv.data_ptr(), words_v.data_ptr(), packed.data_ptr())
+        assert pack_kernel.built_walk(n, words.numel(), bits, addrs) == \
+            pack_kernel.codec_walk(n, words.numel(), bits, addrs)
+
+
+@pytest.mark.cuda
+def test_decode_kernels_replay_in_a_cuda_graph(cuda):
+    """Both decode entries captured in one CUDA graph, as the graphed
+    fused rounds run them: each replay decodes the sum and the words the
+    buffers hold then, bit for bit, and counts one launch of each."""
+    bits, n = 10, 222_030
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy(rng.normal(0, 0.05, n).astype(np.float32)).to(cuda)
+    z = torch.zeros(n, dtype=torch.int32, device=cuda)
+    words = torch.zeros(wire.packed_words(n, bits), dtype=torch.int32, device=cuda)
+    decode_apply_kernel.decode_apply_sum(w, z, PARAMS, 40, 0.5)  # build and load first
+    pack_kernel.unpack_decode_apply(w, words, PARAMS, 40, 0.5, pack_bits=bits)
+    torch.cuda.synchronize()
+    graph, record = torch.cuda.CUDAGraph(), collections.Counter()
+    with _build.moved_to(record), torch.cuda.graph(graph):
+        dense = decode_apply_kernel.decode_apply_sum(w, z, PARAMS, 40, 0.5)
+        packed = pack_kernel.unpack_decode_apply(w, words, PARAMS, 40, 0.5, pack_bits=bits)
+    assert dict(record) == {"decode_apply_sum": 1, "unpack_decode_apply": 1}
+    ops.reset_launches()
+    for _ in range(2):
+        levels = torch.from_numpy(rng.integers(0, 601, n).astype(np.int32))
+        z.copy_(levels)
+        words.copy_(wire.pack_bits(levels, bits))
+        graph.replay()
+        _build.replayed(record)
+        torch.cuda.synchronize()
+        want = decode_apply_kernel.decode_apply_plain(w.cpu(), levels, PARAMS, 40, 0.5)
+        assert torch.equal(dense.cpu(), want) and torch.equal(packed.cpu(), want)
+    assert dict(ops.launches) == {"decode_apply_sum": 2, "unpack_decode_apply": 2}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_folded_decode_apply_matches_plain(cuda, dtype):
     """Row 10: the folded decode_apply equals its plain version on the
@@ -591,3 +653,25 @@ def test_uncapturable_round_raises_without_fallback(deterministic, monkeypatch):
         assert tr.engine.graph is None and tr.accountant.rounds == 0
         assert torch.equal(tr.flat, start)
         assert torch.equal(tr.generator.get_state(), state)
+
+
+@pytest.mark.cuda
+def test_capture_keeps_the_garbage_collector_off(deterministic, monkeypatch):
+    """The cyclic collector runs in the warm-up rounds but not while the
+    round is captured (a dead trainer's graph that it freed then would
+    end the capture), and is on again after."""
+    import gc
+
+    from repro_torch.core import mechanisms
+
+    seen, decode = [], mechanisms.NoiseFreeMechanism.decode_sum
+
+    def decode_and_look(self, g_sum, n):
+        seen.append(gc.isenabled())
+        return decode(self, g_sum, n)
+
+    monkeypatch.setattr(mechanisms.NoiseFreeMechanism, "decode_sum", decode_and_look)
+    tr = FedTrainer(SPECS["none"], FedConfig(**SMALL), device=deterministic)
+    assert gc.isenabled()
+    tr.run_block(1)
+    assert seen == [True, True, False] and gc.isenabled()
