@@ -25,9 +25,11 @@ which raises and exits non-zero:
      ``pack_kernel.codec_walk``'s) recorded; both decode entries on views
      0 to 3 words off at 10 and 16 bits, at n odd and even, W odd and
      even, and n = 1, each unpack_decode_apply launch's walk (the C
-     entry's, which must equal ``codec_walk``'s) recorded;
-     the folded decode_apply
-     in float32 and bfloat16); each quantize and round-sum entry's _dev
+     entry's, which must equal ``codec_walk``'s) recorded; the folded
+     decode_apply in float32 and bfloat16 on views 0 to 3 elements off at
+     n even, odd and 1, each launch's walk (the C entry's, which must
+     equal ``decode_apply_kernel.folded_walk``'s) recorded); each
+     quantize and round-sum entry's _dev
      twin, which reads the seed from device memory, with the seed as a
      device tensor, against its plain version and its by-value entry:
      results bit-exact; device times from
@@ -399,15 +401,17 @@ def check_kernels(torch, np):
              plain=lambda d=DIM: pack_kernel.unpack_decode_apply_plain(
                  params_w[:d], packed[:wire.packed_words(d, BITS)], rqm_params, n, lr,
                  pack_bits=BITS),
-             walk=lambda out, d=DIM: (d, wire.packed_words(d, BITS), BITS,
-                                      (params_w.data_ptr(), packed.data_ptr(), out.data_ptr())),
+             walk=lambda out, d=DIM: checked_walk(
+                 pack_kernel, d, wire.packed_words(d, BITS), BITS,
+                 (params_w.data_ptr(), packed.data_ptr(), out.data_ptr())),
              nbytes=DIM * 8 + words * 4),
         dict(name="pack_flat", symbol=("pack_flat_kernel",),
              source="src/repro_torch/kernels/csrc/pack.cu",
              replaces="src/repro/kernels/pack_kernel.py:66",
              kernel=lambda d=DIM: pack_kernel.pack_flat(dense[:d], BITS),
              plain=lambda d=DIM: pack_kernel.pack_flat_plain(dense[:d], BITS),
-             walk=lambda out, d=DIM: (d, out.numel(), BITS, (dense.data_ptr(), out.data_ptr())),
+             walk=lambda out, d=DIM: checked_walk(pack_kernel, d, out.numel(), BITS,
+                                                  (dense.data_ptr(), out.data_ptr())),
              nbytes=DIM * 4 + words * 4),
         dict(name="unpack_flat", symbol=("unpack_flat_kernel",),
              source="src/repro_torch/kernels/csrc/pack.cu",
@@ -416,8 +420,8 @@ def check_kernels(torch, np):
                  packed[:wire.packed_words(d, BITS)], BITS, d),
              plain=lambda d=DIM: pack_kernel.unpack_flat_plain(
                  packed[:wire.packed_words(d, BITS)], BITS, d),
-             walk=lambda out, d=DIM: (d, wire.packed_words(d, BITS), BITS,
-                                      (packed.data_ptr(), out.data_ptr())),
+             walk=lambda out, d=DIM: checked_walk(pack_kernel, d, wire.packed_words(d, BITS),
+                                                  BITS, (packed.data_ptr(), out.data_ptr())),
              nbytes=DIM * 4 + words * 4),
         dict(name="decode_apply", symbol=("decode_apply_folded_kernel",),
              source="src/repro_torch/kernels/csrc/decode_apply.cu",
@@ -426,6 +430,9 @@ def check_kernels(torch, np):
                  params_w[:d], dense[:d], rqm_params, n, lr),
              plain=lambda d=DIM: decode_apply_kernel.decode_apply_ref(
                  params_w[:d], dense[:d], rqm_params, n, lr),
+             walk=lambda out, d=DIM: checked_folded_walk(
+                 decode_apply_kernel, d, False,
+                 (params_w.data_ptr(), dense.data_ptr(), out.data_ptr())),
              nbytes=DIM * 12),
     ]
     check_codec(torch, pack_kernel, dense, packed)
@@ -458,7 +465,7 @@ def check_kernels(torch, np):
         dev_ms, ms_by = device_ms(torch, case["kernel"], KERNEL_REPS, case["symbol"])
         extra = {}
         if "walk" in case:  # the width and grid its C entry took
-            extra["walk"] = checked_walk(pack_kernel, *case["walk"](got))
+            extra["walk"] = case["walk"](got)
         if case["name"] in FLOOR_ROWS:  # the same entry at n = 1: one block
             one = lambda k=case["kernel"]: k(1)  # noqa: E731
             out1, want1 = one(), case["plain"](1)
@@ -468,7 +475,7 @@ def check_kernels(torch, np):
             extra["floor_ms"], extra["floor_ms_by"] = device_ms(torch, one, KERNEL_REPS,
                                                                 case["symbol"])
             if "walk" in case:
-                extra["floor_walk"] = checked_walk(pack_kernel, *case["walk"](out1, 1))
+                extra["floor_walk"] = case["walk"](out1, 1)
         records.append({
             "name": case["name"], "route": "cuda", "source": case["source"],
             "replaces": case["replaces"], "max_abs_err": err,
@@ -500,6 +507,18 @@ def checked_walk(pack_kernel, n: int, n_words: int, bits: int, addrs) -> dict:
     if got != want:
         raise AssertionError(f"walk of {n} fields in {n_words} words at {bits} bits: the C "
                              f"entry takes (V, blocks) {got}, codec_walk {want}")
+    return {"v": want[0], "blocks": want[1]}
+
+
+def checked_folded_walk(decode_apply_kernel, n: int, bf16: bool, addrs) -> dict:
+    """The width V and grid of a decode_apply launch (w, the sum, out):
+    ``decode_apply_kernel.folded_walk``'s, which must equal the built C
+    entry's."""
+    want = decode_apply_kernel.folded_walk(n, bf16, addrs)
+    got = decode_apply_kernel.built_folded_walk(n, bf16, addrs)
+    if got != want:
+        raise AssertionError(f"decode_apply's walk of {n} coordinates (bf16 {bf16}): the C "
+                             f"entry takes (V, blocks) {got}, folded_walk {want}")
     return {"v": want[0], "blocks": want[1]}
 
 
@@ -604,18 +623,37 @@ def check_codec(torch, pack_kernel, dense, packed) -> None:
 
 def check_decode(torch, pack_kernel, decode_apply_kernel, params_w, dense, params, n: int,
                  lr: float) -> None:
-    """Both decode entries at the main path's widths: the round's sum at
-    BITS and 2^16 - 1 everywhere at 16 bits (the top field sets the sign
-    bit), at DIM (W even at BITS, odd at 16), DIM - 1 (n odd), DIM + 1 (n
-    and W odd) and 1 coordinates, on views that start 0 to 3 words past an
-    aligned address (the parameters and the sum or words alike), each
-    bit-exact against its plain version, unpack_decode_apply also against
-    decode_apply_sum; each unpack_decode_apply launch's walk (V, blocks)
-    as the C entry takes it and as ``codec_walk`` picks it."""
+    """The three decode entries at the main path's widths. The literal
+    ones: the round's sum at BITS and 2^16 - 1 everywhere at 16 bits (the
+    top field sets the sign bit), at DIM (W even at BITS, odd at 16), DIM -
+    1 (n odd), DIM + 1 (n and W odd) and 1 coordinates, on views that
+    start 0 to 3 words past an aligned address (the parameters and the sum
+    or words alike), each bit-exact against its plain version,
+    unpack_decode_apply also against decode_apply_sum; each
+    unpack_decode_apply launch's walk (V, blocks) as the C entry takes it
+    and as ``codec_walk`` picks it. The folded decode_apply: the round's
+    sum at the same counts, float32 and bfloat16 parameters, on views 0 to
+    3 elements off, bit-exact against ``decode_apply_ref``; each launch's
+    walk as the C entry takes it and as ``folded_walk`` picks it."""
     w_all = torch.cat([params_w, params_w[:1]])
     z_all = torch.cat([dense, dense[:1]])
-    walks = []
+    walks, folded = [], []
     for d in (DIM, DIM - 1, DIM + 1, 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            seen = []
+            for offset in range(4):
+                wv, zv = (torch.cat([t.new_zeros(offset), t])[offset:]
+                          for t in (w_all[:d].to(dtype), z_all[:d]))
+                got = decode_apply_kernel.decode_apply(wv, zv, params, n, lr)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or not torch.equal(
+                        got, decode_apply_kernel.decode_apply_ref(wv, zv, params, n, lr)):
+                    raise AssertionError(f"decode_apply in {dtype}, {d} coordinates, on views "
+                                         f"{offset} elements in differs from decode_apply_ref")
+                walk = checked_folded_walk(decode_apply_kernel, d, dtype == torch.bfloat16,
+                                           (wv.data_ptr(), zv.data_ptr(), got.data_ptr()))
+                seen.append((walk["v"], walk["blocks"]))
+            folded.append(f"n {d}, {str(dtype).split('.')[-1]}: {seen}")
         for bits, z in ((BITS, z_all[:d]), (16, torch.full_like(z_all[:d], (1 << 16) - 1))):
             words = pack_kernel.pack_flat_plain(z, bits)
             seen = []
@@ -641,26 +679,38 @@ def check_decode(torch, pack_kernel, decode_apply_kernel, params_w, dense, param
     log("[kernels] decode: decode_apply_sum and unpack_decode_apply == their plain versions "
         "and each other at 10 and 16 bits, views at offsets 0-3; unpack walks (V, blocks) "
         "by offset: " + "; ".join(walks))
+    log("[kernels] decode: decode_apply == decode_apply_ref in float32 and bfloat16, views "
+        "at offsets 0-3; walks (V, blocks) by offset: " + "; ".join(folded))
 
 
 def decode_apply_bf16(torch, decode_apply_kernel, params_w, dense, params, n, lr) -> dict:
     """The folded decode_apply on bfloat16 parameters: bit-exact against
-    its plain version; its times beside the float32 record's."""
+    its plain version at DIM and at n = 1; its times, floor (n = 1), walks
+    and bound beside the float32 record's."""
     w16 = params_w.to(torch.bfloat16)
-    got = decode_apply_kernel.decode_apply(w16, dense, params, n, lr)
-    want = decode_apply_kernel.decode_apply_ref(w16, dense, params, n, lr)
-    torch.cuda.synchronize()
-    if got.dtype != torch.bfloat16 or not torch.equal(got, want):
-        raise AssertionError("decode_apply (bfloat16) differs from its plain version")
-    fn = lambda: decode_apply_kernel.decode_apply(w16, dense, params, n, lr)  # noqa: E731
-    dev_ms, ms_by = device_ms(torch, fn, KERNEL_REPS, ("decode_apply_folded_kernel",))
-    bound_ms, bound_by = bound(DIM * 8)  # 2 B in, 4 B of sum in, 2 B out
-    log(f"[kernels] decode_apply bfloat16: bit-exact, {dev_ms} ms on the device ({ms_by})")
-    return {"bf16_max_abs_err": float((got.double() - want.double()).abs().max()),
-            "bf16_ms": dev_ms, "bf16_ms_by": ms_by,
-            "bf16_plain_ms": time_ms(torch, lambda: decode_apply_kernel.decode_apply_ref(
-                w16, dense, params, n, lr), PLAIN_REPS),
-            "bf16_bound_ms": bound_ms, "bf16_bound_by": bound_by}
+    rec = {}
+    for d, key in ((DIM, "bf16_ms"), (1, "bf16_floor_ms")):
+        fn = lambda d=d: decode_apply_kernel.decode_apply(  # noqa: E731
+            w16[:d], dense[:d], params, n, lr)
+        got = fn()
+        want = decode_apply_kernel.decode_apply_ref(w16[:d], dense[:d], params, n, lr)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+            raise AssertionError(f"decode_apply (bfloat16, {d} coordinates) differs from its "
+                                 f"plain version")
+        rec[key], rec[f"{key}_by"] = device_ms(torch, fn, KERNEL_REPS,
+                                               ("decode_apply_folded_kernel",))
+        rec[key.replace("ms", "walk")] = checked_folded_walk(
+            decode_apply_kernel, d, True, (w16.data_ptr(), dense.data_ptr(), got.data_ptr()))
+        if d == DIM:
+            rec["bf16_max_abs_err"] = float((got.double() - want.double()).abs().max())
+            rec["bf16_plain_ms"] = time_ms(torch, lambda: decode_apply_kernel.decode_apply_ref(
+                w16, dense, params, n, lr), PLAIN_REPS)
+    rec["bf16_bound_ms"], rec["bf16_bound_by"] = bound(DIM * 8)  # 2 B in, 4 B of sum, 2 B out
+    log(f"[kernels] decode_apply bfloat16: bit-exact, {rec['bf16_ms']} ms on the device "
+        f"({rec['bf16_ms_by']}), floor {rec['bf16_floor_ms']} ms, walks {rec['bf16_walk']} "
+        f"and {rec['bf16_floor_walk']}")
+    return rec
 
 
 def profile_rounds(torch, tr, rounds: int, tag: str) -> dict:
@@ -1108,7 +1158,9 @@ def main() -> int:
                        | {"launches": launches, "path": path}
                        | {k: rec[k] for k in ("max_abs_err", "ms", "ms_by", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")}
-                       | {"floor_ms": rec.get("floor_ms")})
+                       | {"floor_ms": rec.get("floor_ms")}
+                       # decode_apply's bfloat16 form: time, floor, walks, bound
+                       | {k: v for k, v in rec.items() if k.startswith("bf16_")})
     import torch.distributed as dist
 
     if dist.is_initialized():

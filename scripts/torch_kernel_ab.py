@@ -14,15 +14,16 @@ q=0.42, pbm m=16 theta=0.25, qmgeo m=16 r=0.6). Ten seeded cases: the
 three quantize entries and ``rqm_quantize`` at m=64, q=0.5; the three
 dense round sums; the two packed ones. Each runs three ways: the parent's
 entry, this tree's by-value entry, and its ``_dev`` twin with the seed as
-a 1-element int32 device tensor. Eleven unseeded cases run two ways,
+a 1-element int32 device tensor. Fifteen unseeded cases run two ways,
 parent and tree (the C ABI is the same): ``pack_flat`` and
 ``unpack_flat`` of the RQM round's dense sum at 10 bits, at 16 bits with
 every field 2^16 - 1 (the top field sets the sign bit), and at n = 1 (one
 block: the entry's floor); ``decode_apply_sum`` of that sum at 222,030
-and at n = 1, and ``unpack_decode_apply`` of its 10-bit words, of the
-16-bit words of 2^16 - 1 everywhere, and at n = 1 (cohort 40, lr 0.5,
-normal parameters). Each result must equal the plain PyTorch version bit
-for bit. The device times are then taken in turns (parent, tree, dev,
+and at n = 1, ``unpack_decode_apply`` of its 10-bit words, of the
+16-bit words of 2^16 - 1 everywhere, and at n = 1, and the folded
+``decode_apply`` of the sum on float32 and on bfloat16 parameters, at
+222,030 and at n = 1 (cohort 40, lr 0.5, normal parameters). Each result
+must equal the plain PyTorch version bit for bit. The device times are then taken in turns (parent, tree, dev,
 dev, tree, parent; the unseeded cases' parent, tree, tree, parent) by
 ``chip_smoke.device_ms`` (torch.profiler, mean of 30 launches) and
 ``chip_smoke.queued_ms`` (CUDA events behind a sleeping kernel).
@@ -255,10 +256,12 @@ def codec_cases(launcher, dense) -> dict:
 
 def decode_cases(launcher, dense, params, lr: float = 0.5) -> dict:
     """``decode_apply_sum`` of ``dense`` (the RQM round's sum) at its full
-    length and at n = 1 (the floor), and ``unpack_decode_apply`` of its
+    length and at n = 1 (the floor), ``unpack_decode_apply`` of its
     BITS-bit words, of the 16-bit words of 2^16 - 1 everywhere, and at
-    n = 1, on normal parameters at a cohort of ROWS; both trees' entries
-    take the same arguments."""
+    n = 1, and the folded ``decode_apply`` of the sum on float32 and on
+    bfloat16 parameters, each at its full length and at n = 1, on normal
+    parameters at a cohort of ROWS; both trees' entries take the same
+    arguments."""
     w = torch.from_numpy(np.random.default_rng(5).normal(0, 0.05, dense.numel())
                          .astype(np.float32)).to(dense.device)
     k = decode_apply_kernel.f32_decode_constants(params, ROWS, lr)
@@ -286,6 +289,20 @@ def decode_cases(launcher, dense, params, lr: float = 0.5) -> dict:
             ("unpack_decode_apply_kernel",),
             lambda words=words, d=d, b=bits: pack_kernel.unpack_decode_apply_plain(
                 w[:d], words, params, ROWS, lr, pack_bits=b), ("parent", "tree"))
+    shift, scale = decode_apply_kernel.folded_constants(params, ROWS, lr)
+    for dtype in (torch.float32, torch.bfloat16):
+        wt = w.to(dtype)
+        for what, d in ((f"{dense.numel():,}", dense.numel()), ("n=1", 1)):
+            out = torch.empty(d, dtype=dtype, device=dense.device)
+            cases[f"decode_apply {str(dtype).split('.')[-1]} {what}"] = (
+                lambda tag, wt=wt, d=d, o=out: launcher(
+                    tag, "decode_apply", "decode_apply", (P, P, P, I, I, F, F),
+                    (wt.data_ptr(), dense.data_ptr(), o.data_ptr(), d,
+                     int(wt.dtype == torch.bfloat16), shift, scale), o),
+                ("decode_apply_folded_kernel",),
+                lambda wt=wt, d=d: decode_apply_kernel.decode_apply_ref(wt[:d], dense[:d], params,
+                                                                        ROWS, lr),
+                ("parent", "tree"))
     return cases
 
 

@@ -14,9 +14,12 @@
 
 Every scalar is the reference's Python double rounded once to float32.
 CUDA kernels in ``csrc/decode_apply.cu`` for CUDA tensors; plain versions
-on the CPU.
+on the CPU. ``folded_walk`` mirrors the C entry ``decode_apply_walk``:
+the width and grid of ``decode_apply``'s kernel.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -27,6 +30,35 @@ from repro_torch.kernels._build import F32, I32, P
 
 _ARGS = (P, P, P, I32, F32, F32, F32, P)
 _FOLDED_ARGS = (P, P, P, I32, I32, F32, F32, P)
+THREADS = 256  # a block (csrc/walk.cuh: kWalkThreads)
+FOLDED_GROUPS = 4  # V-groups a thread of decode_apply (csrc/decode_apply.cu: kFoldedGroups)
+INT_MAX = (1 << 31) - 1
+
+
+def folded_walk(n: int, bf16: bool, addrs) -> tuple[int, int]:
+    """The walk of ``decode_apply``'s kernel over ``n`` coordinates between
+    ``w``, the int32 sum and the output at the byte addresses ``addrs``:
+    ``(V, blocks)``. V is 2 where n is even, ``w`` and the output are
+    aligned to two parameters (float32, or bfloat16 where ``bf16``) and the
+    sum to two ints, else 1; ``blocks`` of THREADS threads, FOLDED_GROUPS
+    V-groups a thread, cover the ``n / V`` groups. The last coordinate of a
+    block of V = 2 must fit an int32."""
+    if n < 1 or n > INT_MAX - THREADS * FOLDED_GROUPS * 2:
+        raise ValueError(f"decode_apply takes 1 to {INT_MAX - THREADS * FOLDED_GROUPS * 2} "
+                         f"coordinates, got {n}")
+    w, z, out = addrs
+    pair = 4 if bf16 else 8
+    v = 2 if n % 2 == 0 and w % pair == 0 and out % pair == 0 and z % 8 == 0 else 1
+    return v, -(-(n // v) // (THREADS * FOLDED_GROUPS))
+
+
+def built_folded_walk(n: int, bf16: bool, addrs) -> tuple[int, int]:
+    """The walk the built C entry ``decode_apply_walk`` takes, which must
+    equal ``folded_walk``'s. Needs nvcc."""
+    v, blocks = ctypes.c_int(), ctypes.c_int()
+    _build.call("decode_apply", "decode_apply_walk", (I32, I32, P, P, P, P, P), n, int(bf16),
+                *addrs, ctypes.addressof(v), ctypes.addressof(blocks))
+    return v.value, blocks.value
 
 
 def f32_decode_constants(params: GridGeometry, n: int, lr: float) -> dict:
@@ -95,7 +127,8 @@ def decode_apply_ref(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
 def decode_apply(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
                  n: int, lr: float) -> torch.Tensor:
     """Updated float32 or bfloat16 params ``w - (shift + scale * z_sum)``
-    of any shape, from an int32 sum of the same shape."""
+    of any shape, from an int32 sum of the same shape. The kernel refuses
+    (and this raises on) more than ``INT_MAX - 2048`` elements."""
     if w.numel() < 1 or z_sum.shape != w.shape:
         raise ValueError(f"w and z_sum must be non-empty and of one shape, got "
                          f"{tuple(w.shape)} and {tuple(z_sum.shape)}")

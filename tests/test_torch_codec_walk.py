@@ -27,8 +27,15 @@ the card. Here:
     of each operand and at n = 1; a plain version that follows each walk
     (``decode_walk_twin``) stores every coordinate below n and equals the
     entry's plain version and the reference's jnp ``decode_apply_sum``,
-    bit for bit.
+    bit for bit;
+  * the folded ``decode_apply`` takes the dense walk too, FOLDED_GROUPS
+    V-groups a thread, V 2 or 1 as ``folded_walk`` picks it from n and
+    the three addresses (its C entry held against it on the card): the
+    walk covers each coordinate once, and a plain version that follows it
+    (``folded_walk_twin``) equals ``decode_apply_ref`` in float32 and
+    bfloat16.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,7 +47,13 @@ from repro.kernels import decode_apply_kernel as jdecode
 from repro.kernels import pack_kernel as jpack
 from repro_torch.core import wire
 from repro_torch.core.grid import RQMParams
-from repro_torch.kernels.decode_apply_kernel import decode_apply_plain
+from repro_torch.kernels.decode_apply_kernel import (
+    FOLDED_GROUPS,
+    INT_MAX,
+    decode_apply_plain,
+    decode_apply_ref,
+    folded_walk,
+)
 from repro_torch.kernels.pack_kernel import (
     GROUPS,
     THREADS,
@@ -292,3 +305,62 @@ def test_decode_walk_twins_match_plain_and_reference(bits, n, levels):
         for v in widths:
             assert torch.equal(decode_walk_twin(w, words, bits, v, GROUPS), want), v
     np.testing.assert_array_equal(want.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("n,bf16,addrs,want", [
+    (222_030, False, (0, 1024, 2048), (2, 109)),  # the CNN: V = 2, 109 blocks
+    (222_030, True, (0, 1024, 2048), (2, 109)),
+    (222_029, False, (0, 1024, 2048), (1, 217)),  # n odd
+    (222_030, False, (4, 0, 4), (1, 217)),        # w and out 1 float off
+    (222_030, True, (4, 0, 4), (2, 109)),         # w and out 2 bfloat16 off: 4-byte aligned
+    (222_030, True, (2, 0, 0), (1, 217)),         # w 1 bfloat16 off
+    (222_030, True, (0, 4, 0), (1, 217)),         # the sum 1 int off
+    (1, False, (0, 0, 0), (1, 1)),
+    (INT_MAX - 2048, False, (0, 0, 0), (1, 2_097_150)),
+], ids=str)
+def test_folded_walk_picks_v_and_grid(n, bf16, addrs, want):
+    """decode_apply's walk, between w, the sum and the output."""
+    assert folded_walk(n, bf16, addrs) == want
+
+
+def test_folded_walk_refuses_what_the_kernel_cannot_index():
+    for n in (0, -1, INT_MAX - 2047):
+        with pytest.raises(ValueError, match="coordinates"):
+            folded_walk(n, False, (0, 0, 0))
+
+
+def folded_walk_twin(w: torch.Tensor, z: torch.Tensor, v: int) -> torch.Tensor:
+    """Plain version of ``decode_apply`` that follows its kernel's walk:
+    each coordinate a live group owns is decoded by ``decode_apply_ref``'s
+    expression; one that no group owns stays NaN."""
+    n = w.numel()
+    _, coords, live = walk_owners(n, n, 32, v, FOLDED_GROUPS)
+    stored = coords[live].reshape(-1)
+    out = torch.full_like(w, float("nan"))
+    out[stored] = decode_apply_ref(w[stored], z[stored], DECODE_PARAMS, COHORT, LR)
+    return out
+
+
+@pytest.mark.parametrize("n", [1, FOLDED_GROUPS * THREADS - 1, FOLDED_GROUPS * THREADS + 1,
+                               70_001, 2 * FOLDED_GROUPS * THREADS, 70_000])
+def test_folded_walk_covers_each_coordinate_once_and_matches_ref(n):
+    """At each V that ``folded_walk`` picks for views 0 to 3 elements off,
+    in float32 and bfloat16: every coordinate below n is in one live
+    group, the grid is the least that covers n, and the walk's twin equals
+    ``decode_apply_ref`` bit for bit."""
+    rng = np.random.default_rng(n)
+    w32 = torch.from_numpy(rng.normal(0, 0.05, n).astype(np.float32))
+    z = torch.from_numpy(rng.integers(0, COHORT * 15 + 1, n).astype(np.int32))
+    for dtype in (torch.float32, torch.bfloat16):
+        w = w32.to(dtype)
+        size = w.element_size()
+        for v, blocks in {folded_walk(n, dtype == torch.bfloat16, (size * o, 4 * o, size * o))
+                          for o in OFFSETS}:
+            per_block = THREADS * FOLDED_GROUPS * v
+            assert blocks * per_block >= n > (blocks - 1) * per_block
+            _, coords, live = walk_owners(n, n, 32, v, FOLDED_GROUPS)
+            assert torch.equal(torch.bincount(coords[live].reshape(-1), minlength=n),
+                               torch.ones(n, dtype=torch.int64))
+            assert bool((coords[~live] >= n).all())
+            assert torch.equal(folded_walk_twin(w, z, v),
+                               decode_apply_ref(w, z, DECODE_PARAMS, COHORT, LR)), (dtype, v)

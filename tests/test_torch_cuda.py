@@ -12,6 +12,7 @@ Each kernel must equal its plain PyTorch version bit for bit, on the card
 and against the plain version on the CPU; chip_smoke.py repeats the check
 at the main path's full shapes.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import collections
 import dataclasses
 import math
@@ -455,19 +456,54 @@ def test_decode_kernels_replay_in_a_cuda_graph(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [70_001, 70_000, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_folded_decode_apply_matches_plain(cuda, dtype):
+def test_folded_decode_apply_matches_plain(cuda, dtype, n):
     """Row 10: the folded decode_apply equals its plain version on the
-    card and on the CPU."""
-    rng = np.random.default_rng(5)
-    w = torch.from_numpy(rng.normal(0, 0.05, 70_001).astype(np.float32)).to(dtype).to(cuda)
-    z = torch.from_numpy(rng.integers(0, 601, 70_001).astype(np.int32)).to(cuda)
+    card and on the CPU, on views that start 0 to 3 elements past an
+    aligned address (w, the sum and so the output alike), each launch
+    taking the walk ``folded_walk`` picks; captured in a CUDA graph, a
+    replay decodes the sum the buffer holds then and counts one launch.
+    Its C entry refuses n < 1 and n past INT_MAX less a block of V = 2
+    (before it touches memory), and the launch raises on the refusal."""
+    rng = np.random.default_rng(n)
+    w = torch.from_numpy(rng.normal(0, 0.05, n).astype(np.float32)).to(dtype)
+    z = torch.from_numpy(rng.integers(0, 601, n).astype(np.int32))
+    want = decode_apply_kernel.decode_apply_ref(w, z, PARAMS, 40, 0.5)
+    bf16 = dtype == torch.bfloat16
+    for offset in range(4):
+        wv, zv = (torch.cat([t.new_zeros(offset), t]).to(cuda)[offset:] for t in (w, z))
+        ops.reset_launches()
+        out = decode_apply_kernel.decode_apply(wv, zv, PARAMS, 40, 0.5)
+        assert dict(ops.launches) == {"decode_apply": 1} and out.dtype == dtype
+        assert torch.equal(out, decode_apply_kernel.decode_apply_ref(wv, zv, PARAMS, 40, 0.5))
+        assert torch.equal(out.cpu(), want)
+        addrs = (wv.data_ptr(), zv.data_ptr(), out.data_ptr())
+        assert decode_apply_kernel.built_folded_walk(n, bf16, addrs) == \
+            decode_apply_kernel.folded_walk(n, bf16, addrs)
+    wc, zc = w.to(cuda), torch.zeros(n, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    graph, record = torch.cuda.CUDAGraph(), collections.Counter()
+    with _build.moved_to(record), torch.cuda.graph(graph):
+        out = decode_apply_kernel.decode_apply(wc, zc, PARAMS, 40, 0.5)
+    assert dict(record) == {"decode_apply": 1}
+    zc.copy_(z)
     ops.reset_launches()
-    out = decode_apply_kernel.decode_apply(w, z, PARAMS, 40, 0.5)
-    assert dict(ops.launches) == {"decode_apply": 1} and out.dtype == dtype
-    assert torch.equal(out, decode_apply_kernel.decode_apply_ref(w, z, PARAMS, 40, 0.5))
-    assert torch.equal(out.cpu(), decode_apply_kernel.decode_apply_ref(
-        w.cpu(), z.cpu(), PARAMS, 40, 0.5))
+    graph.replay()
+    _build.replayed(record)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want) and dict(ops.launches) == {"decode_apply": 1}
+    shift, scale = decode_apply_kernel.folded_constants(PARAMS, 40, 0.5)
+    for bad in (0, -1, decode_apply_kernel.INT_MAX - 2047):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            _build.launch("decode_apply", "decode_apply", decode_apply_kernel._FOLDED_ARGS,
+                          wc.data_ptr(), zc.data_ptr(), out.data_ptr(), bad, int(bf16), shift,
+                          scale, torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(ValueError, match="coordinates"):
+            decode_apply_kernel.folded_walk(bad, bf16, (0, 0, 0))
+    assert decode_apply_kernel.folded_walk(decode_apply_kernel.INT_MAX - 2048, bf16,
+                                           (0, 0, 0))[1] > 0
+    assert dict(ops.launches) == {"decode_apply": 1}
 
 
 @pytest.mark.cuda

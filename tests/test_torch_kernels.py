@@ -17,6 +17,7 @@ The CUDA kernels run only on a GPU: tests/test_torch_cuda.py checks them
 against the plain versions there, and chip_smoke.py at the main path's
 full shapes.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import json
 import os
 import sys

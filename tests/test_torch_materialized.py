@@ -17,6 +17,7 @@ CPU at the suite's small problem (24 clients, cohorts of 6).
   * inside the port: materialized == fused (dense and packed) bit for
     bit, and ``scan`` == ``perround``, over 3 rounds.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import dataclasses
 import json
 import math

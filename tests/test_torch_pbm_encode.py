@@ -15,6 +15,7 @@ p. Two contracts, on inputs made with numpy:
     instance) and theta in {1/4, 1/2}, with x at and beyond +-c, infinite
     and NaN, and counters near 2**32, where they wrap.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -20,6 +20,7 @@ inputs made with numpy:
     are within an ulp. Each mismatch is one level; their count goes into
     the JUnit report.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import math
 
 import jax.numpy as jnp

@@ -15,6 +15,7 @@ goldens' ``kernel_seed_u32``), never on a JAX key. Contracts:
     other way where the two are within an ulp. Each mismatch is one
     level; their count goes into the JUnit report.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import dataclasses
 import json
 import math

@@ -16,6 +16,7 @@ clients, cohorts of 6).
     recorded as JUnit properties);
   * inside the port, packed and dense wires train bit-identically.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import ast
 import dataclasses
 import inspect

@@ -17,6 +17,7 @@ contracts, each on inputs made with numpy:
   * the mask bracket against the reference's running form over random
     keep patterns, up to m = 100 (four mask words).
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -19,6 +19,7 @@ Contracts:
   * a reference round replayed through the block path gives the
     reference's SecAgg sum and the perround step's parameters.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import collections
 import dataclasses
 import json

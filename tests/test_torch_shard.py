@@ -21,6 +21,7 @@ the CPU:
   * at four gloo ranks (tests/torch_shard_worker.py, one process a rank),
     the checks of the reference's tests/shard_engine_checks.py.
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import os
 import subprocess
 import sys

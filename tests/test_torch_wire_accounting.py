@@ -5,6 +5,7 @@ Integers (packed words, fields) must be equal; epsilons must match
 tests/golden/epsilons.json to 1e-9, computed fresh (the port's memo is
 cleared first).
 """
+import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import json
 import math
 import os
