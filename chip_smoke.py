@@ -66,6 +66,21 @@ which raises and exits non-zero:
      round's host ms against its wall ms (blocks run under
      ``torch.cuda.set_sync_debug_mode("error")``), and rounds/s of both
      over 5 blocks of 20 rounds, median and range;
+  5d. the trainer's services at FedConfig()'s widths, rqm: (a) graphed
+     scan, materialized, tracked to a JSON document under build/phase5d
+     and checkpointed every 5 rounds: 10 rounds against a fresh trainer
+     restored at round 5 that trains 5, parameters and accountant history
+     bit for bit, the tracked series rounds 1..10 with no duplicate or gap
+     and eps_spent equal to the accountant after each round; (b) the same
+     with fused packed rounds, every record's wire_bits 32 x 74,010 and
+     pack_width 10; (c) momentum and adam, materialized and fused (the
+     dense sum, no fused decode-apply), 5 graphed scan rounds against 5
+     eager perround rounds and against a run resumed at round 3, parameters
+     and optimizer state bit for bit; (d) budget_eps at the eps of 7 rounds
+     plus half a round's: train(20) stops after 7; (e) reported, not
+     gated: graphed rounds/s with the json tracker (one synchronisation
+     an advance) against the noop one, 5 advances of 20 rounds back to
+     back a rep, 5 reps each in turns, median and range;
   6. profile: device time by kernel over 3 more rounds of FedConfig()'s
      trainer for each mechanism (graphed; phase 5's, and phase 5c's for
      rqm), of the graphed fused packed
@@ -77,7 +92,7 @@ which raises and exits non-zero:
      ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
      (reported, not gated).
 
-Every run of phases 4, 5 and 5b sets the kernels' launch counters to 0
+Every run of phases 4, 5, 5b and 5d (but its report) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
@@ -116,6 +131,9 @@ ROUNDS = 5
 PROFILE_ROUNDS = 3
 HOST_ROUNDS = 20  # a block of phase 5c
 HOST_REPS = 5
+SERVICE_ROUNDS = 10  # phase 5d (a) and (b), checkpointed every half
+OPT_ROUNDS, OPT_MID = 5, 3  # phase 5d (c): rounds, and the round resumed
+HALT_ROUNDS = 7  # phase 5d (d): the rounds the budget affords
 KERNEL_REPS = 30
 PLAIN_REPS = 5
 PROFILE_TRIES = 3
@@ -868,7 +886,7 @@ def host_clock(torch, FedConfig) -> tuple[dict, dict]:
         mark("encode")
         z_sum = z.sum(0, dtype=z.dtype)
         mark("sum")
-        per.flat, _ = finish(per.flat, z_sum)
+        per.flat, per.opt_state, _ = finish(per.flat, per.opt_state, z_sum)
         mark("decode+apply")
         torch.cuda.synchronize()
         mark("wall")
@@ -920,6 +938,169 @@ def host_clock(torch, FedConfig) -> tuple[dict, dict]:
             for engine, v in rates.items()},
     }
     return report, {"perround": per, "scan": scan}
+
+
+def same_state(torch, a, b, what: str) -> None:
+    """Two trainers hold the same parameters, optimizer state and
+    accountant history, bit for bit."""
+    import numpy as np
+
+    if not torch.equal(a.flat, b.flat):
+        raise AssertionError(f"{what}: parameters differ in {int((a.flat != b.flat).sum())}")
+    if isinstance(a.opt_state, dict):
+        for k, v in a.opt_state.items():
+            if not torch.equal(v, b.opt_state[k]):
+                raise AssertionError(f"{what}: optimizer state {k!r} differs")
+    elif a.opt_state != b.opt_state:
+        raise AssertionError(f"{what}: optimizer states {a.opt_state} and {b.opt_state}")
+    if a.realized_n != b.realized_n or len(a.accountant.history) != len(b.accountant.history) \
+            or not all(np.array_equal(x, y) for x, y in zip(a.accountant.history,
+                                                           b.accountant.history)):
+        raise AssertionError(f"{what}: accountant histories differ")
+
+
+def tracked_series(path: str, tr, rounds: int, what: str) -> dict:
+    """The JSON tracker document at ``path``: rounds 1..``rounds`` with no
+    duplicate or gap, realized_n the accountant's, and eps_spent the
+    accountant's after each round, bit for bit."""
+    from repro_torch.core.renyi import RenyiAccountant
+
+    with open(path) as f:
+        doc = json.load(f)
+    got = [r["round"] for r in doc["rounds"]]
+    if got != list(range(1, rounds + 1)):
+        raise AssertionError(f"{what}: tracked rounds {got}")
+    acc = RenyiAccountant(alphas=tr.cfg.accountant_alphas)
+    for rec, vec, n in zip(doc["rounds"], tr.accountant.history, tr.realized_n):
+        acc.step(vec)
+        if rec["eps_spent"] != acc.dp_epsilon(tr.cfg.budget_delta)[0] or rec["realized_n"] != n:
+            raise AssertionError(f"{what}: round {rec['round']}'s record {rec} is not the "
+                                 f"accountant's")
+    return doc
+
+
+def services(torch, FedConfig, counted, card: str) -> dict:
+    """Phase 5d: the trainer's services on the card at FedConfig()'s
+    widths (rqm), each run counted by ``counted(tag, expect, fn)``.
+    Returns the report, with (e)'s rates."""
+    import shutil
+
+    from repro_torch.core import wire
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.core.renyi import RenyiAccountant
+    from repro_torch.fed.trainer import FedTrainer
+
+    out_dir = os.path.join(ROOT, "build", "phase5d")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    spec, quiet = SPECS["rqm"], (lambda msg: None)
+    report = {}
+
+    def trainer(cfg, tracker=None):
+        return FedTrainer(spec, cfg, device="cuda", tracker=tracker)
+
+    # (a), (b): resume, with the tracked series continued
+    R, H = SERVICE_ROUNDS, SERVICE_ROUNDS // 2
+    for tag, fused, expect in (
+            ("resume", False, lambda k: {"rqm_quantize_dev": k}),
+            ("fused packed resume", True,
+             lambda k: {"rqm_round_sum_packed_dev": k, "unpack_decode_apply": k})):
+        path = os.path.join(out_dir, f"{tag.replace(' ', '_')}.json")
+        cfg = FedConfig(fused_rounds=fused, track=f"json:{path}", ckpt_every=H,
+                        ckpt_dir=os.path.join(out_dir, f"{tag.replace(' ', '_')}_ckpt"))
+        full = trainer(cfg)
+        counted(f"{tag}: {R} rounds", expect(R), lambda: full.train(R, eval_every=H, log=quiet))
+        res = trainer(cfg, tracker=f"json:{path},append=true")
+        if res.restore_checkpoint(H) != H:
+            raise AssertionError(f"{tag}: restored the wrong round")
+        counted(f"{tag}: resumed at {H}", expect(R - H),
+                lambda: res.train(R - H, eval_every=H, log=quiet))
+        same_state(torch, full, res, tag)
+        doc = tracked_series(path, res, R, tag)
+        bits = {(r["wire_bits"], r["pack_width"]) for r in doc["rounds"]}
+        if fused and bits != {(32 * wire.packed_words(DIM, BITS), BITS)}:
+            raise AssertionError(f"{tag}: records' (wire_bits, pack_width) {bits}")
+        report[tag] = {"rounds": R, "resumed_at": H, "tracked_rounds": len(doc["rounds"]),
+                       "wire_bits_pack_width": sorted(bits),
+                       "eps_spent": doc["rounds"][-1]["eps_spent"],
+                       "timings": doc["timings"]}
+        log(f"[5d] {tag}: {R} rounds == resumed at {H}, bit for bit; tracked rounds "
+            f"1..{R}, eps_spent == the accountant's")
+        del full, res
+
+    # (c): stateful optimizers, graphed == eager == resumed
+    for opt in ("momentum", "adam"):
+        for fused in (False, True):
+            tag = f"{opt} {'fused dense' if fused else 'materialized'}"
+            entry = "rqm_round_sum_dense" if fused else "rqm_quantize"
+            cfg = FedConfig(server_opt=opt, fused_rounds=fused, ckpt_every=OPT_MID,
+                            ckpt_dir=os.path.join(out_dir, tag.replace(" ", "_")))
+            scan = trainer(cfg)
+            if scan.pack_bits is not None:
+                raise AssertionError(f"{tag}: a stateful optimizer took the packed wire")
+            counted(f"{tag} scan", {f"{entry}_dev": OPT_ROUNDS},
+                    lambda: scan.train(OPT_ROUNDS, eval_every=OPT_ROUNDS, log=quiet))
+            per = trainer(dataclasses.replace(cfg, engine="perround", ckpt_dir=None,
+                                              ckpt_every=0))
+            counted(f"{tag} perround", {entry: OPT_ROUNDS},
+                    lambda: per.train(OPT_ROUNDS, eval_every=OPT_ROUNDS, log=quiet))
+            res = trainer(cfg)
+            res.restore_checkpoint(OPT_MID)
+            counted(f"{tag} resumed", {f"{entry}_dev": OPT_ROUNDS - OPT_MID},
+                    lambda: res.train(OPT_ROUNDS - OPT_MID, eval_every=OPT_ROUNDS, log=quiet))
+            same_state(torch, scan, per, f"{tag}: graphed scan and perround")
+            same_state(torch, scan, res, f"{tag}: uninterrupted and resumed at {OPT_MID}")
+            log(f"[5d] {tag}: graphed scan == perround == resumed at {OPT_MID}, parameters "
+                f"and state {sorted(scan.opt_state)} bit for bit")
+            report[tag] = {"rounds": OPT_ROUNDS, "resumed_at": OPT_MID,
+                           "state": sorted(scan.opt_state)}
+            del scan, per, res
+
+    # (d): the budget halt
+    cfg = FedConfig()
+    mech = make_mechanism(spec)
+    per_round = [mech.per_round_epsilon(cfg.clients_per_round, a) for a in cfg.accountant_alphas]
+    acc = RenyiAccountant(alphas=cfg.accountant_alphas)
+    at, after = (acc.projected_dp_epsilon(cfg.budget_delta, per_round, k)[0]
+                 for k in (HALT_ROUNDS, HALT_ROUNDS + 1))
+    budget = at + (after - at) / 2
+    tr = trainer(dataclasses.replace(cfg, budget_eps=budget))
+    afford = tr.accountant.rounds_within_budget(budget, cfg.budget_delta, tr.per_round_eps)
+    counted("budget halt", {"rqm_quantize_dev": HALT_ROUNDS},
+            lambda: tr.train(20, eval_every=20, log=quiet))
+    spent, remaining = tr.budget_spent()
+    if not (afford == tr.accountant.rounds == HALT_ROUNDS and spent <= budget):
+        raise AssertionError(f"budget halt: {tr.accountant.rounds} rounds (affordable "
+                             f"{afford}), spent {spent} of {budget}")
+    report["budget halt"] = {"budget_eps": budget, "rounds": tr.accountant.rounds,
+                             "eps_spent": spent, "eps_remaining": remaining}
+    log(f"[5d] budget halt: {tr.accountant.rounds} rounds, eps_spent {spent} of {budget}")
+    del tr
+
+    # (e): the tracked run's price, reported
+    tracked = trainer(FedConfig(), tracker=f"json:{os.path.join(out_dir, 'clock.json')}")
+    noop = trainer(FedConfig())
+    for tr in (tracked, noop):
+        tr.run_block(1)  # capture
+    rates = {"json": [], "noop": []}
+    for _ in range(HOST_REPS):
+        for name, tr in (("json", tracked), ("noop", noop)):
+            # HOST_REPS advances back to back, one synchronisation after
+            # them: the noop run's host issues an advance while the card
+            # runs the last one; the tracked run waits for each
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_REPS):
+                tr.run_block(HOST_ROUNDS)
+            torch.cuda.synchronize()
+            rates[name].append(HOST_REPS * HOST_ROUNDS / (time.perf_counter() - t0))
+    if not torch.equal(tracked.flat, noop.flat):
+        raise AssertionError("tracked and noop runs differ")
+    report["tracked_clock"] = {
+        "spec": spec, "advance": HOST_ROUNDS, "advances_a_rep": HOST_REPS, "card": card,
+        "rounds_per_s": {name: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                                "reps": len(v), "each": v} for name, v in rates.items()}}
+    return report
 
 
 def fill_sources(torch, tr, rounds: int) -> dict:
@@ -985,7 +1166,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.fed.config import FedConfig
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
 
     # full float32 everywhere, and reproducible gradients
     torch.backends.cudnn.allow_tf32 = False
@@ -1122,6 +1303,28 @@ def main() -> int:
     # phase 5c: the round on the host's clock, no profiler running
     clock, clocked = host_clock(torch, FedConfig)
     log(json.dumps({"host_clock": clock}))
+
+    # phase 5d: telemetry, checkpoint/resume, the stateful optimizers and
+    # the budget halt, each run counted
+    def counted(tag, expect, fn):
+        ops.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        got = dict(ops.launches)
+        if got != expect:
+            raise AssertionError(f"{tag}: launch counts {got}, expected {expect}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+            paths.setdefault(k, []).append(tag)
+
+    report = services(torch, FedConfig, counted, card)
+    tracked = report.pop("tracked_clock")
+    log(json.dumps({"services": report}))
+    log(json.dumps({"tracked_clock": tracked}))
+    log(f"[5d] tracked vs noop rounds/s (median): json "
+        f"{tracked['rounds_per_s']['json']['median']}, noop "
+        f"{tracked['rounds_per_s']['noop']['median']}; phase 5c graphed scan "
+        f"{clock['rounds_per_s']['scan']['median']}; nvidia-smi: {card}")
 
     # phase 6: where a warm round spends device time, FedConfig()'s round
     # for each mechanism (graphed), the graphed fused packed round, the

@@ -3,8 +3,10 @@
 The JAX package ``repro`` is the reference; this package reproduces its
 synchronous rounds of Algorithm 1 on the EMNIST task — RQM, PBM, QMGeo
 and noise-free clipped SGD, materialized (the reference's default) or
-with the fused encode+sum and (unpack+)decode+SGD apply — in PyTorch,
-with hand-written CUDA kernels for Hopper (``kernels/csrc``).
+with the fused encode+sum and (unpack+)decode+SGD apply, under an sgd,
+momentum or adam server, with the reference trainer's telemetry,
+checkpoint/resume and budget halt — in PyTorch, with hand-written CUDA
+kernels for Hopper (``kernels/csrc``).
 
 Every kernel wrapper takes its plain PyTorch version for CPU tensors and
 launches its CUDA kernel for CUDA tensors. Layout mirrors ``repro``:

@@ -1,0 +1,4 @@
+"""Checkpoint store: npz files of a tree of tensors and numpy arrays."""
+from repro_torch.checkpoint.store import latest_step, restore, save
+
+__all__ = ["save", "restore", "latest_step"]

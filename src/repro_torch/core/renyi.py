@@ -111,13 +111,16 @@ def rdp_to_dp(total_eps, alphas, delta: float) -> tuple[float, float]:
 @dataclasses.dataclass
 class RenyiAccountant:
     """Cumulative Renyi-DP over composed rounds: each ``step`` adds one
-    round's per-alpha eps vector."""
+    round's per-alpha eps vector, recorded in ``history`` (a checkpoint
+    replays it). ``dp_epsilon`` converts after composition, through the
+    same ``projected_dp_epsilon`` as the budget halt's lookahead."""
 
     alphas: tuple[float, ...] = (1.5, 2.0, 3.0, 4.0, 8.0, 16.0, 32.0, 64.0)
 
     def __post_init__(self):
         self._eps = np.zeros(len(self.alphas), dtype=np.float64)
         self.rounds = 0
+        self.history: list[np.ndarray] = []
 
     def step(self, per_round_eps: Sequence[float]) -> None:
         per_round_eps = np.asarray(per_round_eps, dtype=np.float64)
@@ -125,10 +128,47 @@ class RenyiAccountant:
             raise ValueError("per_round_eps must align with self.alphas")
         self._eps += per_round_eps
         self.rounds += 1
+        self.history.append(per_round_eps.copy())
 
     def rdp_epsilon(self, alpha: float) -> float:
         return float(self._eps[self.alphas.index(alpha)])
 
     def dp_epsilon(self, delta: float) -> tuple[float, float]:
         """Best (eps, alpha) conversion to (eps, delta)-DP."""
-        return rdp_to_dp(self._eps, self.alphas, delta)
+        return self.projected_dp_epsilon(delta)
+
+    def projected_dp_epsilon(self, delta: float, extra_eps: Sequence[float] = None,
+                             rounds: int = 0) -> tuple[float, float]:
+        """(eps, alpha)-DP after the spent budget and ``rounds`` more rounds
+        of the per-round vector ``extra_eps``; ``rounds=0`` is the spent
+        budget itself."""
+        total = self._eps
+        if rounds:
+            total = total + rounds * np.asarray(extra_eps, dtype=np.float64)
+        return rdp_to_dp(total, self.alphas, delta)
+
+    def total_rdp(self) -> np.ndarray:
+        """A copy of the composed per-alpha RDP vector (the telemetry
+        emitter re-anchors to it after a restore)."""
+        return self._eps.copy()
+
+    def rounds_within_budget(self, budget_eps: float, delta: float,
+                             per_round_eps: Sequence[float]) -> float:
+        """The largest k such that k more rounds of ``per_round_eps`` keep
+        ``dp_epsilon(delta) <= budget_eps``: ``math.inf`` when the vector
+        is non-private at some feasible alpha, 0 when one round exceeds.
+        The composed eps is linear in k and the DP eps the min over
+        alphas, so k is the max over alphas of floor(room_a / v_a)."""
+        v = np.asarray(per_round_eps, dtype=np.float64)
+        best = 0
+        for a, spent, va in zip(self.alphas, self._eps, v):
+            if a <= 1.0:
+                continue
+            room = budget_eps - spent - math.log(1.0 / delta) / (a - 1.0)
+            if room < 0:
+                continue
+            if va <= 0:
+                return math.inf
+            # float jitter at the boundary (room / va == k - 1e-16)
+            best = max(best, int(math.floor(room / va + 1e-12)))
+        return best

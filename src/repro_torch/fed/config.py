@@ -30,13 +30,33 @@ class FedConfig:
     # "perround" (one eager round per call) or "shard" (eager rounds over
     # a process group, one cohort slice per rank): the same round
     engine: str = "scan"
+    local_lr: float = 0.1
     task: str = "emnist_cnn"
+    # the server optimizer at the decode-then-apply boundary
+    # (optim/optimizers.py): "sgd" (the paper's w - lr * g_hat), "momentum"
+    # or "adam"; server_opt_options are the factory's keyword options
+    # (e.g. {"beta": 0.9, "weight_decay": 1e-4}). Its state is carried by
+    # every engine and checkpointed with the parameters.
     server_opt: str = "sgd"
+    server_opt_options: Optional[dict] = None
+    # checkpoint/resume (fed/checkpointing.py): with ckpt_dir set, train()
+    # saves the parameters, the optimizer state, the round stream and the
+    # accountant's history every ckpt_every rounds (blocks are split to
+    # land on the multiples); a restored trainer continues bit for bit
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0
     subsampling: str = "fixed"
     dropout: float = 0.0
+    max_cohort: Optional[int] = None
+    # privacy budget: with budget_eps set, train() logs the (eps,
+    # budget_delta)-DP spent at every eval point and halts after the last
+    # round the budget affords
+    budget_eps: Optional[float] = None
+    budget_delta: float = 1e-5
     # False: encode the (clients, dim) batch, sum it, decode, apply.
     # True: clip -> encode -> sum as one fused kernel and, for grid
-    # mechanisms with plain SGD, decode -> apply as another. Both give
+    # mechanisms with plain SGD and no weight decay, decode -> apply as
+    # another. Both give
     # the same parameters bit for bit.
     fused_rounds: bool = False
     # None: pack the fused SecAgg sum into b-bit wire fields when the
@@ -62,9 +82,15 @@ class FedConfig:
     shard_packed: Optional[bool] = None
     # > 1: the reference's 2-D client x model mesh (not ported)
     model_shards: int = 1
+    # telemetry (telemetry/tracker.py): a tracker spec ("json:runs/a.json",
+    # "csv:runs/a.csv", a "+"-joined composite, a list of specs) or a
+    # Tracker; None is the noop tracker. The trainer's ``tracker=``
+    # argument wins over it.
+    track: Optional[object] = None
 
 
 STAGINGS = ("full", "stream")
+SUBSAMPLINGS = ("fixed", "poisson")
 
 
 def _not_ported(what: str, item: str):
@@ -78,6 +104,11 @@ def validate_config(cfg: FedConfig) -> None:
         raise ValueError(
             f"staging='stream' requires a streaming-capable engine such as "
             f"'shard'; {cfg.engine!r} does not support it")
+    if cfg.subsampling not in SUBSAMPLINGS:
+        raise ValueError(f"unknown subsampling {cfg.subsampling!r}; expected one of "
+                         f"{SUBSAMPLINGS}")
+    if not 0.0 <= cfg.dropout < 1.0:
+        raise ValueError(f"dropout must be in [0, 1), got {cfg.dropout}")
     if cfg.model_shards < 1:
         raise ValueError(f"model_shards must be >= 1, got {cfg.model_shards}")
     if cfg.model_shards > 1 and cfg.engine != "shard":
@@ -87,6 +118,12 @@ def validate_config(cfg: FedConfig) -> None:
     if cfg.model_shards > 1:
         raise _not_ported("model_shards > 1 (the 2-D client x model mesh, which needs "
                           "the lm task)", "queue A item 12")
+    if cfg.max_cohort is not None and cfg.subsampling != "poisson":
+        raise ValueError("max_cohort only applies to subsampling='poisson'")
+    if cfg.ckpt_every < 0:
+        raise ValueError(f"ckpt_every must be >= 0, got {cfg.ckpt_every}")
+    if cfg.ckpt_every and not cfg.ckpt_dir:
+        raise ValueError("ckpt_every requires ckpt_dir")
     if cfg.scan_block < 1:
         raise ValueError(f"scan_block must be >= 1, got {cfg.scan_block}")
     if not 1 <= cfg.clients_per_round <= cfg.num_clients:
@@ -99,6 +136,3 @@ def validate_config(cfg: FedConfig) -> None:
                           "queue A item 5")
     if cfg.local_steps != 1:
         raise _not_ported("local_steps > 1 (FedAvg-RQM)", "queue A item 5")
-    if cfg.server_opt != "sgd":
-        raise _not_ported(f"server_opt={cfg.server_opt!r} (momentum, adam)",
-                          "queue A item 8")

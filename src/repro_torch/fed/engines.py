@@ -18,6 +18,7 @@ parameters under any of them:
     Every round is accounted at the full cross-shard cohort. At one rank
     it equals ``scan`` bit for bit.
 
+Every engine carries the server optimizer's state beside the parameters.
 The reference's other engines are refused, naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -34,6 +35,7 @@ from repro_torch.core import wire
 from repro_torch.fed import cohort, rounds, staging
 from repro_torch.kernels import _build
 from repro_torch.launch.mesh import shard_group
+from repro_torch.optim.optimizers import clone_state, copy_state_
 
 _NOT_PORTED = {
     "host": "queue A item 5",
@@ -57,7 +59,8 @@ class PerRoundEngine:
     def _round(self, **step_args):
         """One round on the device; its SecAgg sum when collected."""
         tr = self.tr
-        tr.flat, z_sum = self.round_step(tr.flat, tr.client_data, tr.generator, **step_args)
+        tr.flat, tr.opt_state, z_sum = self.round_step(
+            tr.flat, tr.opt_state, tr.client_data, tr.generator, **step_args)
         return z_sum if tr.cfg.collect_sums else None
 
     def _finish(self, sums: list) -> None:
@@ -66,7 +69,7 @@ class PerRoundEngine:
         for z_sum in sums:
             if z_sum is not None:
                 tr.round_sums.append(z_sum.cpu().numpy())
-            tr.accountant.step(tr.per_round_eps)
+            tr._account(1)
 
     def advance(self, n_rounds: int) -> None:
         for _ in range(n_rounds):
@@ -79,13 +82,14 @@ class ScanEngine(PerRoundEngine):
     seed from ``tr.generator`` in perround's order (``cohort.draw_block``)
     and copies them to the device in one piece; round t then reads its
     ids and seed from row t, at a round index that lives on the device
-    and that each round advances. The parameters live in a static buffer:
-    the block copies ``tr.flat`` in when it starts and hands it back when
-    it ends. On CUDA the round is captured once as a CUDA graph and each
-    round is one replay (``RoundGraph``); on the CPU the same round runs
-    eagerly over the same buffers. Nothing returns to the host until the
-    block ends: then the collected sums, in one read, and the accountant's
-    steps."""
+    and that each round advances. The parameters and the optimizer's
+    state live in static buffers: the block copies ``tr.flat`` and
+    ``tr.opt_state`` in when it starts (a restore replaces them) and hands
+    copies back when it ends. On CUDA the round is captured once as a
+    CUDA graph and each round is one replay (``RoundGraph``); on the CPU
+    the same round runs eagerly over the same buffers. Nothing returns to
+    the host until the block ends: then the collected sums, in one read,
+    and the accountant's steps."""
 
     name = "scan"
     blocked = True
@@ -94,6 +98,7 @@ class ScanEngine(PerRoundEngine):
         super().__init__(trainer)
         self.draws = None  # (scan_block, slate + 1) int32: ids, then the seed's bits
         self.flat = None   # the static parameters
+        self.opt = None    # the static optimizer state
         self.t = None      # (1,) int64: the round index within the block
         self.sums = None   # (scan_block, dim): row t is round t's sum, if collected
         self.graph = None  # the captured round, on CUDA
@@ -113,8 +118,10 @@ class ScanEngine(PerRoundEngine):
             self.draws = torch.zeros((tr.cfg.scan_block, tr.slate + 1), dtype=torch.int32,
                                      device=tr.device)
             self.flat = torch.empty_like(tr.flat)
+            self.opt = clone_state(tr.opt_state)
             self.t = torch.zeros(1, dtype=torch.int64, device=tr.device)
         self.flat.copy_(tr.flat)
+        copy_state_(self.opt, tr.opt_state)
         self.t.zero_()
         if cuda and self.graph is None:
             # before the block's draws, so that a capture that fails leaves
@@ -128,30 +135,33 @@ class ScanEngine(PerRoundEngine):
                 self.graph.replay()
         else:
             for _ in range(length):
-                self.step(self.flat, self.t)
+                self.step(self.flat, self.opt, self.t)
         tr.flat = self.flat.clone()
+        tr.opt_state = clone_state(self.opt)
         # the block's one read of its sums
         self._finish(list(self.sums[:length].to("cpu", copy=True)) if self.sums is not None
                      else [None] * length)
 
-    def round_at(self, flat: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """Round ``t`` of the block on the parameters ``flat``, updated in
-        place (the same bits); returns the round's sum."""
+    def round_at(self, flat: torch.Tensor, opt, t: torch.Tensor) -> torch.Tensor:
+        """Round ``t`` of the block on the parameters ``flat`` and the
+        optimizer state ``opt``, both updated in place (the same bits);
+        returns the round's sum."""
         slate = self.tr.slate
         row = self.draws.index_select(0, t)[0]
-        new, z_sum = self.round_step(flat, self.tr.client_data, ids=row[:slate],
-                                     seed=row[slate:])
+        new, new_opt, z_sum = self.round_step(flat, opt, self.tr.client_data,
+                                              ids=row[:slate], seed=row[slate:])
         flat.copy_(new)
+        copy_state_(opt, new_opt)
         return z_sum
 
     def keep_sums_like(self, z_sum: torch.Tensor) -> None:
         if self.tr.cfg.collect_sums and self.sums is None:
             self.sums = z_sum.new_empty((self.tr.cfg.scan_block,) + tuple(z_sum.shape))
 
-    def step(self, flat: torch.Tensor, t: torch.Tensor) -> None:
+    def step(self, flat: torch.Tensor, opt, t: torch.Tensor) -> None:
         """Round ``t``, its sum kept in row ``t`` when collected; then the
         next round's index."""
-        z_sum = self.round_at(flat, t)
+        z_sum = self.round_at(flat, opt, t)
         self.keep_sums_like(z_sum)
         if self.sums is not None:
             self.sums.index_copy_(0, t, z_sum[None])
@@ -161,13 +171,14 @@ class ScanEngine(PerRoundEngine):
 class RoundGraph:
     """One round of the scan engine captured as a CUDA graph.
 
-    Warm-up rounds first run on a side stream, on a spare copy of the
-    parameters and a spare round index, so that cuBLAS and cuDNN set up
+    Warm-up rounds first run on a side stream, on spare copies of the
+    parameters and the optimizer state and a spare round index (so that
+    they advance no state of the run), so that cuBLAS and cuDNN set up
     their handles and workspaces and the kernels are built and loaded;
     they run before the first block's draws (on the draws buffer's zeros:
-    client 0, seed 0), leave the generator alone and count no launches. Then ``engine.step`` on the static buffers is captured:
-    every replay runs the round at the device's round index and advances
-    it. The kernels launched in the capture are recorded here and counted
+    client 0, seed 0), leave the generator alone and count no launches.
+    Then ``engine.step`` on the static buffers is captured: every replay
+    runs the round at the device's round index and advances it. The kernels launched in the capture are recorded here and counted
     once per replay. There is no eager fallback: an op that cannot be
     captured (one that synchronises or copies from the host) raises,
     naming the line that made it. The cyclic garbage collector is off
@@ -182,11 +193,12 @@ class RoundGraph:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side), _build.moved_to(collections.Counter()):
-            flat, t = engine.flat.clone(), torch.zeros_like(engine.t)
+            flat, opt = engine.flat.clone(), clone_state(engine.opt)
+            t = torch.zeros_like(engine.t)
             for _ in range(self.WARMUP_ROUNDS):
-                engine.keep_sums_like(engine.round_at(flat, t))
+                engine.keep_sums_like(engine.round_at(flat, opt, t))
         torch.cuda.current_stream(device).wait_stream(side)
-        del flat, t
+        del flat, opt, t
         self.launches: collections.Counter = collections.Counter()
         self.graph = torch.cuda.CUDAGraph()
         capture = torch.cuda.Stream(device)
@@ -197,7 +209,7 @@ class RoundGraph:
             # ending the capture raises
             with (_build.moved_to(self.launches), torch.cuda.stream(capture),
                   torch.cuda.graph(self.graph, stream=capture)):
-                engine.step(engine.flat, engine.t)
+                engine.step(engine.flat, engine.opt, engine.t)
         except RuntimeError as err:
             raise RuntimeError(f"the scan engine's round cannot be captured as a CUDA "
                                f"graph: {_first_failure(err)}") from err
@@ -255,9 +267,10 @@ class ShardEngine(PerRoundEngine):
         while done < n_rounds:
             length = min(cfg.scan_block, n_rounds - done)
             if cfg.staging == "stream":
-                data, nbytes = staging.stage_stream_block(
-                    tr.task, cfg, tr.slate, tr.generator, length, self.rank,
-                    self.shards, tr.device)
+                with tr.timings.scope("stage"):
+                    data, nbytes = staging.stage_stream_block(
+                        tr.task, cfg, tr.slate, tr.generator, length, self.rank,
+                        self.shards, tr.device)
                 tr.staged_bytes_last_block = nbytes
                 tr.staged_bytes_total += nbytes
                 sums = [self._round(batch={k: v[t] for k, v in data.items()})

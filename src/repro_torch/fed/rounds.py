@@ -9,10 +9,13 @@ through the server optimizer. ``FedConfig.fused_rounds`` picks how:
     the mechanism's ``decode_sum`` and the optimizer's update;
   * fused: one clip -> encode -> cohort-sum kernel (its output packed
     into b-bit wire words when the sum bound fits) and, for grid
-    mechanisms under plain SGD, one fused (unpack ->) decode -> SGD
-    kernel; other mechanisms decode and apply as above.
+    mechanisms under plain SGD with no weight decay, one fused (unpack ->)
+    decode -> SGD kernel; other mechanisms and optimizers decode and apply
+    as above.
 
-Both give the same parameters bit for bit. The shard engine's step
+Both give the same parameters bit for bit. Every step carries the
+server optimizer's state beside the parameters: ``(flat, opt_state)`` in
+and out, as the reference's carry. The shard engine's step
 (``make_shard_round_step``) runs the same round with one cohort slice
 per rank and sums the slices' levels over a process group.
 """
@@ -37,9 +40,16 @@ def index_batch(data: dict, ids: torch.Tensor) -> dict:
 
 def use_fused_apply(mech, cfg) -> bool:
     """True when the fused decode -> SGD apply replaces decode_sum ->
-    optimizer bit-identically: fused rounds, plain SGD, affine grid."""
-    return (cfg.fused_rounds and cfg.server_opt == "sgd"
+    optimizer bit-identically: fused rounds, plain SGD with no weight
+    decay (the kernel has no decay term), affine grid."""
+    wd = (cfg.server_opt_options or {}).get("weight_decay", 0.0)
+    return (cfg.fused_rounds and cfg.server_opt == "sgd" and not wd
             and isinstance(getattr(mech, "params", None), GridGeometry))
+
+
+def server_optimizer(cfg):
+    """``cfg.server_opt`` built with ``cfg.server_opt_options``."""
+    return make_optimizer(cfg.server_opt, **(cfg.server_opt_options or {}))
 
 
 def hot_path_pack_bits(mech, cfg, slate: int) -> int | None:
@@ -52,7 +62,8 @@ def hot_path_pack_bits(mech, cfg, slate: int) -> int | None:
         if cfg.wire_packed:
             raise ValueError(
                 "wire_packed=True requires the fused hot path it packs: "
-                "fused_rounds=True, server_opt='sgd' and a grid mechanism")
+                "fused_rounds=True, server_opt='sgd' with no weight_decay "
+                "and a grid mechanism")
         return None
     bound = mech.sum_bound(slate)
     if cfg.wire_packed:
@@ -78,55 +89,54 @@ def make_client_grad(mech, unravel, task):
 
 
 def make_server_apply(opt, cfg):
-    """The decode-then-apply boundary: ``apply(flat, g_hat) -> new_flat``
-    through the server optimizer. Only stateless SGD is ported
-    (``validate_config`` refuses momentum and adam), so no optimizer
-    state is carried between rounds."""
+    """The decode-then-apply boundary: ``apply(flat, opt_state, g_hat) ->
+    (new_flat, new_state)`` through the server optimizer."""
     lr = cfg.lr
 
-    def apply(flat: torch.Tensor, g_hat: torch.Tensor) -> torch.Tensor:
-        new, _ = opt.update(g_hat, opt.init(flat), flat, lr)
-        return new
+    def apply(flat: torch.Tensor, opt_state, g_hat: torch.Tensor):
+        return opt.update(g_hat, opt_state, flat, lr)
 
     return apply
 
 
 def make_decode_apply(mech, cfg, slate: int, opt=None):
     """The server side of a round after its SecAgg sum: ``finish(flat,
-    z_sum) -> (new_flat, z_sum)``. Decodes at the cohort size and applies
-    through the server optimizer, or through the fused (unpack ->) decode
-    -> SGD kernel on the fused rounds that have it. The ``z_sum`` returned
-    is dense when ``cfg.collect_sums`` (unpacked if it travelled packed),
+    opt_state, z_sum) -> (new_flat, new_state, z_sum)``. Decodes at the
+    cohort size and applies through the server optimizer, or through the
+    fused (unpack ->) decode -> SGD kernel on the fused rounds that have
+    it (stateless: the state passes through). The ``z_sum`` returned is
+    dense when ``cfg.collect_sums`` (unpacked if it travelled packed),
     else the round's wire form."""
-    apply = make_server_apply(opt or make_optimizer(cfg.server_opt), cfg)
+    apply = make_server_apply(opt or server_optimizer(cfg), cfg)
     fused_apply = use_fused_apply(mech, cfg)
     pack_bits = hot_path_pack_bits(mech, cfg, slate)
     n = cfg.clients_per_round
 
-    def finish(flat, z_sum):
+    def finish(flat, opt_state, z_sum):
         if not fused_apply:
-            return apply(flat, mech.decode_sum(z_sum, n)), z_sum
+            return *apply(flat, opt_state, mech.decode_sum(z_sum, n)), z_sum
         if pack_bits is None:
-            return decode_apply_sum(flat, z_sum, mech.params, n, cfg.lr), z_sum
+            return decode_apply_sum(flat, z_sum, mech.params, n, cfg.lr), opt_state, z_sum
         new = unpack_decode_apply(flat, z_sum, mech.params, n, cfg.lr, pack_bits=pack_bits)
         if cfg.collect_sums:
             z_sum = unpack_flat(z_sum, pack_bits, flat.numel())
-        return new, z_sum
+        return new, opt_state, z_sum
 
     return finish
 
 
 def make_round_step(mech, cfg, slate: int, client_grads, opt=None):
-    """``round_step(flat, data, generator, *, ids=None, seed=None)`` ->
-    ``(new_flat, z_sum)``. ``generator`` draws the cohort ids and then the
-    uint32 kernel seed; tests may inject either (the reference's cohort
+    """``round_step(flat, opt_state, data, generator, *, ids=None,
+    seed=None)`` -> ``(new_flat, new_state, z_sum)``. ``generator`` draws
+    the cohort ids and then the uint32 kernel seed; tests may inject
+    either (the reference's cohort
     and ``key_to_seed`` of its encode key). ``z_sum`` as
     ``make_decode_apply`` returns it. ``opt`` defaults to
     ``cfg.server_opt``'s."""
     finish = make_decode_apply(mech, cfg, slate, opt)
     pack_bits = hot_path_pack_bits(mech, cfg, slate)
 
-    def round_step(flat, data, generator=None, *, ids=None, seed=None):
+    def round_step(flat, opt_state, data, generator=None, *, ids=None, seed=None):
         if ids is None:
             ids = cohort.sample_slate(cfg, slate, generator)
         if seed is None:
@@ -138,7 +148,7 @@ def make_round_step(mech, cfg, slate: int, client_grads, opt=None):
         else:
             z = mech.quantize_batch(grads, seed)
             z_sum = z.sum(0, dtype=z.dtype)  # the SecAgg sum
-        return finish(flat, z_sum)
+        return finish(flat, opt_state, z_sum)
 
     return round_step
 
@@ -146,8 +156,8 @@ def make_round_step(mech, cfg, slate: int, client_grads, opt=None):
 def make_shard_round_step(mech, cfg, slate: int, shards: int, rank: int, group,
                           client_grads, opt=None):
     """The shard engine's round step on rank ``rank`` of ``shards``:
-    ``round_step(flat, data, generator, *, ids=None, seed=None,
-    batch=None) -> (new_flat, z_sum)``.
+    ``round_step(flat, opt_state, data, generator, *, ids=None, seed=None,
+    batch=None) -> (new_flat, new_state, z_sum)``.
 
     Every rank draws the same cohort and seed from its copy of the
     replicated generator, takes its slice ``[rank n_per, (rank+1)
@@ -167,7 +177,8 @@ def make_shard_round_step(mech, cfg, slate: int, shards: int, rank: int, group,
     n_per = slate // shards
     row_offset = rank * n_per
 
-    def round_step(flat, data, generator=None, *, ids=None, seed=None, batch=None):
+    def round_step(flat, opt_state, data, generator=None, *, ids=None, seed=None,
+                   batch=None):
         if ids is None:
             ids = cohort.sample_slate(cfg, slate, generator)
         if seed is None:
@@ -189,6 +200,6 @@ def make_shard_round_step(mech, cfg, slate: int, shards: int, rank: int, group,
             dist.all_reduce(z_sum, op=dist.ReduceOp.SUM, group=group)
         else:
             z_sum = secagg.secure_sum_bounded(z_part, group, bound, packed=packed)
-        return finish(flat, z_sum)
+        return finish(flat, opt_state, z_sum)
 
     return round_step

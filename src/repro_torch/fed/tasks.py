@@ -32,6 +32,12 @@ class EmnistCnnTask:
         self.eval_images = torch.from_numpy(ev_im).to(self.device)
         self.eval_labels = torch.from_numpy(ev_lb).to(self.device)
 
+    name = "emnist_cnn"
+
+    def spec(self) -> str:
+        """Canonical spec string (the task takes no options)."""
+        return self.name
+
     def init_params(self, generator: torch.Generator) -> dict:
         return cnn.cnn_init(generator, device=self.device)
 

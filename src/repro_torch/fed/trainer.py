@@ -1,22 +1,30 @@
 """FedTrainer (counterpart of ``repro/fed/trainer.py``): owns the mechanism,
 config, the population staged on the device, the flat parameters, the
-cohort/seed generator and the Renyi accountant; the engine runs rounds.
+server optimizer's state, the cohort/seed generator and the Renyi
+accountant; the engine runs rounds. Around them, the engine-independent
+services: accounting at the cohort size, telemetry (a tracker fed at the
+decode-apply boundary), the privacy-budget halt, periodic evaluation,
+and checkpoint/resume (parameters, optimizer state, the round stream and
+the accountant's history restore to a bit-identical continuation on
+every engine).
 """
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.convert import ravel
+from repro_torch.core import wire
 from repro_torch.core.mechanisms import make_mechanism
 from repro_torch.core.renyi import RenyiAccountant
-from repro_torch.fed import rounds, staging
+from repro_torch.fed import checkpointing, rounds, staging
 from repro_torch.fed.config import FedConfig, validate_config
 from repro_torch.fed.engines import get_engine
 from repro_torch.fed.tasks import make_task
-from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.telemetry import RoundEmitter, Timings, make_tracker
 
 
 def resolve_device(device) -> torch.device:
@@ -30,13 +38,17 @@ def resolve_device(device) -> torch.device:
 
 
 class FedTrainer:
-    def __init__(self, mech, fed_cfg: FedConfig, device="cuda"):
+    def __init__(self, mech, fed_cfg: FedConfig, device="cuda", tracker=None):
         self.device = resolve_device(device)
         validate_config(fed_cfg)
         engine_cls = get_engine(fed_cfg.engine)
         self.mech = make_mechanism(mech)
         self.cfg = fed_cfg
         self.slate = fed_cfg.clients_per_round
+        # telemetry: the tracker argument wins over cfg.track; the emitter
+        # is built once the engine exists (the shard engine's wire width)
+        self.tracker = make_tracker(tracker if tracker is not None else fed_cfg.track)
+        self.timings = Timings()
         self.task = make_task(fed_cfg.task, fed_cfg, self.device)
         self.flat, self.unravel = ravel(
             self.task.init_params(torch.Generator().manual_seed(fed_cfg.seed)))
@@ -48,22 +60,141 @@ class FedTrainer:
             self.mech.per_round_epsilon(fed_cfg.clients_per_round, a)
             for a in fed_cfg.accountant_alphas
         ])
-        self.server_opt = make_optimizer(fed_cfg.server_opt)
+        self.server_opt = rounds.server_optimizer(fed_cfg)
+        self.opt_state = self.server_opt.init(self.flat)
         self.pack_bits = rounds.hot_path_pack_bits(self.mech, fed_cfg, self.slate)
         self.round_sums: list = []
+        # the cohort size of each accounted round, and per-round tracker
+        # extras (indexed like the accountant's history)
+        self.realized_n: list = []
+        self.round_extras: list = []
+        self._last_ckpt: Optional[int] = None
         self.shards = 1  # the shard engine sets its rank count
         self.staged_bytes_total = 0
         self.staged_bytes_last_block = 0
         self.client_data = None  # streamed staging stages each block's cohorts
         if fed_cfg.staging != "stream":
-            self.client_data, self.staged_bytes_total = staging.stage_full(
-                self.task, fed_cfg, self.device)
+            with self.timings.scope("stage"):
+                self.client_data, self.staged_bytes_total = staging.stage_full(
+                    self.task, fed_cfg, self.device)
         self.client_grads = rounds.make_client_grad(self.mech, self.unravel, self.task)
         self.engine = engine_cls(self)
+        self._emitter = RoundEmitter(
+            self.tracker, engine=fed_cfg.engine, mechanism=self.mech,
+            alphas=fed_cfg.accountant_alphas, delta=fed_cfg.budget_delta,
+            budget_eps=fed_cfg.budget_eps, dim=self.flat.numel(),
+            pack_bits=self._wire_pack_bits())
+        self.tracker.run_started(self._run_meta())
 
+    # -- telemetry ------------------------------------------------------------
+    def _wire_pack_bits(self) -> Optional[int]:
+        """The run's wire width for the round records' wire_bits and
+        pack_width: the fused hot path's b-bit codec when it engages, else
+        the shard engine's packed cross-rank sum, else None (dense)."""
+        cfg = self.cfg
+        bits = self.pack_bits
+        if bits is None and cfg.engine == "shard" and cfg.shard_packed is not False:
+            bound = self.mech.sum_bound(self.slate)
+            if wire.packable(bound):
+                bits = wire.sum_bits(bound)
+        return bits
+
+    def _run_meta(self) -> dict:
+        """Run-level tracker metadata, with the reference's keys: the
+        trajectory fingerprint the checkpoints carry, the mechanism, engine
+        and task, and the process group's geometry."""
+        cfg = self.cfg
+        mesh = None
+        if cfg.engine == "shard":
+            mesh = {"axes": {"shard": self.shards}, "devices": self.shards}
+        return {
+            "kind": "fed_train",
+            "fingerprint": bytes(checkpointing.fingerprint(self)).hex(),
+            "engine": cfg.engine,
+            "task": self.task.spec(),
+            "mechanism": self.mech.describe(),
+            "mechanism_spec": self.mech.spec(),
+            "num_clients": cfg.num_clients,
+            "clients_per_round": cfg.clients_per_round,
+            "subsampling": cfg.subsampling,
+            "dropout": cfg.dropout,
+            "server_opt": cfg.server_opt,
+            "budget_eps": cfg.budget_eps,
+            "budget_delta": cfg.budget_delta,
+            "accountant_alphas": list(cfg.accountant_alphas),
+            "dim": self.flat.numel(),
+            "shards": self.shards,
+            "mesh": mesh,
+            "backend": self.device.type,
+        }
+
+    def _advance_tracked(self, n_rounds: int) -> None:
+        """Every round of every engine goes through here: one timed scope
+        an advance and, when a tracker records, one record a round whose
+        eps/realized_n equal the accountant's. Only then does the host
+        wait for the device, so that rounds_per_sec times the rounds and
+        not their launch; an untracked run never synchronises."""
+        t0 = time.perf_counter()
+        with self.timings.scope("round_block"):
+            self.engine.advance(n_rounds)
+        if self._emitter.enabled:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._emitter.emit(self.accountant.history, self.realized_n,
+                               time.perf_counter() - t0, extras=self.round_extras)
+        else:
+            self._emitter.emitted = self.accountant.rounds
+
+    # -- privacy accounting -----------------------------------------------------
+    def _account(self, n_rounds: int) -> None:
+        """Fixed-cohort composition: every round at clients_per_round."""
+        for _ in range(n_rounds):
+            self.realized_n.append(self.cfg.clients_per_round)
+            self.accountant.step(self.per_round_eps)
+
+    def budget_spent(self) -> tuple:
+        """(eps spent at cfg.budget_delta, eps remaining); needs
+        cfg.budget_eps."""
+        cfg = self.cfg
+        if cfg.budget_eps is None:
+            raise ValueError("no privacy budget configured (cfg.budget_eps)")
+        spent, _ = self.accountant.dp_epsilon(cfg.budget_delta)
+        return spent, max(0.0, cfg.budget_eps - spent)
+
+    # -- checkpoint / resume ----------------------------------------------------
+    def save_checkpoint(self) -> str:
+        """Checkpoint the resumable state at the current round count."""
+        path = checkpointing.save_checkpoint(self)
+        self._last_ckpt = self.accountant.rounds
+        return path
+
+    def restore_checkpoint(self, step: Optional[int] = None) -> int:
+        """Restore from cfg.ckpt_dir (the latest step by default); returns
+        the restored round count. The continuation is bit-identical to the
+        uninterrupted run."""
+        step = checkpointing.restore_checkpoint(self, step)
+        self._last_ckpt = step
+        return step
+
+    def _maybe_checkpoint(self) -> None:
+        cfg = self.cfg
+        if not cfg.ckpt_dir or not cfg.ckpt_every:
+            return
+        done = self.accountant.rounds
+        if done and done % cfg.ckpt_every == 0 and done != self._last_ckpt:
+            self.save_checkpoint()
+
+    def _cap_to_ckpt(self, want: int) -> int:
+        """Split blocks so that their ends land on ckpt_every multiples
+        (blocking never changes the parameters)."""
+        if not self.cfg.ckpt_dir or not self.cfg.ckpt_every:
+            return want
+        return min(want, self.cfg.ckpt_every - self.accountant.rounds % self.cfg.ckpt_every)
+
+    # -- the loop ---------------------------------------------------------------
     def round(self) -> None:
         """Advance one round (a 1-round block on the scan engine)."""
-        self.engine.advance(1)
+        self._advance_tracked(1)
 
     def run_block(self, n_rounds: int) -> None:
         """Advance ``n_rounds`` rounds on a blocked engine, in blocks of at
@@ -71,24 +202,82 @@ class FedTrainer:
         if not self.engine.blocked:
             raise ValueError(f"run_block requires a blocked engine ('scan', 'shard'), "
                              f"got {self.cfg.engine!r}")
-        self.engine.advance(n_rounds)
+        self._advance_tracked(n_rounds)
 
     def evaluate(self) -> dict:
         """Held-out accuracy and loss of the current parameters."""
         return self.task.evaluate(self.flat, self.unravel)
 
     def train(self, rounds: int | None = None, eval_every: int = 25, log=print) -> list:
-        """Run ``rounds`` more rounds, evaluating every ``eval_every``
-        rounds and after the last; returns the eval records."""
+        """Run up to ``rounds`` more rounds, evaluating every
+        ``eval_every`` rounds and after the last; returns the eval records.
+        With cfg.budget_eps set, each record carries the (eps,
+        budget_delta)-DP spent and remaining, and the run halts after the
+        last round the budget affords. With cfg.ckpt_dir and ckpt_every
+        set, checkpoints land on ckpt_every multiples (blocked engines
+        split blocks there, with an eval point at each split); after
+        restore_checkpoint(), round numbers continue from the restored
+        count."""
         rounds = self.cfg.rounds if rounds is None else rounds
-        history, t0, done = [], time.time(), 0
-        while done < rounds:
-            block = min(eval_every, rounds - done)
-            self.engine.advance(block)
-            done += block
+        cfg = self.cfg
+        budget = cfg.budget_eps
+        history = []
+        t0 = time.time()
+        done0 = self.accountant.rounds  # nonzero after a resume
+
+        def record(done):
             m = self.evaluate()
-            m.update(round=self.accountant.rounds, seconds=time.time() - t0)
+            m.update(round=done, seconds=round(time.time() - t0, 1))
+            msg = f"[{self.mech.name}] round {done:4d} loss={m['loss']:.4f}"
+            if "accuracy" in m:
+                msg += f" acc={m['accuracy']:.4f}"
+            if budget is not None:
+                spent, remaining = self.budget_spent()
+                m.update(eps_spent=spent, eps_remaining=remaining)
+                msg += f" eps_spent={spent:.3f}/{budget:g} (delta={cfg.budget_delta:g})"
             history.append(m)
-            log(f"[{self.mech.name}] round {m['round']:4d} loss={m['loss']:.4f} "
-                f"acc={m['accuracy']:.4f}")
+            self.tracker.log_eval(dict(m))
+            log(msg)
+
+        def affordable(want: int) -> int:
+            """How many of the next ``want`` rounds the budget still buys:
+            an exact projection with the constant per-round vector."""
+            if budget is None:
+                return want
+            if self.budget_spent()[1] <= 0:
+                return 0
+            k = self.accountant.rounds_within_budget(budget, cfg.budget_delta,
+                                                     self.per_round_eps)
+            return want if k > want else int(k)
+
+        halted = False
+        if self.engine.blocked:
+            done = 0
+            while done < rounds:
+                block = affordable(self._cap_to_ckpt(min(eval_every, rounds - done)))
+                if block == 0:
+                    halted = True
+                    break
+                self.run_block(block)
+                done += block
+                self._maybe_checkpoint()
+                record(done0 + done)
+        else:
+            for t in range(rounds):
+                if affordable(1) == 0:
+                    halted = True
+                    break
+                self.round()
+                self._maybe_checkpoint()
+                if (t + 1) % eval_every == 0 or t == rounds - 1:
+                    record(done0 + t + 1)
+        if halted:
+            spent, _ = self.budget_spent()
+            log(f"[{self.mech.name}] privacy budget exhausted after "
+                f"{self.accountant.rounds} rounds: eps_spent={spent:.4f} of "
+                f"{budget:g} at delta={cfg.budget_delta:g}; halting")
+            if not history or history[-1]["round"] != self.accountant.rounds:
+                record(self.accountant.rounds)
+        self.tracker.log_timings(self.timings.summary())
+        self.tracker.flush()
         return history

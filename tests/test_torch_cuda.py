@@ -120,7 +120,7 @@ def test_trainer_rounds_on_the_card(cuda):
     for packed in (None, False):
         cfg = FedConfig(wire_packed=packed, **fused, **small)
         step = rounds.make_round_step(tr.mech, cfg, tr.slate, lambda flat, batch: grads)
-        new[packed], _ = step(tr.flat, tr.client_data, ids=ids, seed=SEED)
+        new[packed], _, _ = step(tr.flat, (), tr.client_data, ids=ids, seed=SEED)
     assert torch.equal(new[None], new[False])
 
 
@@ -332,7 +332,7 @@ def test_default_round_on_the_card(cuda, name):
     for fused in (False, True):
         cfg = FedConfig(fused_rounds=fused, **small)
         step = rounds.make_round_step(tr.mech, cfg, tr.slate, lambda flat, batch: grads)
-        new[fused], _ = step(tr.flat, tr.client_data, ids=ids, seed=SEED)
+        new[fused], _, _ = step(tr.flat, (), tr.client_data, ids=ids, seed=SEED)
     assert torch.equal(new[False], new[True])
 
 
@@ -526,8 +526,8 @@ def test_shard_trainer_on_one_nccl_rank(cuda, name):
     scan = rounds.make_round_step(tr.mech, cfg, 6, lambda flat, batch: grads)
     shard = rounds.make_shard_round_step(tr.mech, dataclasses.replace(cfg, engine="shard"), 6,
                                          1, 0, tr.engine.group, lambda flat, batch: grads)
-    (a, sa), (b, sb) = (step(tr.flat, tr.client_data, ids=ids, seed=SEED)
-                        for step in (scan, shard))
+    (a, _, sa), (b, _, sb) = (step(tr.flat, (), tr.client_data, ids=ids, seed=SEED)
+                              for step in (scan, shard))
     assert torch.equal(sa, sb) and torch.equal(a, b)
 
 
@@ -711,3 +711,86 @@ def test_capture_keeps_the_garbage_collector_off(deterministic, monkeypatch):
     assert gc.isenabled()
     tr.run_block(1)
     assert seen == [True, True, False] and gc.isenabled()
+
+
+# ---------------------------------------------------------------------------
+# the trainer's services: stateful optimizers, resume and tracking under
+# the captured round
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt,fused", [("momentum", False), ("adam", False),
+                                       ("momentum", True), ("adam", True)], ids=str)
+def test_graphed_scan_equals_perround_with_stateful_optimizers(deterministic, opt, fused):
+    """The optimizer's state rides the captured round in static buffers:
+    5 graphed rounds in blocks of 2 equal 5 eager perround rounds in
+    parameters and state, bit for bit, so the warm-up rounds advanced no
+    state. A stateful optimizer never takes the fused decode-apply: the
+    fused round launches the dense sum alone."""
+    cfg = FedConfig(server_opt=opt, fused_rounds=fused, scan_block=2, **SMALL)
+    entry = "rqm_round_sum_dense" if fused else "rqm_quantize"
+    scan = FedTrainer(SPECS["rqm"], cfg, device=deterministic)
+    ops.reset_launches()
+    scan.run_block(5)
+    assert dict(ops.launches) == {f"{entry}_dev": 5}
+    per = FedTrainer(SPECS["rqm"], dataclasses.replace(cfg, engine="perround"),
+                     device=deterministic)
+    ops.reset_launches()
+    for _ in range(5):
+        per.round()
+    assert dict(ops.launches) == {entry: 5}
+    assert torch.equal(scan.flat, per.flat)
+    assert sorted(scan.opt_state) == sorted(per.opt_state)
+    for k, v in scan.opt_state.items():
+        assert v.device.type == "cuda" and torch.equal(v, per.opt_state[k]), k
+    if opt == "adam":
+        assert int(scan.opt_state["t"]) == 5 and scan.opt_state["t"].dtype == torch.int32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_graphed_resume_equals_uninterrupted(deterministic, tmp_path, opt):
+    """A graphed run restored at round 2 equals the uninterrupted 5 rounds;
+    so does a restore into a trainer whose round is already captured (the
+    block copies the restored state into the graph's buffers)."""
+    cfg = FedConfig(server_opt=opt, ckpt_dir=str(tmp_path), ckpt_every=2, **SMALL)
+    quiet = dict(eval_every=5, log=lambda msg: None)
+    full = FedTrainer(SPECS["rqm"], cfg, device=deterministic)
+    full.train(5, **quiet)
+    res = FedTrainer(SPECS["rqm"], cfg, device=deterministic)
+    for _ in range(2):
+        assert res.restore_checkpoint(2) == 2
+        res.train(3, **quiet)
+        assert res.engine.graph is not None
+        assert torch.equal(res.flat, full.flat)
+        for k, v in (res.opt_state.items() if opt != "sgd" else ()):
+            assert torch.equal(v, full.opt_state[k]), k
+        assert res.accountant.rdp_epsilon(8.0) == full.accountant.rdp_epsilon(8.0)
+        assert torch.equal(res.generator.get_state(), full.generator.get_state())
+
+
+@pytest.mark.cuda
+def test_noop_tracker_makes_no_sync_in_a_graphed_block(deterministic, tmp_path):
+    """Untracked, a graphed block (adam's state included) synchronises
+    nowhere; the json tracker's one synchronisation an advance comes after
+    the block, and its run is the same run."""
+    cfg = FedConfig(server_opt="adam", **SMALL)
+    tr = FedTrainer(SPECS["rqm"], cfg, device=deterministic)
+    tr.run_block(1)  # the capture
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.run_block(4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    path = tmp_path / "run.json"
+    tracked = FedTrainer(SPECS["rqm"], cfg, device=deterministic, tracker=f"json:{path}")
+    tracked.run_block(1)
+    tracked.run_block(4)
+    tracked.tracker.flush()
+    assert torch.equal(tracked.flat, tr.flat)
+    import json
+
+    doc = json.loads(path.read_text())
+    assert [r["round"] for r in doc["rounds"]] == [1, 2, 3, 4, 5]
+    assert doc["meta"]["backend"] == "cuda"

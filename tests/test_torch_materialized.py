@@ -194,7 +194,8 @@ def test_reference_round_replayed(reference_round, record_property):
     handed = torch.from_numpy(ref["grads"])
     step = rounds.make_round_step(mech, cfg, 6, lambda flat, batch: handed)
     data = {"ids": torch.arange(SMALL["num_clients"])}
-    new, z_sum = step(torch.from_numpy(ref["flat0"]), data, ids=ref["ids"], seed=ref["seed"])
+    new, _, z_sum = step(torch.from_numpy(ref["flat0"]), (), data, ids=ref["ids"],
+                         seed=ref["seed"])
     got = new.numpy()
     if name == "none":
         np.testing.assert_allclose(z_sum.numpy(), ref["sum"], rtol=NONE_RTOL, atol=NONE_ATOL)

@@ -173,8 +173,8 @@ def test_round_with_reference_grads_is_exact(reference_round, port_trainer, reco
     assert tr.pack_bits == ref["pack_bits"] == 7
     handed = torch.from_numpy(ref["grads"])
     step = rounds.make_round_step(tr.mech, tr.cfg, tr.slate, lambda flat, batch: handed)
-    new, z_sum = step(torch.from_numpy(ref["flat0"]), tr.client_data,
-                      ids=ref["ids"], seed=ref["seed"])
+    new, _, z_sum = step(torch.from_numpy(ref["flat0"]), (), tr.client_data,
+                         ids=ref["ids"], seed=ref["seed"])
     np.testing.assert_array_equal(z_sum.numpy(), ref["sum"])
     # XLA:CPU contracts the jitted round's decode+apply into FMAs; the
     # port rounds every operation, as the literal jnp expression does. So
@@ -203,8 +203,8 @@ def test_round_end_to_end_close_to_reference(reference_round, port_trainer, reco
     ref = reference_round
     tr = port_trainer
     step = rounds.make_round_step(tr.mech, tr.cfg, tr.slate, tr.client_grads)
-    new, z_sum = step(torch.from_numpy(ref["flat0"]), tr.client_data,
-                      ids=ref["ids"], seed=ref["seed"])
+    new, _, z_sum = step(torch.from_numpy(ref["flat0"]), (), tr.client_data,
+                         ids=ref["ids"], seed=ref["seed"])
     diff = np.abs(z_sum.numpy().astype(np.int64) - ref["sum"])
     grads = tr.client_grads(torch.from_numpy(ref["flat0"]),
                             rounds.index_batch(tr.client_data, torch.as_tensor(ref["ids"])))
@@ -265,9 +265,9 @@ def test_wire_width_selection():
     dict(engine="host"),
     # the shard engine is ported; its 2-D client x model mesh is not
     pytest.param(dict(engine="shard", model_shards=2), id="engine=shard"),
-    dict(engine="async"), dict(server_opt="momentum"),
+    dict(engine="async"),
     dict(subsampling="poisson"), dict(dropout=0.2), dict(local_steps=2),
-    dict(server_opt="adam"), dict(task="lm"),
+    dict(task="lm"),
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

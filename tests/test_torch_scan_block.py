@@ -283,8 +283,8 @@ def test_reference_round_replayed_through_a_block(monkeypatch, reference_round):
     np.testing.assert_array_equal(tr.round_sums[-1], ref["sum"])
     step = rounds.make_round_step(tr.mech, dataclasses.replace(cfg, engine="perround"), 6,
                                   lambda flat, batch: handed)
-    want, _ = step(torch.from_numpy(ref["flat0"]), tr.client_data, ids=ref["ids"],
-                   seed=ref["seed"])
+    want, _, _ = step(torch.from_numpy(ref["flat0"]), (), tr.client_data, ids=ref["ids"],
+                      seed=ref["seed"])
     assert torch.equal(tr.flat, want)
 
 

@@ -257,7 +257,8 @@ def test_reference_shard_round_replayed(reference_shard_round, record_property):
     step = rounds.make_shard_round_step(mech, cfg, 6, 1, 0, _group(),
                                         lambda flat, batch: handed)
     data = {"ids": torch.arange(SMALL["num_clients"])}
-    new, z_sum = step(torch.from_numpy(ref["flat0"]), data, ids=ref["ids"], seed=ref["seed"])
+    new, _, z_sum = step(torch.from_numpy(ref["flat0"]), (), data, ids=ref["ids"],
+                         seed=ref["seed"])
     got = new.numpy()
     if name == "none":
         # held to the stack it was handed: the reference's jitted scan and

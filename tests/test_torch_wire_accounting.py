@@ -22,6 +22,7 @@ from repro.core import wire as jwire
 from repro_torch.core import distribution, grid, renyi, wire
 from repro_torch.core.mechanisms import RQMMechanism, make_mechanism, parse_mechanism_spec
 from repro_torch.kernels import decode_apply_kernel
+from repro_torch.fed import rounds
 from repro_torch.fed.config import FedConfig, validate_config
 from repro_torch.optim.optimizers import sgd
 
@@ -126,9 +127,10 @@ def test_sgd_after_decode_is_the_fused_decode_apply():
     new, state = sgd().update(grid.decode_sum(z, 40, p), (), w, 0.5)
     assert state == ()
     assert torch.equal(new, decode_apply_kernel.decode_apply_sum(w, z, p, 40, 0.5))
-    for name in ("momentum", "adam"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 8"):
-            validate_config(FedConfig(server_opt=name))
+    for name in ("momentum", "adam"):  # ported: they take the decode + optimizer path
+        validate_config(FedConfig(server_opt=name))
+        assert not rounds.use_fused_apply(make_mechanism("rqm", c=0.02),
+                                          FedConfig(server_opt=name, fused_rounds=True))
 
 
 def test_mechanism_spec():
