@@ -28,7 +28,12 @@ which raises and exits non-zero:
      entry's, which must equal ``codec_walk``'s) recorded; the folded
      decode_apply in float32 and bfloat16 on views 0 to 3 elements off at
      n even, odd and 1, each launch's walk (the C entry's, which must
-     equal ``decode_apply_kernel.folded_walk``'s) recorded); each
+     equal ``decode_apply_kernel.folded_walk``'s) recorded); the two
+     decode entries' _dev twins (decode_apply_sum_dev, unpack_decode_apply_dev),
+     which read a realized cohort size from device memory, dense and packed
+     at 10 and 11 bits, at counts 0, 1, 29, 40 and 82, against their plain
+     versions and, where the traced and the fixed-cohort scales agree,
+     their by-value entries (and differing from them where not); each
      quantize and round-sum entry's _dev
      twin, which reads the seed from device memory, with the seed as a
      device tensor, against its plain version and its by-value entry:
@@ -81,9 +86,25 @@ which raises and exits non-zero:
      gated: graphed rounds/s with the json tracker (one synchronisation
      an advance) against the noop one, 5 advances of 20 rounds back to
      back a rep, 5 reps each in turns, median and range;
+  5e. heterogeneous cohorts at the paper's widths, rqm, collect_sums: (a)
+     Poisson subsampling (a slate of 82, 11-bit wire), dropout 0.1, and
+     both, each materialized, fused packed and fused dense, 5 rounds on
+     graphed scan, eager perround and a one-rank NCCL shard: parameters,
+     sums and realized sizes bit for bit, every path equal to the
+     materialized one, the mask the fused round sums' weights and the _dev
+     decode entries launched once a round; the host engine under each
+     mode: realized sizes and eps history equal to scan's, parameters
+     within 1e-5 (reported: whether bit for bit); (b) dropout 0.999 for
+     2 rounds (momentum materialized, sgd fused packed): an empty round
+     moves neither the parameters nor the optimizer's state; (c)
+     local_steps=3 under dropout: graphed scan == perround; (d)
+     budget_eps (7 nominal rounds' eps) under dropout 0.5: the halt
+     overshoots by at most one round; (e) reported, not gated: graphed
+     rounds/s of the Poisson round over 5 blocks of 20 (no
+     synchronisation inside them), against phase 5c's fixed round;
   6. profile: device time by kernel over 3 more rounds of FedConfig()'s
      trainer for each mechanism (graphed; phase 5's, and phase 5c's for
-     rqm), of the graphed fused packed
+     rqm), of phase 5e's graphed Poisson round, of the graphed fused packed
      one, the rqm shard one and the eager perround one (tables in
      build/profiles/), and what the eager round's fill kernels fill;
   7. Fig. 3 report: held-out accuracy and Renyi eps at alpha=8 after 120
@@ -92,7 +113,7 @@ which raises and exits non-zero:
      ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
      (reported, not gated).
 
-Every run of phases 4, 5, 5b and 5d (but its report) sets the kernels' launch counters to 0
+Every run of phases 4, 5, 5b, 5d and 5e (but their reports) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
@@ -169,7 +190,12 @@ FMA_ONLY_OPS_PER_DRAW = 2  # the multiplies
 EITHER_OPS_PER_DRAW = 3    # the salt's add, the two shifts
 # the entries whose fixed cost phase 3 reads at n = 1 (one block)
 FLOOR_ROWS = ("decode_apply_sum", "unpack_decode_apply", "pack_flat", "unpack_flat",
-              "decode_apply")
+              "decode_apply", "decode_apply_sum_dev", "unpack_decode_apply_dev")
+# phase 3's realized counts for the _dev decode entries: an empty round, one
+# client, 29 (a size at which the traced scale differs from the fixed
+# cohort's double), the paper's cohort and its Poisson slate
+DEV_COUNTS = (0, 1, 29, 40, 82)
+HETERO_ROUNDS = 2  # phase 5e's empty rounds (dropout 0.999)
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -453,8 +479,39 @@ def check_kernels(torch, np):
                  (params_w.data_ptr(), dense.data_ptr(), out.data_ptr())),
              nbytes=DIM * 12),
     ]
+    # the _dev twins at the realized count n, where their traced scale and
+    # the by-value entries' double agree (check_decode_dev: where not)
+    count = torch.tensor([n], dtype=torch.int32, device="cuda")
+    cases += [
+        dict(name="decode_apply_sum_dev", symbol=("decode_apply_sum_dev_kernel",),
+             source="src/repro_torch/kernels/csrc/decode_apply.cu",
+             replaces="src/repro/kernels/decode_apply_kernel.py:103",
+             kernel=lambda d=DIM: decode_apply_kernel.decode_apply_sum(
+                 params_w[:d], dense[:d], rqm_params, count, lr),
+             plain=lambda d=DIM: decode_apply_kernel.decode_apply_plain(
+                 params_w[:d], dense[:d], rqm_params, count, lr),
+             twin=lambda: decode_apply_kernel.decode_apply_sum(params_w, dense, rqm_params, n,
+                                                               lr),
+             nbytes=DIM * 12 + 4),
+        dict(name="unpack_decode_apply_dev", symbol=("unpack_decode_apply_dev_kernel",),
+             source="src/repro_torch/kernels/csrc/decode_apply.cu",
+             replaces="src/repro/kernels/pack_kernel.py:138",
+             kernel=lambda d=DIM: pack_kernel.unpack_decode_apply(
+                 params_w[:d], packed[:wire.packed_words(d, BITS)], rqm_params, count, lr,
+                 pack_bits=BITS),
+             plain=lambda d=DIM: pack_kernel.unpack_decode_apply_plain(
+                 params_w[:d], packed[:wire.packed_words(d, BITS)], rqm_params, count, lr,
+                 pack_bits=BITS),
+             twin=lambda: pack_kernel.unpack_decode_apply(params_w, packed, rqm_params, n, lr,
+                                                          pack_bits=BITS),
+             walk=lambda out, d=DIM: checked_walk(
+                 pack_kernel, d, wire.packed_words(d, BITS), BITS,
+                 (params_w.data_ptr(), packed.data_ptr(), out.data_ptr())),
+             nbytes=DIM * 8 + words * 4 + 4),
+    ]
     check_codec(torch, pack_kernel, dense, packed)
     check_decode(torch, pack_kernel, decode_apply_kernel, params_w, dense, rqm_params, n, lr)
+    check_decode_dev(torch, pack_kernel, decode_apply_kernel, params_w, rqm_params, lr)
     cases = [c for case in cases for c in seeded(case, seed, seed_t)]
     records = []
     for case in cases:
@@ -701,6 +758,57 @@ def check_decode(torch, pack_kernel, decode_apply_kernel, params_w, dense, param
         "at offsets 0-3; walks (V, blocks) by offset: " + "; ".join(folded))
 
 
+def check_decode_dev(torch, pack_kernel, decode_apply_kernel, params_w, params,
+                     lr: float) -> None:
+    """The _dev decode entries, which read a realized count from device
+    memory, at DEV_COUNTS, dense and packed at 10 bits (a cohort of 40's
+    sum) and 11 bits (the Poisson slate of 82's), at DIM: each bit-exact
+    against its plain version and the packed against the dense; at 0, the
+    parameters unchanged; at the other counts against the by-value entry,
+    equal where the traced scale f32(2 x_max) / f32(n (m-1)) equals the
+    fixed cohort's double rounded to float32 and different where not."""
+    import numpy as np
+
+    from repro_torch.core import grid
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    seen = []
+    for bits, slate in ((BITS, ROWS), (BITS + 1, 82)):
+        z = torch.randint(0, slate * (params.m - 1) + 1, (DIM,), dtype=torch.int32,
+                          device="cuda", generator=gen)
+        words = pack_kernel.pack_flat_plain(z, bits)
+        for k in DEV_COUNTS:
+            count = torch.tensor([k], dtype=torch.int32, device="cuda")
+            got = decode_apply_kernel.decode_apply_sum(params_w, z, params, count, lr)
+            got_p = pack_kernel.unpack_decode_apply(params_w, words, params, count, lr,
+                                                    pack_bits=bits)
+            want = decode_apply_kernel.decode_apply_plain(params_w, z, params, count, lr)
+            want_p = pack_kernel.unpack_decode_apply_plain(params_w, words, params, count, lr,
+                                                           pack_bits=bits)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got_p, want_p)
+                    and torch.equal(got_p, got)):
+                raise AssertionError(f"the _dev decode entries at {bits} bits, count {k}, "
+                                     f"differ from their plain versions or each other")
+            if k == 0:
+                if not torch.equal(got, params_w):
+                    raise AssertionError(f"the _dev decode at count 0 ({bits} bits) moved "
+                                         f"the parameters")
+                seen.append(f"{bits} bits n 0: w unchanged")
+                continue
+            by_value = decode_apply_kernel.decode_apply_sum(params_w, z, params, k, lr)
+            agree = float(np.float32(grid.decode_scale(k, params))) == float(
+                grid.decode_scale_dev(count, params))
+            same = torch.equal(by_value, got)
+            if same != agree:
+                raise AssertionError(f"count {k} at {bits} bits: scales agree {agree}, "
+                                     f"_dev == by-value {same}")
+            seen.append(f"{bits} bits n {k}: scales agree {agree}, "
+                        f"{int((by_value != got).sum())} coordinates differ from by-value")
+    log("[kernels] decode _dev: decode_apply_sum_dev and unpack_decode_apply_dev == their "
+        "plain versions and each other; " + "; ".join(seen))
+
+
 def decode_apply_bf16(torch, decode_apply_kernel, params_w, dense, params, n, lr) -> dict:
     """The folded decode_apply on bfloat16 parameters: bit-exact against
     its plain version at DIM and at n = 1; its times, floor (n = 1), walks
@@ -812,7 +920,10 @@ def run_path(torch, spec: str, cfg, expect: dict, tag: str):
     if counts != expect:
         raise AssertionError(f"{tag}: launch counts {counts}, expected {expect}")
     alpha = 8.0
-    want = ROUNDS * tr.mech.per_round_epsilon(cfg.clients_per_round, alpha)
+    if len(tr.realized_n) != ROUNDS or not all(0 <= n <= tr.slate for n in tr.realized_n):
+        raise AssertionError(f"{tag}: realized cohort sizes {tr.realized_n}")
+    # every round at its realized size (the fixed cohort's at every round)
+    want = sum(tr.mech.per_round_epsilon(n, alpha) for n in tr.realized_n if n > 0)
     got = tr.accountant.rdp_epsilon(alpha)
     if not math.isclose(got, want, rel_tol=1e-12, abs_tol=0.0):
         raise AssertionError(f"{tag}: RDP at alpha=8 is {got}, expected {want}")
@@ -823,7 +934,8 @@ def run_path(torch, spec: str, cfg, expect: dict, tag: str):
         "run": tag, "engine": cfg.engine, "graphed": getattr(tr.engine, "graph", None) is not None,
         "fused_rounds": cfg.fused_rounds, "collect_sums": cfg.collect_sums,
         "pack_bits": tr.pack_bits, "shards": tr.shards, "staging": cfg.staging,
-        "staged_bytes_total": tr.staged_bytes_total, "rounds": ROUNDS, "setup_s": setup_s,
+        "staged_bytes_total": tr.staged_bytes_total, "rounds": ROUNDS,
+        "slate": tr.slate, "realized_n": tr.realized_n, "setup_s": setup_s,
         "first_round_s": first_s, "steady_rounds_per_s": (ROUNDS - 1) / steady_s,
         "launches": counts, "rdp_alpha8": got, "eval_accuracy": metrics["accuracy"],
         "eval_loss": metrics["loss"]}))
@@ -1103,6 +1215,169 @@ def services(torch, FedConfig, counted, card: str) -> dict:
     return report
 
 
+def hetero_cohorts(torch, FedConfig, run, counted, clock: dict, card: str) -> dict:
+    """Phase 5e: heterogeneous cohorts at the paper's widths, rqm, each run
+    counted (``run`` for ROUNDS-round runs, ``counted`` for the others).
+    Returns the report and (e)'s graphed Poisson trainer, which phase 6
+    profiles."""
+    import numpy as np
+
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.core.renyi import RenyiAccountant
+    from repro_torch.fed import cohort
+    from repro_torch.fed.trainer import FedTrainer
+
+    spec, R, quiet = SPECS["rqm"], ROUNDS, (lambda msg: None)
+    report = {}
+    modes = {"poisson": dict(subsampling="poisson"), "dropout": dict(dropout=0.1),
+             "poisson+dropout": dict(subsampling="poisson", dropout=0.1)}
+    paths = {"materialized": dict(), "fused packed": dict(fused_rounds=True),
+             "fused dense": dict(fused_rounds=True, wire_packed=False)}
+
+    def expect(path, engine):
+        dev = "_dev" if engine == "scan" else ""
+        codec = {"pack_flat": R, "unpack_flat": R} if engine == "shard" else {}
+        if path == "materialized":
+            return {f"rqm_quantize{dev}": R, **codec}
+        if path == "fused packed":
+            return {f"rqm_round_sum_packed{dev}": R, "unpack_decode_apply_dev": R,
+                    "unpack_flat": R}
+        return {f"rqm_round_sum_dense{dev}": R, "decode_apply_sum_dev": R, **codec}
+
+    # (a) graphed scan == eager perround == one-rank NCCL shard, and the host
+    for mode, hk in modes.items():
+        scan_sums = None
+        for path, pk in paths.items():
+            runs = {}
+            for engine in ("scan", "perround", "shard"):
+                cfg = FedConfig(engine=engine, collect_sums=True, **hk, **pk)
+                if engine == "shard":
+                    cfg = dataclasses.replace(cfg, shards=1)
+                tag = f"[5e] {mode} {path} {engine}"
+                runs[tag] = run(spec, cfg, expect(path, engine), tag)
+            same_runs(torch, runs, f"[5e] {mode} {path}: graphed scan, perround, shard")
+            trs = list(runs.values())
+            if any(tr.realized_n != trs[0].realized_n for tr in trs):
+                raise AssertionError(f"[5e] {mode} {path}: realized sizes differ")
+            want_bits = None if path != "fused packed" else (11 if "poisson" in mode else 10)
+            if trs[0].pack_bits != want_bits:
+                raise AssertionError(f"[5e] {mode} {path}: wire width {trs[0].pack_bits}, "
+                                     f"expected {want_bits}")
+            if scan_sums is None:
+                scan_sums = trs[0]
+            else:
+                same_runs(torch, {"materialized": scan_sums, path: trs[0]},
+                          f"[5e] {mode}: materialized and {path}")
+            report[f"{mode} {path}"] = {"slate": trs[0].slate, "pack_bits": trs[0].pack_bits,
+                                        "realized_n": trs[0].realized_n}
+            del runs, trs
+        host = run(spec, FedConfig(engine="host", collect_sums=True, **hk),
+                   {"rqm_quantize": R}, f"[5e] {mode} host")
+        if host.realized_n != scan_sums.realized_n or not all(
+                np.array_equal(a, b) for a, b in zip(host.accountant.history,
+                                                     scan_sums.accountant.history)):
+            raise AssertionError(f"[5e] {mode} host: realized sizes or eps history differ "
+                                 f"from scan's")
+        diff = float((host.flat - scan_sums.flat).abs().max())
+        # the reference's own tolerance for its host engine against scan
+        if diff > 1e-5:
+            raise AssertionError(f"[5e] {mode} host: parameters {diff} from scan's")
+        report[f"{mode} host"] = {"max_abs_diff_from_scan": diff,
+                                  "bit_for_bit": bool(torch.equal(host.flat, scan_sums.flat)),
+                                  "sums_equal": all(np.array_equal(a, b) for a, b in zip(
+                                      host.round_sums, scan_sums.round_sums))}
+        log(f"[5e] {mode}: host == scan in realized sizes {host.realized_n} and eps history; "
+            f"parameters {diff} apart")
+        del host, scan_sums
+
+    # (b) empty rounds: nothing moves (momentum, materialized; sgd, fused packed)
+    for tag, kw, entries in (
+            ("momentum", dict(server_opt="momentum"), {"rqm_quantize_dev": 1}),
+            ("sgd fused packed", dict(fused_rounds=True),
+             {"rqm_round_sum_packed_dev": 1, "unpack_decode_apply_dev": 1})):
+        tr = FedTrainer(spec, FedConfig(dropout=0.999, **kw), device="cuda")
+        empty = 0
+        for _ in range(HETERO_ROUNDS):
+            flat, opt = tr.flat.clone(), {k: v.clone() for k, v in dict(tr.opt_state).items()}
+            counted(f"[5e] empty rounds, {tag}", entries, lambda: tr.run_block(1))
+            if tr.realized_n[-1] == 0:
+                empty += 1
+                if not torch.equal(tr.flat, flat) or any(
+                        not torch.equal(v, tr.opt_state[k]) for k, v in opt.items()):
+                    raise AssertionError(f"[5e] an empty round moved the state ({tag})")
+        if empty == 0:
+            raise AssertionError(f"[5e] dropout 0.999 gave no empty round ({tag}): "
+                                 f"{tr.realized_n}")
+        report[f"empty rounds {tag}"] = {"realized_n": tr.realized_n}
+        log(f"[5e] empty rounds ({tag}): realized {tr.realized_n}, nothing moved")
+        del tr
+
+    # (c) local_steps=3 under dropout: graphed == perround
+    ls = FedConfig(local_steps=3, dropout=0.1, collect_sums=True)
+    same_runs(torch, {
+        "scan": run(spec, ls, {"rqm_quantize_dev": R}, "[5e] local_steps=3 scan"),
+        "perround": run(spec, dataclasses.replace(ls, engine="perround"), {"rqm_quantize": R},
+                        "[5e] local_steps=3 perround")},
+        "[5e] local_steps=3, dropout 0.1: graphed scan and perround")
+
+    # (d) the budget halt under dropout 0.5: an overshoot of at most one round
+    cfg = FedConfig(dropout=0.5)
+    mech = make_mechanism(spec)
+    nominal = [mech.per_round_epsilon(cfg.clients_per_round, a) for a in cfg.accountant_alphas]
+    budget = RenyiAccountant(alphas=cfg.accountant_alphas).projected_dp_epsilon(
+        cfg.budget_delta, nominal, HALT_ROUNDS)[0]
+    tr = FedTrainer(spec, dataclasses.replace(cfg, budget_eps=budget), device="cuda")
+    counted("[5e] budget halt, dropout 0.5", None, lambda: tr.train(20, eval_every=20, log=quiet))
+    before = RenyiAccountant(alphas=cfg.accountant_alphas)
+    for vec in tr.accountant.history[:-1]:
+        before.step(vec)
+    spent = tr.budget_spent()[0]
+    if not (tr.accountant.rounds < 20 and (spent <= budget or
+                                          before.dp_epsilon(cfg.budget_delta)[0] <= budget)):
+        raise AssertionError(f"[5e] budget halt: {tr.accountant.rounds} rounds, spent {spent} "
+                             f"of {budget}")
+    report["budget halt"] = {"budget_eps": budget, "rounds": tr.accountant.rounds,
+                             "realized_n": tr.realized_n, "eps_spent": spent,
+                             "overshoot": bool(spent > budget)}
+    log(f"[5e] budget halt under dropout 0.5: {tr.accountant.rounds} rounds "
+        f"{tr.realized_n}, eps_spent {spent} of {budget}")
+    del tr
+
+    # (e) reported: graphed rounds/s of the Poisson round, against 5c's
+    tr = FedTrainer(spec, FedConfig(subsampling="poisson"), device="cuda")
+    tr.run_block(1)  # capture
+    replay = torch.Generator()
+    replay.set_state(tr.generator.get_state())
+    sizes = set(cohort.realized_counts(tr.cfg, tr.slate, cohort.draw_block(
+        tr.cfg, tr.slate, replay, HOST_REPS * HOST_ROUNDS)))
+    t0 = time.perf_counter()
+    for k in sizes:  # the host's accounting of new sizes is not the round's
+        tr._eps_vector(k)
+    memo_s = time.perf_counter() - t0
+    rates = []
+    for _ in range(HOST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tr.run_block(HOST_ROUNDS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        rates.append(HOST_ROUNDS / (time.perf_counter() - t0))
+    report["poisson_clock"] = {
+        "spec": spec, "slate": tr.slate, "rounds": HOST_ROUNDS, "card": card,
+        "rounds_per_s": {"median": statistics.median(rates), "min": min(rates),
+                         "max": max(rates), "reps": len(rates), "each": rates},
+        "fixed_round_rounds_per_s_median": clock["rounds_per_s"]["scan"]["median"],
+        "distinct_sizes": len(sizes), "accounting_memo_s": memo_s}
+    log(f"[5e] graphed Poisson round (slate {tr.slate}): "
+        f"{report['poisson_clock']['rounds_per_s']['median']} rounds/s against phase 5c's "
+        f"fixed round {clock['rounds_per_s']['scan']['median']}; {len(sizes)} sizes accounted "
+        f"in {memo_s} s; nvidia-smi: {card}")
+    return report, tr
+
+
 def fill_sources(torch, tr, rounds: int) -> dict:
     """Device ms a round of the fill kernels of an eager round, by the ops
     above each aten::fill_ and its shape (torch.profiler)."""
@@ -1307,11 +1582,12 @@ def main() -> int:
     # phase 5d: telemetry, checkpoint/resume, the stateful optimizers and
     # the budget halt, each run counted
     def counted(tag, expect, fn):
+        """``fn``'s launches, which must be ``expect`` (any, where None)."""
         ops.reset_launches()
         fn()
         torch.cuda.synchronize()
         got = dict(ops.launches)
-        if got != expect:
+        if expect is not None and got != expect:
             raise AssertionError(f"{tag}: launch counts {got}, expected {expect}")
         for k, v in got.items():
             counts[k] = counts.get(k, 0) + v
@@ -1326,6 +1602,10 @@ def main() -> int:
         f"{tracked['rounds_per_s']['noop']['median']}; phase 5c graphed scan "
         f"{clock['rounds_per_s']['scan']['median']}; nvidia-smi: {card}")
 
+    # phase 5e: heterogeneous cohorts, each run counted
+    hetero, poisson = hetero_cohorts(torch, FedConfig, run, counted, clock, card)
+    log(json.dumps({"hetero": hetero}))
+
     # phase 6: where a warm round spends device time, FedConfig()'s round
     # for each mechanism (graphed), the graphed fused packed round, the
     # shard round and, eager, the perround engine's
@@ -1335,10 +1615,11 @@ def main() -> int:
     profiled["rqm_scan_fused_packed_collected"] = fused_profiled
     profiled["rqm_shard_collected"] = shard_profiled
     profiled["rqm_perround"] = clocked["perround"]
+    profiled["rqm_poisson_default"] = poisson
     for tag, tr in profiled.items():
         log(json.dumps({"round_profile": profile_rounds(torch, tr, PROFILE_ROUNDS, tag)}))
     log(json.dumps({"fill_sources": fill_sources(torch, clocked["perround"], PROFILE_ROUNDS)}))
-    del profiled, clocked, fused_profiled, shard_profiled, default_trainers
+    del profiled, clocked, fused_profiled, shard_profiled, default_trainers, poisson
 
     # phase 7: the paper's comparison, reported
     log(json.dumps({"fig3_report": fig3_report(torch, FedConfig)}))

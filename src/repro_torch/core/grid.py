@@ -7,10 +7,19 @@ The grid is the paper's (Algorithm 2, lines 2-3):
 
 ``x_max`` and ``step`` are Python doubles, exactly as in the reference;
 the kernels round them to float32 once, at the call.
+
+The cohort size of a decode is a Python int for fixed cohorts, and a 0-d
+int32 device tensor (``count``) for heterogeneous ones, whose realized
+size exists only on the device in a captured round. The reference
+computes the scale in two ways to match: a Python double rounded once
+to float32 at a static n, and float32 arithmetic at a traced n
+(``f32(2 x_max) / f32(n (m-1))``), which differ by one ULP at some n
+(18 of n = 1..89 at c = 0.02, m = 16). ``decode_sum`` reproduces each.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -71,8 +80,32 @@ def decode_scale(n: int, params: GridGeometry) -> float:
     return 2.0 * params.x_max / (n * (params.m - 1))
 
 
-def decode_sum(z_sum: torch.Tensor, n: int, params: GridGeometry) -> torch.Tensor:
+def f32_const(value: float, device) -> torch.Tensor:
+    """``value`` rounded once to float32, as a 0-d tensor on ``device``
+    (made once per value and device: making it on the card copies from
+    the host, which a captured round may not do)."""
+    return _f32_const(float(np.float32(value)), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_const(value: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def decode_scale_dev(count: torch.Tensor, params: GridGeometry) -> torch.Tensor:
+    """The scale at a device count, as the reference computes it at a
+    traced n: ``f32(2 x_max) / f32(n (m-1))``, the int32 product converted
+    once, an IEEE division of two 0-d float32 tensors."""
+    denom = (count.reshape(()) * (params.m - 1)).to(torch.float32)
+    return f32_const(2.0 * params.x_max, count.device) / denom
+
+
+def decode_sum(z_sum: torch.Tensor, n, params: GridGeometry) -> torch.Tensor:
     """Server decode of the SecAgg sum of n devices' levels (Algorithm 1
-    l.10): ``g_hat = -(c+delta) + z_sum * 2 (c+delta) / (n (m-1))``."""
-    scale = float(np.float32(decode_scale(n, params)))
+    l.10): ``g_hat = -(c+delta) + z_sum * 2 (c+delta) / (n (m-1))``. ``n``
+    is an int, or a 0-d int32 device count (the traced form)."""
+    if isinstance(n, torch.Tensor):
+        scale = decode_scale_dev(n, params)
+    else:
+        scale = float(np.float32(decode_scale(n, params)))
     return float(np.float32(-params.x_max)) + z_sum.to(torch.float32) * scale

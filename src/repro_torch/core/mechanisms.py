@@ -104,7 +104,10 @@ class Mechanism:
         z_sum = z.sum(0, dtype=z.dtype)
         return z_sum if pack_bits is None else wire.pack_bits(z_sum, pack_bits)
 
-    def decode_sum(self, z_sum: torch.Tensor, n: int) -> torch.Tensor:
+    def decode_sum(self, z_sum: torch.Tensor, n) -> torch.Tensor:
+        """g_hat from the SecAgg sum of n clients' messages; ``n`` is an
+        int (a fixed cohort) or a 0-d int32 device count (a realized one,
+        decoded with the reference's traced-n arithmetic)."""
         raise NotImplementedError
 
     def sum_bound(self, n: int) -> int:
@@ -328,7 +331,10 @@ class NoiseFreeMechanism(Mechanism):
         return x.clamp(-self.c, self.c)
 
     def decode_sum(self, g_sum, n):
-        # divide by a device tensor: IEEE division on the card too
+        # divide by a device tensor: IEEE division on the card too (a
+        # device count, the realized cohort, is converted on the device)
+        if isinstance(n, torch.Tensor):
+            return g_sum / n.reshape(()).to(g_sum.dtype)
         return g_sum / _cohort_size(n, g_sum.dtype, g_sum.device)
 
     def sum_bound(self, n):

@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.grid import f32_const
+
 
 @dataclasses.dataclass(frozen=True)
 class PBMParams:
@@ -34,10 +36,19 @@ class PBMParams:
         return float(np.log2(self.m + 1))
 
 
-def decode_sum(z_sum: torch.Tensor, n: int, params: PBMParams) -> torch.Tensor:
-    """Unbiased decode of the SecAgg sum of n devices' Binomial draws. The
-    scale and the centre are Python doubles rounded once to float32, as
-    XLA rounds the reference's weakly typed constants."""
-    scale = float(np.float32(params.c / (params.theta * params.m * n)))
-    centre = float(np.float32(0.5 * n * params.m))
+def decode_sum(z_sum: torch.Tensor, n, params: PBMParams) -> torch.Tensor:
+    """Unbiased decode of the SecAgg sum of n devices' Binomial draws. At
+    an int n the scale and the centre are Python doubles rounded once to
+    float32, as XLA rounds the reference's weakly typed constants; at a
+    0-d int32 device count they are the reference's float32 arithmetic at
+    a traced n, left to right: ``f32(c) / (f32(theta m) f32(n))`` and
+    ``(f32(0.5) f32(n)) f32(m)``."""
+    if isinstance(n, torch.Tensor):
+        dev = n.device
+        nf = n.reshape(()).to(torch.float32)
+        scale = f32_const(params.c, dev) / (f32_const(params.theta * params.m, dev) * nf)
+        centre = f32_const(0.5, dev) * nf * f32_const(params.m, dev)
+    else:
+        scale = float(np.float32(params.c / (params.theta * params.m * n)))
+        centre = float(np.float32(0.5 * n * params.m))
     return scale * (z_sum.to(torch.float32) - centre)

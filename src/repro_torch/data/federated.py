@@ -1,5 +1,6 @@
-"""Federated data partitioning (paper setup: N=3400 local devices), a
-numpy copy of ``repro/data/federated.py`` that gives the same arrays."""
+"""Federated data partitioning and per-round client sampling (paper setup:
+N=3400 local devices, n=40 sampled per round), a numpy copy of
+``repro/data/federated.py`` that gives the same arrays and cohorts."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,3 +42,7 @@ class FederatedPartition:
         images = self.gen.sample(rng, labels)
         return images, labels
 
+
+def sample_clients(rng: np.random.Generator, num_clients: int, n: int) -> np.ndarray:
+    """Uniform without-replacement sampling of n participating clients."""
+    return rng.choice(num_clients, size=n, replace=False)

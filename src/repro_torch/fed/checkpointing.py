@@ -3,21 +3,25 @@
 
 One checkpoint is the whole resumable state at a round boundary: the
 flat parameters, the server optimizer's state, the round stream (the
-``torch.Generator`` that draws each round's cohort and kernel seed, as
-its uint8 state tensor) and the accountant's per-round history (eps
-vectors and cohort sizes). Every ported engine is a function of (flat,
-opt_state, generator) and the deterministically staged data, and the
-accountant is replayed from its history, so a restored trainer continues
-the uninterrupted run bit for bit. (The reference also saves its host
-engine's numpy sampling stream; the port has no host engine yet.)
+``torch.Generator`` that draws each round's cohort, kernel seed and
+participation mask, as its uint8 state tensor), the host engine's numpy
+sampling stream (``host_rng``: its PCG64 state as 6 uint64, the
+reference's leaf) and the accountant's per-round history (eps vectors
+and realized cohort sizes). Every ported engine is a function of (flat,
+opt_state, generator, host_rng) and the deterministically staged data,
+and the accountant is replayed from its history, so a restored trainer
+continues the uninterrupted run bit for bit.
 
 Every checkpoint carries a fingerprint of what defines the trajectory
 and its accounting: the mechanism's spec, the task's spec, the FedConfig
 fields below and the trajectory family. The blob hashed is the
 reference's but for the family: the port's engines draw from a
 ``torch.Generator``, not ``jax.random``, so they are a trajectory of
-their own, ``"torch"``, and a checkpoint of either package is refused by
-the other with the fingerprint's ValueError. Restoring into a trainer of
+their own, ``"torch"`` (``"torch_host"`` for the host engine, whose
+fixed cohorts come from its numpy stream and whose encode takes a seed a
+client: another trajectory, as the reference's ``"host"``), and a
+checkpoint of either package is refused by the other with the
+fingerprint's ValueError. Restoring into a trainer of
 another fingerprint raises: replaying one mechanism's eps history under
 another would claim an epsilon no mechanism spent.
 """
@@ -39,6 +43,30 @@ _FINGERPRINT_FIELDS = (
     "server_opt_options",
 )
 TRAJECTORY = "torch"
+HOST_TRAJECTORY = "torch_host"
+_U64 = (1 << 64) - 1
+
+
+def pack_host_rng(rng: np.random.Generator) -> np.ndarray:
+    """A numpy Generator's PCG64 state as a fixed-shape (6,) uint64 array."""
+    st = rng.bit_generator.state
+    if st["bit_generator"] != "PCG64":
+        raise ValueError(f"unsupported bit generator {st['bit_generator']!r}")
+    s, inc = st["state"]["state"], st["state"]["inc"]
+    return np.asarray([s & _U64, s >> 64, inc & _U64, inc >> 64,
+                       st["has_uint32"], st["uinteger"]], np.uint64)
+
+
+def unpack_host_rng(arr) -> np.random.Generator:
+    """The numpy Generator whose state ``pack_host_rng`` packed."""
+    a = [int(x) for x in np.asarray(arr, np.uint64)]
+    rng = np.random.default_rng(0)
+    st = rng.bit_generator.state
+    st["state"]["state"] = a[0] | (a[1] << 64)
+    st["state"]["inc"] = a[2] | (a[3] << 64)
+    st["has_uint32"], st["uinteger"] = a[4], a[5]
+    rng.bit_generator.state = st
+    return rng
 
 
 def fingerprint_fields(trainer) -> dict:
@@ -49,7 +77,7 @@ def fingerprint_fields(trainer) -> dict:
     # None and {} build the same optimizer
     fields["server_opt_options"] = fields["server_opt_options"] or {}
     fields["task"] = trainer.task.spec()
-    fields["trajectory"] = TRAJECTORY
+    fields["trajectory"] = HOST_TRAJECTORY if cfg.engine == "host" else TRAJECTORY
     return fields
 
 
@@ -66,11 +94,13 @@ def fingerprint(trainer) -> np.ndarray:
     return np.frombuffer(hashlib.sha256(blob.encode()).digest(), np.uint8)
 
 
-def _tree(trainer, eps_history: np.ndarray, realized_n: np.ndarray, fp: np.ndarray) -> dict:
+def _tree(trainer, eps_history: np.ndarray, realized_n: np.ndarray, fp: np.ndarray,
+          host_rng: np.ndarray) -> dict:
     return {
         "flat": trainer.flat,
         "opt": trainer.opt_state,
         "key": trainer.generator.get_state(),
+        "host_rng": host_rng,
         "eps_history": eps_history,
         "realized_n": realized_n,
         "fingerprint": fp,
@@ -84,7 +114,8 @@ def save_checkpoint(trainer) -> str:
         raise ValueError("no checkpoint directory configured (cfg.ckpt_dir)")
     hist = trainer.accountant.history
     eps = np.stack(hist) if hist else np.zeros((0, len(cfg.accountant_alphas)))
-    tree = _tree(trainer, eps, np.asarray(trainer.realized_n, np.int64), fingerprint(trainer))
+    tree = _tree(trainer, eps, np.asarray(trainer.realized_n, np.int64), fingerprint(trainer),
+                 pack_host_rng(trainer._rng))
     return store.save(cfg.ckpt_dir, trainer.accountant.rounds, tree)
 
 
@@ -110,11 +141,12 @@ def restore_checkpoint(trainer, step=None) -> int:
             f"the original mechanism spec and the trajectory-defining FedConfig fields "
             f"({', '.join(_FINGERPRINT_FIELDS)}), or start a fresh checkpoint directory.")
     like = _tree(trainer, np.zeros((step, len(cfg.accountant_alphas)), np.float64),
-                 np.zeros(step, np.int64), np.zeros(32, np.uint8))
+                 np.zeros(step, np.int64), np.zeros(32, np.uint8), np.zeros(6, np.uint64))
     data = store.restore(cfg.ckpt_dir, step, like)
     trainer.flat = data["flat"]
     trainer.opt_state = data["opt"]
     trainer.generator.set_state(data["key"])
+    trainer._rng = unpack_host_rng(data["host_rng"])
     trainer.accountant = type(trainer.accountant)(alphas=cfg.accountant_alphas)
     trainer.realized_n = []
     for n, vec in zip(data["realized_n"], data["eps_history"]):

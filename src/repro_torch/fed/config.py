@@ -1,9 +1,11 @@
 """FedConfig (the fields of ``repro/fed/config.py`` this package runs).
 
 Defaults follow the reference: ``FedConfig()`` is its default round, the
-materialized ``scan`` engine. Settings of the reference that the port
-does not run yet are refused by ``validate_config`` with
-NotImplementedError naming the ROADMAP.md item that carries them.
+materialized ``scan`` engine. ``validate_config`` makes the
+engine-independent checks (each engine's ``Engine.validate`` adds its
+own); settings of the reference that the port does not run yet are
+refused with NotImplementedError naming the ROADMAP.md item that carries
+them.
 """
 from __future__ import annotations
 
@@ -23,12 +25,16 @@ class FedConfig:
     accountant_alphas: tuple = (2.0, 4.0, 8.0, 16.0, 32.0)
     data_deform: float = 0.35
     data_noise: float = 0.25
-    # one clipped gradient per client per round (Algorithm 1)
+    # 1: one clipped gradient per client per round (Algorithm 1); more:
+    # the clipped negative delta of local_steps SGD steps at local_lr
+    # (FedAvg-RQM)
     local_steps: int = 1
-    # "scan" (blocks of rounds, each round a replay of a captured CUDA
-    # graph on the card, sums kept on the device until the block ends),
-    # "perround" (one eager round per call) or "shard" (eager rounds over
-    # a process group, one cohort slice per rank): the same round
+    # a registered engine name or spec string (fed/engine.py): "scan"
+    # (blocks of rounds, each round a replay of a captured CUDA graph on
+    # the card, sums kept on the device until the block ends), "perround"
+    # (one eager round per call), "host" (the legacy loop: per-round host
+    # staging, per-client encode) or "shard" (eager rounds over a process
+    # group, one cohort slice per rank), e.g. "shard:shards=1,packed=true"
     engine: str = "scan"
     local_lr: float = 0.1
     task: str = "emnist_cnn"
@@ -45,6 +51,10 @@ class FedConfig:
     # land on the multiples); a restored trainer continues bit for bit
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 0
+    # heterogeneous cohorts (fed/cohort.py): "poisson" selects each client
+    # at rate clients_per_round / num_clients; dropout drops each selected
+    # client with that probability; max_cohort caps a Poisson slate. Each
+    # round is accounted at its realized size.
     subsampling: str = "fixed"
     dropout: float = 0.0
     max_cohort: Optional[int] = None
@@ -98,12 +108,9 @@ def _not_ported(what: str, item: str):
 
 
 def validate_config(cfg: FedConfig) -> None:
+    """Engine-independent checks (``Engine.validate`` adds each engine's)."""
     if cfg.staging not in STAGINGS:
         raise ValueError(f"unknown staging {cfg.staging!r}; expected one of {STAGINGS}")
-    if cfg.staging == "stream" and cfg.engine != "shard":
-        raise ValueError(
-            f"staging='stream' requires a streaming-capable engine such as "
-            f"'shard'; {cfg.engine!r} does not support it")
     if cfg.subsampling not in SUBSAMPLINGS:
         raise ValueError(f"unknown subsampling {cfg.subsampling!r}; expected one of "
                          f"{SUBSAMPLINGS}")
@@ -131,8 +138,3 @@ def validate_config(cfg: FedConfig) -> None:
             f"clients_per_round={cfg.clients_per_round} must be in "
             f"[1, num_clients={cfg.num_clients}]"
         )
-    if cfg.subsampling != "fixed" or cfg.dropout:
-        raise _not_ported("heterogeneous cohorts (Poisson subsampling, dropout)",
-                          "queue A item 5")
-    if cfg.local_steps != 1:
-        raise _not_ported("local_steps > 1 (FedAvg-RQM)", "queue A item 5")

@@ -1,15 +1,24 @@
-"""Round engines (counterpart of ``repro/fed/engines.py``). The ported
-engines run the same round, so a fixed seed gives bit-identical
-parameters under any of them:
+"""Round engines (counterpart of ``repro/fed/engines.py``), registered in
+the reference's order: ``scan``, ``perround``, ``host``, ``shard``. The
+device engines (scan, perround, shard) run the same round, so a fixed
+seed gives bit-identical parameters under any of them:
 
   * ``scan`` (the default): blocks of at most ``cfg.scan_block`` rounds,
-    as the reference's jitted ``lax.scan`` block. A block's cohorts and
-    seeds are drawn on the host and copied to the device once; on CUDA
-    each round is one replay of a captured CUDA graph (``RoundGraph``),
-    with no host->device copy and no synchronisation inside the block.
-    The block keeps its SecAgg sums on the device and accounts its rounds
-    when it ends;
+    as the reference's jitted ``lax.scan`` block. A block's cohorts,
+    seeds and (heterogeneous cohorts) participation masks are drawn on
+    the host and copied to the device once; on CUDA each round is one
+    replay of a captured CUDA graph (``RoundGraph``), with no
+    host->device copy and no synchronisation inside the block. The block
+    keeps its SecAgg sums on the device and accounts its rounds, at the
+    realized sizes its draws hold, when it ends;
   * ``perround``: one eager round per step, accounted as it ends;
+  * ``host``: the legacy loop, the reference's benchmark baseline: each
+    round's client data stacked on the host (no staged population), and
+    for fixed cohorts numpy cohorts (``default_rng(seed + 7)``, the
+    reference's own, so its cohorts are the reference's) and one encode
+    a client, each with its own seed from the round stream; heterogeneous
+    cohorts replay the round stream's draws, so its cohorts and eps are
+    the device engines';
   * ``shard``: the perround step over a ``torch.distributed`` process
     group (``launch/mesh.py``), in eager chunks of ``cfg.scan_block``
     rounds, one process per rank: each rank computes and encodes its
@@ -19,7 +28,7 @@ parameters under any of them:
     it equals ``scan`` bit for bit.
 
 Every engine carries the server optimizer's state beside the parameters.
-The reference's other engines are refused, naming their ROADMAP.md item.
+The reference's ``async`` engine is refused (``fed/engine.py``).
 """
 from __future__ import annotations
 
@@ -28,75 +37,91 @@ import gc
 import os
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.core import wire
+from repro_torch.data.federated import sample_clients
 from repro_torch.fed import cohort, rounds, staging
+from repro_torch.fed.engine import Engine, register_engine
 from repro_torch.kernels import _build
 from repro_torch.launch.mesh import shard_group
 from repro_torch.optim.optimizers import clone_state, copy_state_
 
-_NOT_PORTED = {
-    "host": "queue A item 5",
-    "async": "queue A item 10",
-}
 
-
-class PerRoundEngine:
-    """Drives the round step once per round and accounts each round at
-    the fixed cohort size as it ends."""
-
-    name = "perround"
-    blocked = False
+class _RoundEngine(Engine):
+    """The round step driven once per round, each round's draws taken from
+    ``tr.generator`` on the host (``cohort.draw_round``), so that its
+    realized size is known there; accounted as its rounds end. An engine
+    made outside the trainer builds its step at its first advance."""
 
     def __init__(self, trainer):
-        self.tr = trainer
-        tr = trainer
+        super().__init__(trainer)
+        self.round_step = None
+
+    def _ensure_built(self) -> None:
+        if self.round_step is None:
+            self.build()
+
+    def build(self) -> None:
+        tr = self.tr
         self.round_step = rounds.make_round_step(
             tr.mech, tr.cfg, tr.slate, tr.client_grads, tr.server_opt)
 
     def _round(self, **step_args):
-        """One round on the device; its SecAgg sum when collected."""
+        """One round on the device: its SecAgg sum when collected, and its
+        realized cohort size."""
         tr = self.tr
+        ids, seed, part = cohort.draw_round(tr.cfg, tr.slate, tr.generator)
         tr.flat, tr.opt_state, z_sum = self.round_step(
-            tr.flat, tr.opt_state, tr.client_data, tr.generator, **step_args)
-        return z_sum if tr.cfg.collect_sums else None
+            tr.flat, tr.opt_state, tr.client_data, ids=ids, seed=seed, part=part,
+            **step_args)
+        n = tr.cfg.clients_per_round if part is None else int(part.sum())
+        return (z_sum if tr.cfg.collect_sums else None), n
 
-    def _finish(self, sums: list) -> None:
-        """The host side of finished rounds: keep their sums, account them."""
+    def _finish(self, sums: list, ns: list) -> None:
+        """The host side of finished rounds: keep their sums, account them
+        at their realized sizes."""
         tr = self.tr
         for z_sum in sums:
             if z_sum is not None:
                 tr.round_sums.append(z_sum.cpu().numpy())
-            tr._account(1)
+        if tr.hetero:
+            tr._account_realized(ns)
+        else:
+            tr._account(len(ns))
 
     def advance(self, n_rounds: int) -> None:
+        self._ensure_built()
         for _ in range(n_rounds):
-            self._finish([self._round()])
+            z_sum, n = self._round()
+            self._finish([z_sum], [n])
 
 
-class ScanEngine(PerRoundEngine):
+@register_engine("scan")
+class ScanEngine(_RoundEngine):
     """The same round step over blocks of at most ``cfg.scan_block``
-    rounds. At the start of a block the host draws every round's cohort and
-    seed from ``tr.generator`` in perround's order (``cohort.draw_block``)
-    and copies them to the device in one piece; round t then reads its
-    ids and seed from row t, at a round index that lives on the device
-    and that each round advances. The parameters and the optimizer's
-    state live in static buffers: the block copies ``tr.flat`` and
-    ``tr.opt_state`` in when it starts (a restore replaces them) and hands
-    copies back when it ends. On CUDA the round is captured once as a
-    CUDA graph and each round is one replay (``RoundGraph``); on the CPU
-    the same round runs eagerly over the same buffers. Nothing returns to
-    the host until the block ends: then the collected sums, in one read,
-    and the accountant's steps."""
+    rounds. At the start of a block the host draws every round's cohort,
+    seed and mask from ``tr.generator`` in perround's order
+    (``cohort.draw_block``), which gives it their realized sizes, and
+    copies them to the device in one piece; round t then reads row t, at
+    a round index that lives on the device and that each round advances.
+    The parameters and the optimizer's state live in static buffers: the
+    block copies ``tr.flat`` and ``tr.opt_state`` in when it starts (a
+    restore replaces them) and hands copies back when it ends. On CUDA the
+    round is captured once as a CUDA graph and each round is one replay
+    (``RoundGraph``); on the CPU the same round runs eagerly over the same
+    buffers. Nothing returns to the host until the block ends: then the
+    collected sums, in one read, and the accountant's steps."""
 
-    name = "scan"
     blocked = True
+    # the reference's "unroll" sets scan_unroll, an XLA-only field
+    spec_options = {"block": "scan_block"}
 
     def __init__(self, trainer):
         super().__init__(trainer)
-        self.draws = None  # (scan_block, slate + 1) int32: ids, then the seed's bits
+        self.draws = None  # (scan_block, block width) int32: ids, seed's bits, mask
         self.flat = None   # the static parameters
         self.opt = None    # the static optimizer state
         self.t = None      # (1,) int64: the round index within the block
@@ -104,6 +129,7 @@ class ScanEngine(PerRoundEngine):
         self.graph = None  # the captured round, on CUDA
 
     def advance(self, n_rounds: int) -> None:
+        self._ensure_built()
         done = 0
         while done < n_rounds:
             length = min(self.tr.cfg.scan_block, n_rounds - done)
@@ -114,9 +140,10 @@ class ScanEngine(PerRoundEngine):
         tr = self.tr
         cuda = tr.device.type == "cuda"
         if self.draws is None:
-            # zeros: client 0 and seed 0 for the warm-up rounds before any draw
-            self.draws = torch.zeros((tr.cfg.scan_block, tr.slate + 1), dtype=torch.int32,
-                                     device=tr.device)
+            # zeros: client 0, seed 0 and (hetero) an empty cohort for the
+            # warm-up rounds before any draw
+            self.draws = torch.zeros((tr.cfg.scan_block, cohort.block_width(tr.cfg, tr.slate)),
+                                     dtype=torch.int32, device=tr.device)
             self.flat = torch.empty_like(tr.flat)
             self.opt = clone_state(tr.opt_state)
             self.t = torch.zeros(1, dtype=torch.int64, device=tr.device)
@@ -128,6 +155,7 @@ class ScanEngine(PerRoundEngine):
             # the generator where it was
             self.graph = RoundGraph(self)
         draws = cohort.draw_block(tr.cfg, tr.slate, tr.generator, length)
+        ns = cohort.realized_counts(tr.cfg, tr.slate, draws)
         # the block's one host->device copy, asynchronous from pinned memory
         self.draws[:length].copy_(draws.pin_memory() if cuda else draws, non_blocking=cuda)
         if cuda:
@@ -140,7 +168,7 @@ class ScanEngine(PerRoundEngine):
         tr.opt_state = clone_state(self.opt)
         # the block's one read of its sums
         self._finish(list(self.sums[:length].to("cpu", copy=True)) if self.sums is not None
-                     else [None] * length)
+                     else [None] * length, ns)
 
     def round_at(self, flat: torch.Tensor, opt, t: torch.Tensor) -> torch.Tensor:
         """Round ``t`` of the block on the parameters ``flat`` and the
@@ -148,8 +176,10 @@ class ScanEngine(PerRoundEngine):
         returns the round's sum."""
         slate = self.tr.slate
         row = self.draws.index_select(0, t)[0]
+        part = row[slate + 1:] if self.tr.hetero else None
         new, new_opt, z_sum = self.round_step(flat, opt, self.tr.client_data,
-                                              ids=row[:slate], seed=row[slate:])
+                                              ids=row[:slate], seed=row[slate:slate + 1],
+                                              part=part)
         flat.copy_(new)
         copy_state_(opt, new_opt)
         return z_sum
@@ -166,6 +196,12 @@ class ScanEngine(PerRoundEngine):
         if self.sums is not None:
             self.sums.index_copy_(0, t, z_sum[None])
         t.add_(1)
+
+
+@register_engine("perround")
+class PerRoundEngine(_RoundEngine):
+    """Drives the round step once per round, eagerly, and accounts each
+    round at its realized size as it ends."""
 
 
 class RoundGraph:
@@ -235,33 +271,140 @@ def _first_failure(err: BaseException) -> str:
     return f"{type(err).__name__}: {err}{where}"
 
 
-class ShardEngine(PerRoundEngine):
+@register_engine("host")
+class HostEngine(Engine):
+    """The legacy loop (the reference's benchmark baseline): each round's
+    client data stacked from ``task.client_batch`` on the host and copied
+    to the device (no staged population); fixed cohorts sampled by numpy
+    (``data.federated.sample_clients`` on ``tr._rng``, the reference's
+    ``default_rng(seed + 7)``) and encoded one client at a time, each with
+    its own seed drawn from ``tr.generator`` (one quantize launch a
+    client); heterogeneous cohorts drawn from ``tr.generator`` in the
+    device engines' order (``cohort.draw_round``), the whole slate encoded
+    with the round's seed, so its cohorts and eps are theirs. Its stages
+    are separate calls, so it times the reference's scopes ``stage``,
+    ``grads``, ``encode``, ``secure_sum`` and ``apply``. Every decode is
+    at a device count (the reference decodes in a jit at a traced n)."""
+
+    stages_population = False
+
+    @classmethod
+    def validate(cls, cfg, mech) -> None:
+        super().validate(cfg, mech)
+        if cfg.fused_rounds:
+            raise ValueError(
+                "engine 'host' does not support fused_rounds=True: the legacy loop is the "
+                "materialized-encode benchmark baseline; use the scan/perround/shard "
+                "engines for the fused hot path")
+
+    def advance(self, n_rounds: int) -> None:
+        for _ in range(n_rounds):
+            if self.tr.hetero:
+                self._hetero_round()
+            else:
+                self._fixed_round()
+
+    def _stack(self, ids) -> dict:
+        """The clients ``ids``' data, each leaf stacked along a leading
+        cohort axis, on the device."""
+        tr = self.tr
+        batches = [tr.task.client_batch(int(i)) for i in ids]
+        return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(tr.device)
+                for k in batches[0]}
+
+    def _count(self, n: int) -> torch.Tensor:
+        return torch.tensor(n, dtype=torch.int32, device=self.tr.device)
+
+    def _apply(self, z_sum: torch.Tensor, n: int) -> None:
+        tr = self.tr
+        with tr.timings.scope("apply"):
+            g_hat = tr.mech.decode_sum(z_sum, self._count(n))
+            tr.flat, tr.opt_state = tr.server_opt.update(g_hat, tr.opt_state, tr.flat,
+                                                         tr.cfg.lr)
+
+    def _keep(self, z_sum: torch.Tensor) -> None:
+        if self.tr.cfg.collect_sums:
+            self.tr.round_sums.append(z_sum.cpu().numpy())
+
+    def _fixed_round(self) -> None:
+        tr, cfg = self.tr, self.tr.cfg
+        n = cfg.clients_per_round
+        ids = sample_clients(tr._rng, cfg.num_clients, n)
+        with tr.timings.scope("stage"):
+            data = self._stack(ids)
+        with tr.timings.scope("grads"):
+            grads = tr.client_grads(tr.flat, data)
+        seeds = [cohort.draw_seed(tr.generator) for _ in range(n)]
+        with tr.timings.scope("encode"):
+            z = torch.stack([tr.mech.quantize(grads[i], s) for i, s in enumerate(seeds)])
+        with tr.timings.scope("secure_sum"):
+            z_sum = z.sum(0, dtype=z.dtype)  # the SecAgg sum
+        self._apply(z_sum, n)
+        self._keep(z_sum)
+        tr._account(1)
+
+    def _hetero_round(self) -> None:
+        tr, cfg = self.tr, self.tr.cfg
+        ids, seed, part = cohort.draw_round(cfg, tr.slate, tr.generator)
+        with tr.timings.scope("stage"):
+            data = self._stack(ids.tolist())
+        with tr.timings.scope("grads"):
+            grads = tr.client_grads(tr.flat, data)
+        with tr.timings.scope("encode"):
+            z = tr.mech.quantize_batch(grads, seed)  # the whole slate, as the engines
+        n_real = int(part.sum())
+        with tr.timings.scope("secure_sum"):
+            z = z * part.to(device=z.device, dtype=z.dtype)[:, None]
+            z_sum = z.sum(0, dtype=z.dtype)
+        if n_real > 0:  # an empty round moves nothing
+            self._apply(z_sum, n_real)
+        self._keep(z_sum)
+        tr._account_realized([n_real])
+
+
+@register_engine("shard")
+class ShardEngine(_RoundEngine):
     """The eager round step over a process group of ``shards`` ranks, in
     chunks of ``cfg.scan_block`` rounds; with ``staging="stream"`` each
-    chunk first stages this rank's slices of its cohorts. Not captured:
-    its round crosses the ranks in a collective (ROADMAP.md queue A item
-    9)."""
+    chunk first stages this rank's slices of its cohorts. A Poisson slate
+    is rounded up to a multiple of the ranks. Not captured: its round
+    crosses the ranks in a collective (ROADMAP.md queue A item 9)."""
 
-    name = "shard"
     blocked = True
+    supports_streaming = True
+    spec_options = {"shards": "shards", "staging": "staging", "packed": "shard_packed",
+                    "model": "model_shards"}
 
     def __init__(self, trainer):
+        super().__init__(trainer)
         tr, cfg = trainer, trainer.cfg
-        self.tr = tr
         self.group = shard_group(cfg.shards, tr.device)
         self.shards = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         tr.shards = self.shards
-        if cfg.clients_per_round % self.shards:
+        if cfg.subsampling == "poisson":
+            # round the slate up so that it splits evenly across the ranks
+            slate = -(-tr.slate // self.shards) * self.shards
+            if slate > cfg.num_clients:
+                raise ValueError(
+                    f"poisson cohort slate {slate} (rounded to {self.shards} shards) "
+                    f"exceeds the population {cfg.num_clients}; lower max_cohort or shards")
+            tr.slate = slate
+        elif cfg.clients_per_round % self.shards:
             raise ValueError(f"clients_per_round={cfg.clients_per_round} must "
                              f"divide across {self.shards} shards")
+        # the packing bound covers the worst case, the full slate
         if cfg.shard_packed:
             wire.check_packable(tr.mech.sum_bound(tr.slate), where="shard_packed=True: ")
+
+    def build(self) -> None:
+        tr = self.tr
         self.round_step = rounds.make_shard_round_step(
-            tr.mech, cfg, tr.slate, self.shards, self.rank, self.group,
+            tr.mech, tr.cfg, tr.slate, self.shards, self.rank, self.group,
             tr.client_grads, tr.server_opt)
 
     def advance(self, n_rounds: int) -> None:
+        self._ensure_built()
         tr, cfg = self.tr, self.tr.cfg
         done = 0
         while done < n_rounds:
@@ -273,21 +416,9 @@ class ShardEngine(PerRoundEngine):
                         self.shards, tr.device)
                 tr.staged_bytes_last_block = nbytes
                 tr.staged_bytes_total += nbytes
-                sums = [self._round(batch={k: v[t] for k, v in data.items()})
-                        for t in range(length)]
+                out = [self._round(batch={k: v[t] for k, v in data.items()})
+                       for t in range(length)]
             else:
-                sums = [self._round() for _ in range(length)]
-            self._finish(sums)
+                out = [self._round() for _ in range(length)]
+            self._finish([z for z, _ in out], [n for _, n in out])
             done += length
-
-
-ENGINES = {cls.name: cls for cls in (ScanEngine, PerRoundEngine, ShardEngine)}
-
-
-def get_engine(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} is not ported yet: ROADMAP.md {_NOT_PORTED[name]}")
-    if name not in ENGINES:
-        raise ValueError(f"unknown engine {name!r}; ported: {', '.join(ENGINES)}")
-    return ENGINES[name]

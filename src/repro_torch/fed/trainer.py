@@ -1,8 +1,9 @@
 """FedTrainer (counterpart of ``repro/fed/trainer.py``): owns the mechanism,
 config, the population staged on the device, the flat parameters, the
-server optimizer's state, the cohort/seed generator and the Renyi
-accountant; the engine runs rounds. Around them, the engine-independent
-services: accounting at the cohort size, telemetry (a tracker fed at the
+server optimizer's state, the round stream (cohort, seed, mask) and the
+Renyi accountant; the registered engine (``fed/engine.py``) runs rounds.
+Around them, the engine-independent services: accounting at the realized
+cohort size, telemetry (a tracker fed at the
 decode-apply boundary), the privacy-budget halt, periodic evaluation,
 and checkpoint/resume (parameters, optimizer state, the round stream and
 the accountant's history restore to a bit-identical continuation on
@@ -20,9 +21,10 @@ from repro_torch.convert import ravel
 from repro_torch.core import wire
 from repro_torch.core.mechanisms import make_mechanism
 from repro_torch.core.renyi import RenyiAccountant
-from repro_torch.fed import checkpointing, rounds, staging
+from repro_torch.fed import checkpointing, cohort, rounds, staging
+from repro_torch.fed import engines as _engines  # noqa: F401  (registers the engines)
 from repro_torch.fed.config import FedConfig, validate_config
-from repro_torch.fed.engines import get_engine
+from repro_torch.fed.engine import get_engine, make_engine
 from repro_torch.fed.tasks import make_task
 from repro_torch.telemetry import RoundEmitter, Timings, make_tracker
 
@@ -40,11 +42,21 @@ def resolve_device(device) -> torch.device:
 class FedTrainer:
     def __init__(self, mech, fed_cfg: FedConfig, device="cuda", tracker=None):
         self.device = resolve_device(device)
+        # cfg.engine is a registered name or a spec string
+        # ("shard:shards=1,packed=true"): make_engine parses and checks it,
+        # apply() sets the bare name and the spec's fields on a copy
+        espec = make_engine(fed_cfg.engine)
+        fed_cfg = espec.apply(fed_cfg)
+        engine_cls = get_engine(espec.name)
         validate_config(fed_cfg)
-        engine_cls = get_engine(fed_cfg.engine)
         self.mech = make_mechanism(mech)
+        engine_cls.validate(fed_cfg, self.mech)
         self.cfg = fed_cfg
-        self.slate = fed_cfg.clients_per_round
+        # heterogeneous cohorts: the engines compute gradients for a slate
+        # of a fixed size and mask those not taking part out of the sum;
+        # each round is accounted at its realized size (realized_n)
+        self.hetero = cohort.is_hetero(fed_cfg)
+        self.slate = cohort.base_slate(fed_cfg)
         # telemetry: the tracker argument wins over cfg.track; the emitter
         # is built once the engine exists (the shard engine's wire width)
         self.tracker = make_tracker(tracker if tracker is not None else fed_cfg.track)
@@ -52,17 +64,20 @@ class FedTrainer:
         self.task = make_task(fed_cfg.task, fed_cfg, self.device)
         self.flat, self.unravel = ravel(
             self.task.init_params(torch.Generator().manual_seed(fed_cfg.seed)))
-        # the round stream: each round's cohort, then its kernel seed
+        # the round stream: each round's cohort, its kernel seed, its mask
         self.generator = torch.Generator().manual_seed(fed_cfg.seed + 11)
+        # the host engine's fixed cohorts: the reference's numpy stream
+        self._rng = np.random.default_rng(fed_cfg.seed + 7)
         self.accountant = RenyiAccountant(alphas=fed_cfg.accountant_alphas)
-        # fixed cohorts: every round costs the same per-alpha eps vector
+        # fixed cohorts: every round costs the same per-alpha eps vector;
+        # a realized size n costs _eps_vector(n), memoized per size
         self.per_round_eps = np.asarray([
             self.mech.per_round_epsilon(fed_cfg.clients_per_round, a)
             for a in fed_cfg.accountant_alphas
         ])
+        self._eps_by_n = {fed_cfg.clients_per_round: self.per_round_eps}
         self.server_opt = rounds.server_optimizer(fed_cfg)
         self.opt_state = self.server_opt.init(self.flat)
-        self.pack_bits = rounds.hot_path_pack_bits(self.mech, fed_cfg, self.slate)
         self.round_sums: list = []
         # the cohort size of each accounted round, and per-round tracker
         # extras (indexed like the accountant's history)
@@ -72,13 +87,18 @@ class FedTrainer:
         self.shards = 1  # the shard engine sets its rank count
         self.staged_bytes_total = 0
         self.staged_bytes_last_block = 0
+        # the engine may claim a process group and widen the slate before
+        # anything is staged or built
+        self.engine = engine_cls(self)
+        self.pack_bits = rounds.hot_path_pack_bits(self.mech, fed_cfg, self.slate)
         self.client_data = None  # streamed staging stages each block's cohorts
-        if fed_cfg.staging != "stream":
+        if self.engine.stages_population and fed_cfg.staging != "stream":
             with self.timings.scope("stage"):
                 self.client_data, self.staged_bytes_total = staging.stage_full(
                     self.task, fed_cfg, self.device)
-        self.client_grads = rounds.make_client_grad(self.mech, self.unravel, self.task)
-        self.engine = engine_cls(self)
+        self.client_grads = rounds.make_client_grad(self.mech, self.unravel, self.task,
+                                                    fed_cfg)
+        self.engine.build()
         self._emitter = RoundEmitter(
             self.tracker, engine=fed_cfg.engine, mechanism=self.mech,
             alphas=fed_cfg.accountant_alphas, delta=fed_cfg.budget_delta,
@@ -146,11 +166,32 @@ class FedTrainer:
             self._emitter.emitted = self.accountant.rounds
 
     # -- privacy accounting -----------------------------------------------------
+    def _eps_vector(self, n: int) -> np.ndarray:
+        """The exact per-round eps vector (over cfg.accountant_alphas) of a
+        realized cohort of n clients, memoized per size. n = 0 releases
+        nothing (the all-zero sum does not depend on the data): eps 0."""
+        n = int(n)
+        if n not in self._eps_by_n:
+            if n <= 0:
+                v = np.zeros(len(self.cfg.accountant_alphas))
+            else:
+                v = np.asarray([self.mech.per_round_epsilon(n, a)
+                                for a in self.cfg.accountant_alphas])
+            self._eps_by_n[n] = v
+        return self._eps_by_n[n]
+
     def _account(self, n_rounds: int) -> None:
         """Fixed-cohort composition: every round at clients_per_round."""
         for _ in range(n_rounds):
             self.realized_n.append(self.cfg.clients_per_round)
             self.accountant.step(self.per_round_eps)
+
+    def _account_realized(self, ns) -> None:
+        """Heterogeneous composition: each round at its realized size (the
+        host knows them from the round stream's draws)."""
+        for n in ns:
+            self.realized_n.append(int(n))
+            self.accountant.step(self._eps_vector(n))
 
     def budget_spent(self) -> tuple:
         """(eps spent at cfg.budget_delta, eps remaining); needs
@@ -213,7 +254,9 @@ class FedTrainer:
         ``eval_every`` rounds and after the last; returns the eval records.
         With cfg.budget_eps set, each record carries the (eps,
         budget_delta)-DP spent and remaining, and the run halts after the
-        last round the budget affords. With cfg.ckpt_dir and ckpt_every
+        last round the budget affords (fixed cohorts), or at the first
+        round whose realized spend crosses it (heterogeneous cohorts: an
+        overshoot of at most one round). With cfg.ckpt_dir and ckpt_every
         set, checkpoints land on ckpt_every multiples (blocked engines
         split blocks there, with an eval point at each split); after
         restore_checkpoint(), round numbers continue from the restored
@@ -241,7 +284,9 @@ class FedTrainer:
 
         def affordable(want: int) -> int:
             """How many of the next ``want`` rounds the budget still buys:
-            an exact projection with the constant per-round vector."""
+            an exact projection with the constant per-round vector (under
+            heterogeneous cohorts a nominal-cohort lookahead, the realized
+            spend checked again at the next call)."""
             if budget is None:
                 return want
             if self.budget_spent()[1] <= 0:
@@ -258,6 +303,23 @@ class FedTrainer:
                 if block == 0:
                     halted = True
                     break
+                if budget is not None and self.hetero:
+                    # the realized spend is known only after a round: one
+                    # round at a time, halting at the first crossing (an
+                    # overshoot of at most one round)
+                    ran = 0
+                    while ran < block:
+                        self.run_block(1)
+                        ran += 1
+                        if self.budget_spent()[1] <= 0:
+                            halted = True
+                            break
+                    done += ran
+                    self._maybe_checkpoint()
+                    record(done0 + done)
+                    if halted:
+                        break
+                    continue
                 self.run_block(block)
                 done += block
                 self._maybe_checkpoint()

@@ -4,7 +4,7 @@
 //     g = -x_max + z * scale;   w' = w - lr * g
 //
 // with exactly the float association of repro's grid.decode_sum followed by
-// optim.sgd. Three entries:
+// optim.sgd. Three entries, and two _dev twins:
 //
 //  * decode_apply_sum: z is the dense int32 sum. Replaces the Pallas kernel
 //    repro/kernels/decode_apply_kernel.py:decode_apply_sum_2d (:103).
@@ -12,6 +12,14 @@
 //    straight from the wire words. Replaces the Pallas kernel
 //    repro/kernels/pack_kernel.py:unpack_decode_apply (:138). Unlike the
 //    TPU kernel it takes any word count W, not only multiples of 128.
+//  * decode_apply_sum_dev, unpack_decode_apply_dev: the two entries above
+//    at a realized cohort size n read from device memory (a heterogeneous
+//    cohort, whose size exists only on the device in a captured round):
+//    scale = f32(2 x_max) / f32(n (m-1)), the reference's arithmetic at a
+//    traced n (the by-value entries take the scale rounded once from a
+//    double, the reference's at a static n; the two differ by one ULP at
+//    some n); at n = 0 (an empty round) w' = w. The reference decodes such
+//    rounds in jnp (repro/kernels/decode_apply_kernel.py:138-181).
 //  * decode_apply: the folded form w' = w - (shift + scale * z), with lr
 //    folded into shift = -lr x_max and scale = lr 2 x_max / (n (m-1)). Not
 //    bit-identical to the two above (another association), so no round
@@ -62,6 +70,16 @@ struct Literal {
     return __fsub_rn(w, __fmul_rn(lr, g));
   }
 };
+
+// The step of an empty round (a _dev entry at n = 0): w unchanged.
+struct Keep {
+  __device__ __forceinline__ float operator()(float w, int) const { return w; }
+};
+
+// The scale of a _dev entry at the realized count n > 0.
+__device__ __forceinline__ float count_scale(int n, float two_x_max, int m_minus_1) {
+  return __fdiv_rn(two_x_max, __int2float_rn(n * m_minus_1));
+}
 
 // The step of decode_apply: w - (shift + scale * z).
 struct Folded {
@@ -141,6 +159,33 @@ __global__ void __launch_bounds__(kThreads)
                                         Literal{neg_x_max, scale, lr});
 }
 
+__global__ void __launch_bounds__(kThreads)
+    decode_apply_sum_dev_kernel(const float* __restrict__ w, const int* __restrict__ z,
+                                float* __restrict__ out, int n, const int* __restrict__ count,
+                                float neg_x_max, float two_x_max, int m_minus_1, float lr) {
+  const int k = *count;
+  if (k > 0)
+    decode_walk<1, 1, kSumGroups>(w, z, out, n, n, 0,
+                                  Literal{neg_x_max, count_scale(k, two_x_max, m_minus_1), lr});
+  else
+    decode_walk<1, 1, kSumGroups>(w, z, out, n, n, 0, Keep{});
+}
+
+template <int K, int V>
+__global__ void __launch_bounds__(kThreads)
+    unpack_decode_apply_dev_kernel(const float* __restrict__ w, const int* __restrict__ words,
+                                   float* __restrict__ out, int n, int n_words, int bits,
+                                   const int* __restrict__ count, float neg_x_max,
+                                   float two_x_max, int m_minus_1, float lr) {
+  const int k = *count;
+  if (k > 0)
+    decode_walk<K, V, repro::kWalkGroups>(
+        w, words, out, n, n_words, bits,
+        Literal{neg_x_max, count_scale(k, two_x_max, m_minus_1), lr});
+  else
+    decode_walk<K, V, repro::kWalkGroups>(w, words, out, n, n_words, bits, Keep{});
+}
+
 template <int V, typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_apply_folded_kernel(const T* __restrict__ w, const int* __restrict__ z,
@@ -213,6 +258,33 @@ int unpack_decode_apply(const float* w, const int* words, float* out, int n, int
     unpack_decode_apply_kernel<decltype(k)::value, decltype(width)::value>
         <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             w, words, out, n, n_words, bits, neg_x_max, scale, lr);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// decode_apply_sum at the realized count *count (device memory).
+int decode_apply_sum_dev(const float* w, const int* z, float* out, int n, const int* count,
+                         float neg_x_max, float two_x_max, int m_minus_1, float lr,
+                         void* stream) {
+  constexpr int kPerBlock = kThreads * kSumGroups;
+  if (n < 1 || n > INT_MAX - kPerBlock) return static_cast<int>(cudaErrorInvalidValue);
+  decode_apply_sum_dev_kernel<<<(n + kPerBlock - 1) / kPerBlock, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      w, z, out, n, count, neg_x_max, two_x_max, m_minus_1, lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// unpack_decode_apply at the realized count *count (device memory).
+int unpack_decode_apply_dev(const float* w, const int* words, float* out, int n, int n_words,
+                            int bits, const int* count, float neg_x_max, float two_x_max,
+                            int m_minus_1, float lr, void* stream) {
+  int v, blocks;
+  if (const int err = unpack_decode_walk(n, n_words, bits, w, words, out, &v, &blocks))
+    return err;
+  return repro::dispatch(bits, v, [&](auto k, auto width) {
+    unpack_decode_apply_dev_kernel<decltype(k)::value, decltype(width)::value>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            w, words, out, n, n_words, bits, count, neg_x_max, two_x_max, m_minus_1, lr);
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -13,8 +13,13 @@
     reference's standalone entry, for float32 or bfloat16 ``w``.
 
 Every scalar is the reference's Python double rounded once to float32.
-CUDA kernels in ``csrc/decode_apply.cu`` for CUDA tensors; plain versions
-on the CPU. ``folded_walk`` mirrors the C entry ``decode_apply_walk``:
+The cohort size ``n`` of ``decode_apply_sum`` (and of ``pack_kernel``'s
+``unpack_decode_apply``) is an int, or a 1-element int32 device tensor,
+the realized size of a heterogeneous cohort: that launches the ``_dev``
+entry, which reads it from device memory and computes the scale as the
+reference does at a traced n, ``f32(2 x_max) / f32(n (m-1))``, and at
+n = 0 returns ``w`` unchanged (an empty round moves nothing). CUDA kernels
+in ``csrc/decode_apply.cu`` for CUDA tensors; plain versions on the CPU. ``folded_walk`` mirrors the C entry ``decode_apply_walk``:
 the width and grid of ``decode_apply``'s kernel.
 """
 from __future__ import annotations
@@ -24,12 +29,14 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core import grid
 from repro_torch.core.grid import GridGeometry, decode_scale
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import F32, I32, P
 
 _ARGS = (P, P, P, I32, F32, F32, F32, P)
 _FOLDED_ARGS = (P, P, P, I32, I32, F32, F32, P)
+_DEV_ARGS = (P, P, P, I32, P, F32, F32, I32, F32, P)
 THREADS = 256  # a block (csrc/walk.cuh: kWalkThreads)
 FOLDED_GROUPS = 4  # V-groups a thread of decode_apply (csrc/decode_apply.cu: kFoldedGroups)
 INT_MAX = (1 << 31) - 1
@@ -69,25 +76,44 @@ def f32_decode_constants(params: GridGeometry, n: int, lr: float) -> dict:
     }
 
 
+def count_constants(params: GridGeometry, lr: float) -> tuple:
+    """The scalars of a ``_dev`` entry after the count's pointer:
+    (-x_max, 2 x_max, each rounded once to float32; m - 1; lr in float32)."""
+    return (float(np.float32(-params.x_max)), float(np.float32(2.0 * params.x_max)),
+            params.m - 1, float(np.float32(lr)))
+
+
 def decode_apply_plain(w: torch.Tensor, z: torch.Tensor, params: GridGeometry,
-                       n: int, lr: float) -> torch.Tensor:
+                       n, lr: float) -> torch.Tensor:
     """Plain version: the elementwise expression on (dim,) ``w`` and an
-    int32 level sum ``z`` of the same length."""
+    int32 level sum ``z`` of the same length; at a device count ``n``, the
+    plain version of the ``_dev`` entries (``w`` where the count is 0)."""
+    if isinstance(n, torch.Tensor):
+        count = n.reshape(())
+        g = grid.decode_sum(z, count.clamp(min=1), params)
+        return torch.where(count > 0, w - float(np.float32(lr)) * g, w)
     k = f32_decode_constants(params, n, lr)
     g = k["neg_x_max"] + z.to(torch.float32) * k["scale"]
     return w - k["lr"] * g
 
 
-def check_apply_args(w: torch.Tensor, n: int):
+def check_apply_args(w: torch.Tensor, n):
+    """``w`` a non-empty flat vector; ``n`` a positive int or a 1-element
+    int32 count on ``w``'s device (any value >= 0)."""
     if w.ndim != 1 or w.numel() < 1:
         raise ValueError(f"w must be a non-empty flat vector, got {tuple(w.shape)}")
-    if not isinstance(n, int) or n < 1:
+    if isinstance(n, torch.Tensor):
+        if n.numel() != 1 or n.dtype != torch.int32 or n.device != w.device:
+            raise ValueError(f"a device count must be 1 int32 element on {w.device}, got "
+                             f"{tuple(n.shape)} {n.dtype} on {n.device}")
+    elif not isinstance(n, int) or n < 1:
         raise ValueError(f"cohort size n must be a positive int, got {n!r}")
 
 
 def decode_apply_sum(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
-                     n: int, lr: float) -> torch.Tensor:
-    """Updated (dim,) float32 params from the dense (dim,) int32 sum."""
+                     n, lr: float) -> torch.Tensor:
+    """Updated (dim,) float32 params from the dense (dim,) int32 sum, at
+    the cohort size ``n`` (an int, or a device count: the ``_dev`` entry)."""
     check_apply_args(w, n)
     if z_sum.shape != w.shape:
         raise ValueError(f"z_sum must be {tuple(w.shape)}, got {tuple(z_sum.shape)}")
@@ -96,8 +122,15 @@ def decode_apply_sum(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
     _build.check_cuda("w", w, torch.float32)
     _build.check_cuda("z_sum", z_sum, torch.int32)
     out = torch.empty_like(w)
-    k = f32_decode_constants(params, n, lr)
     with torch.cuda.device(w.device):
+        if isinstance(n, torch.Tensor):
+            _build.launch(
+                "decode_apply", "decode_apply_sum_dev", _DEV_ARGS,
+                w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(), n.data_ptr(),
+                *count_constants(params, lr), _build.stream_of(w),
+            )
+            return out
+        k = f32_decode_constants(params, n, lr)
         _build.launch(
             "decode_apply", "decode_apply_sum", _ARGS,
             w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(),

@@ -33,11 +33,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import F32, I32, P
 from repro_torch.kernels.decode_apply_kernel import (
     check_apply_args,
+    count_constants,
     decode_apply_plain,
     f32_decode_constants,
 )
 
 _ARGS = (P, P, P, I32, I32, I32, F32, F32, F32, P)
+_DEV_ARGS = (P, P, P, I32, I32, I32, P, F32, F32, I32, F32, P)
 _CODEC_ARGS = (P, P, I32, I32, I32, P)
 THREADS = 256  # a block of the walk's kernels (csrc/walk.cuh: kWalkThreads)
 GROUPS = 2  # V-groups a thread walks (csrc/walk.cuh: kWalkGroups)
@@ -116,16 +118,19 @@ def unpack_flat(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     return z
 
 
-def unpack_decode_apply_plain(w, words, params: GridGeometry, n: int, lr: float,
+def unpack_decode_apply_plain(w, words, params: GridGeometry, n, lr: float,
                               *, pack_bits: int) -> torch.Tensor:
-    """Plain version: unpack the words, then the dense decode + apply."""
+    """Plain version: unpack the words, then the dense decode + apply (at
+    a device count ``n``, the ``_dev`` entry's)."""
     z = wire.unpack_bits(words, pack_bits, w.numel())
     return decode_apply_plain(w, z, params, n, lr)
 
 
 def unpack_decode_apply(w: torch.Tensor, words: torch.Tensor, params: GridGeometry,
-                        n: int, lr: float, *, pack_bits: int) -> torch.Tensor:
-    """Updated (dim,) float32 params from the packed (W,) int32 sum."""
+                        n, lr: float, *, pack_bits: int) -> torch.Tensor:
+    """Updated (dim,) float32 params from the packed (W,) int32 sum, at
+    the cohort size ``n``: an int, or a 1-element int32 device count (the
+    ``unpack_decode_apply_dev`` entry; ``w`` itself at a count of 0)."""
     check_apply_args(w, n)
     n_words = wire.packed_words(w.numel(), pack_bits)
     if words.shape != (n_words,):
@@ -138,6 +143,15 @@ def unpack_decode_apply(w: torch.Tensor, words: torch.Tensor, params: GridGeomet
     _build.check_cuda("w", w, torch.float32)
     _build.check_cuda("words", words, torch.int32)
     out = torch.empty_like(w)
+    if isinstance(n, torch.Tensor):
+        with torch.cuda.device(w.device):
+            _build.launch(
+                "decode_apply", "unpack_decode_apply_dev", _DEV_ARGS,
+                w.data_ptr(), words.data_ptr(), out.data_ptr(), w.numel(), n_words,
+                int(pack_bits), n.data_ptr(), *count_constants(params, lr),
+                _build.stream_of(w),
+            )
+        return out
     k = f32_decode_constants(params, n, lr)
     with torch.cuda.device(w.device):
         _build.launch(

@@ -794,3 +794,69 @@ def test_noop_tracker_makes_no_sync_in_a_graphed_block(deterministic, tmp_path):
     doc = json.loads(path.read_text())
     assert [r["round"] for r in doc["rounds"]] == [1, 2, 3, 4, 5]
     assert doc["meta"]["backend"] == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,count", [(b, k) for b in (10, 11) for k in (0, 1, 29, 82)],
+                         ids=str)
+def test_dev_decode_entries_match_plain(cuda, bits, count):
+    """decode_apply_sum_dev and unpack_decode_apply_dev read the realized
+    count from device memory: each equals its plain version on the card
+    and on the CPU, and the packed equals the dense; at 0 the parameters
+    are returned unchanged; at 29 the traced scale differs from the fixed
+    cohort's double, so the by-value entry gives other bits."""
+    gen = torch.Generator().manual_seed(bits * 100 + count)
+    n = 3001
+    w = torch.randn(n, generator=gen) * 0.05
+    z = torch.randint(0, 82 * 15 + 1 if bits == 11 else 40 * 15 + 1, (n,), generator=gen,
+                      dtype=torch.int32)
+    words = wire.pack_bits(z, bits)
+    k = torch.tensor([count], dtype=torch.int32)
+    want = decode_apply_kernel.decode_apply_plain(w, z, PARAMS, k, 0.5)
+    ops.reset_launches()
+    got = decode_apply_kernel.decode_apply_sum(w.to(cuda), z.to(cuda), PARAMS, k.to(cuda), 0.5)
+    got_p = pack_kernel.unpack_decode_apply(w.to(cuda), words.to(cuda), PARAMS, k.to(cuda), 0.5,
+                                            pack_bits=bits)
+    assert dict(ops.launches) == {"decode_apply_sum_dev": 1, "unpack_decode_apply_dev": 1}
+    assert torch.equal(got.cpu(), want) and torch.equal(got_p.cpu(), want)
+    assert torch.equal(got, decode_apply_kernel.decode_apply_plain(
+        w.to(cuda), z.to(cuda), PARAMS, k.to(cuda), 0.5))
+    if count == 0:
+        assert torch.equal(want, w)
+    else:
+        by_value = decode_apply_kernel.decode_apply_sum(w.to(cuda), z.to(cuda), PARAMS, count,
+                                                        0.5)
+        assert torch.equal(by_value, got) == (count != 29)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused,packed", [(False, None), (True, None), (True, False)],
+                         ids=["materialized", "fused packed", "fused dense"])
+def test_graphed_poisson_round_equals_perround(deterministic, fused, packed):
+    """A Poisson cohort with dropout: 4 graphed scan rounds in blocks of 2
+    against 4 eager perround rounds: parameters, sums, realized sizes and
+    RDP bit for bit; the graph launched the masked _dev round sum or
+    quantize and the _dev decode once a round."""
+    cfg = FedConfig(collect_sums=True, fused_rounds=fused, wire_packed=packed, scan_block=2,
+                    subsampling="poisson", max_cohort=8, dropout=0.2,
+                    **{**SMALL, "clients_per_round": 4})
+    scan = FedTrainer(SPECS["rqm"], cfg, device=deterministic)
+    ops.reset_launches()
+    scan.run_block(4)
+    counts = dict(ops.launches)
+    per = FedTrainer(SPECS["rqm"], dataclasses.replace(cfg, engine="perround"),
+                     device=deterministic)
+    for _ in range(4):
+        per.round()
+    if not fused:
+        assert counts == {"rqm_quantize_dev": 4}
+    elif packed is None:
+        assert counts == {"rqm_round_sum_packed_dev": 4, "unpack_decode_apply_dev": 4,
+                          "unpack_flat": 4}
+    else:
+        assert counts == {"rqm_round_sum_dense_dev": 4, "decode_apply_sum_dev": 4}
+    assert scan.realized_n == per.realized_n and scan.slate == 8
+    assert torch.equal(scan.flat, per.flat)
+    for a, b in zip(scan.round_sums, per.round_sums):
+        np.testing.assert_array_equal(a, b)
+    assert scan.accountant.rdp_epsilon(8.0) == per.accountant.rdp_epsilon(8.0)

@@ -262,11 +262,9 @@ def test_wire_width_selection():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(engine="host"),
     # the shard engine is ported; its 2-D client x model mesh is not
     pytest.param(dict(engine="shard", model_shards=2), id="engine=shard"),
     dict(engine="async"),
-    dict(subsampling="poisson"), dict(dropout=0.2), dict(local_steps=2),
     dict(task="lm"),
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(overrides):
