@@ -102,6 +102,32 @@ which raises and exits non-zero:
      overshoots by at most one round; (e) reported, not gated: graphed
      rounds/s of the Poisson round over 5 blocks of 20 (no
      synchronisation inside them), against phase 5c's fixed round;
+  5f. the async engine at the paper's widths, rqm, collect_sums: (a)
+     ``engine="async"``, cadence 40, max_staleness 0, no timeout (the
+     plain corner): 5 rounds == eager perround, parameters and sums bit
+     for bit; (b) ``ASYNC_SPEC`` (max_staleness 4, poly:0.5 discount) with
+     timeout 2 (late clients), materialized == fused dense bit for bit,
+     some weight-0 row and some stale version among the 5 aggregations,
+     each aggregation's eps vector == per_round_epsilon at its realized
+     size; (c) streamed staging == full; (d) aggregations whose rows all
+     time out (momentum) move neither the parameters nor the state, at
+     eps 0; (e) 4 checkpointed rounds == resumed at 2 (parameters, ring,
+     arrival trace, accountant); (f) reported: rounds/s of the stale
+     round, the plain corner and eager perround, in turns, 5 x 20;
+  5g. the aggregator round-server at the paper's widths (rqm, 222,030,
+     cohort 40): (a) a producer thread makes 6 rounds of 4-bit packed
+     uplinks (``simulate_client_updates(packed=True)``: the quantize
+     kernel, then pack_flat) and submits them (``block=True``) to a queue
+     of 8 batches while ``start()``'s service thread serves: the producer
+     must wait on the full queue, each round's SecAgg sum (unpack_flat a
+     payload, on the card) == the host's numpy sum, the parameters == a
+     CPU replay within the 1-ULP contract; (b) the same levels packed at
+     10 bits, where the cohort's bound fits: the packed-direct word sum
+     (unpack_flat once a round) == (a)'s sums and parameters bit for bit;
+     (c) a budget of 3 rounds: halted after 3, further submits refused;
+     (d) resumed from (a)'s checkpoint at round 3: bit for bit; (e)
+     reported: rounds served a second, packed and dense uplink, 3 reps,
+     and the uplink bytes a round;
   6. profile: device time by kernel over 3 more rounds of FedConfig()'s
      trainer for each mechanism (graphed; phase 5's, and phase 5c's for
      rqm), of phase 5e's graphed Poisson round, of the graphed fused packed
@@ -113,7 +139,7 @@ which raises and exits non-zero:
      ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
      (reported, not gated).
 
-Every run of phases 4, 5, 5b, 5d and 5e (but their reports) sets the kernels' launch counters to 0
+Every run of phases 4 to 5g (but their reports) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
@@ -196,6 +222,22 @@ FLOOR_ROWS = ("decode_apply_sum", "unpack_decode_apply", "pack_flat", "unpack_fl
 # cohort's double), the paper's cohort and its Poisson slate
 DEV_COUNTS = (0, 1, 29, 40, 82)
 HETERO_ROUNDS = 2  # phase 5e's empty rounds (dropout 0.999)
+# phase 5f: the stale async deployment; a timeout of 2 under the default
+# mean latency of 1 makes a client late with probability e^-2 (about 5 of
+# 40 an aggregation)
+ASYNC_SPEC = "async:cadence=40,max_staleness=4,staleness_weight=poly:0.5"
+ASYNC_TIMEOUT = 2.0
+ASYNC_EMPTY = 2  # all-timeout aggregations
+ASYNC_RESUME = 4  # rounds of the checkpointed run, resumed at half
+# phase 5g: rounds served (checkpointed at half), client updates a
+# submitted batch, the queue's batches, the rounds the budget affords,
+# reps of the clock
+AGG_ROUNDS = 6
+AGG_BATCH = 4
+AGG_QUEUE = 8
+AGG_HALT = 3
+AGG_REPS = 3
+AGG_CYCLES = 15  # the clock's passes over the 6 rounds' payloads: 90 rounds a rep
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -659,9 +701,9 @@ def check_codec(torch, pack_kernel, dense, packed) -> None:
     the dense round sum is the fused packed sum, unpack_flat inverts it,
     and a 16-bit top field that sets the sign bit round-trips. Then both
     entries on views that start 1 to 3 words past the tensors' aligned
-    addresses, at 10 and 16 bits, bit-exact against their plain versions;
-    each launch's walk (V, blocks) as the C entry takes it and as
-    ``codec_walk`` picks it."""
+    addresses, at 4 bits (the uplink's width: 8 fields fill a word), 10
+    and 16 bits, bit-exact against their plain versions; each launch's walk
+    (V, blocks) as the C entry takes it and as ``codec_walk`` picks it."""
     if not torch.equal(pack_kernel.pack_flat(dense, BITS), packed):
         raise AssertionError("pack_flat of the dense round sum differs from the packed sum")
     if not torch.equal(pack_kernel.unpack_flat(packed, BITS, DIM), dense):
@@ -676,7 +718,9 @@ def check_codec(torch, pack_kernel, dense, packed) -> None:
             and torch.equal(back, pack_kernel.unpack_flat_plain(words16, 16, DIM))):
         raise AssertionError("16-bit unpack_flat does not round-trip the sign-bit field")
     walks = []
-    for bits, z, words in ((BITS, dense, packed), (16, top, words16)):
+    z4 = dense & 15  # the round sum's low 4 bits: every field of a 4-bit word
+    words4 = pack_kernel.pack_flat_plain(z4, 4)
+    for bits, z, words in ((4, z4, words4), (BITS, dense, packed), (16, top, words16)):
         for offset in range(4):
             zv, wv = (torch.cat([t.new_zeros(offset), t])[offset:] for t in (z, words))
             got_words = pack_kernel.pack_flat(zv, bits)
@@ -692,8 +736,8 @@ def check_codec(torch, pack_kernel, dense, packed) -> None:
                     for a, b in ((zv, got_words), (wv, got_z))]
             walks.append(f"{bits} bits, offset {offset}: pack {walk[0]}, unpack {walk[1]}")
     log(f"[kernels] codec: pack_flat(dense) == packed sum, unpack_flat inverts it, 16-bit "
-        f"sign-bit round trip over {words16.numel()} words, views at offsets 0-3 at 10 and "
-        f"16 bits: bit-exact; walks (V, blocks): " + "; ".join(walks))
+        f"sign-bit round trip over {words16.numel()} words, views at offsets 0-3 at 4, 10 "
+        f"and 16 bits: bit-exact; walks (V, blocks): " + "; ".join(walks))
 
 
 def check_decode(torch, pack_kernel, decode_apply_kernel, params_w, dense, params, n: int,
@@ -1337,7 +1381,7 @@ def hetero_cohorts(torch, FedConfig, run, counted, clock: dict, card: str) -> di
         raise AssertionError(f"[5e] budget halt: {tr.accountant.rounds} rounds, spent {spent} "
                              f"of {budget}")
     report["budget halt"] = {"budget_eps": budget, "rounds": tr.accountant.rounds,
-                             "realized_n": tr.realized_n, "eps_spent": spent,
+                             "realized_n": list(tr.realized_n), "eps_spent": spent,
                              "overshoot": bool(spent > budget)}
     log(f"[5e] budget halt under dropout 0.5: {tr.accountant.rounds} rounds "
         f"{tr.realized_n}, eps_spent {spent} of {budget}")
@@ -1376,6 +1420,351 @@ def hetero_cohorts(torch, FedConfig, run, counted, clock: dict, card: str) -> di
         f"fixed round {clock['rounds_per_s']['scan']['median']}; {len(sizes)} sizes accounted "
         f"in {memo_s} s; nvidia-smi: {card}")
     return report, tr
+
+
+def async_engine(torch, FedConfig, run, counted, clock: dict, card: str) -> dict:
+    """Phase 5f: the async engine at the paper's widths, rqm, each run
+    counted (``run`` for ROUNDS-round runs, ``counted`` for the others).
+    Returns the report."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.fed.trainer import FedTrainer
+
+    spec, R, quiet = SPECS["rqm"], ROUNDS, (lambda msg: None)
+    report = {}
+
+    # (a) the plain corner is perround's round, bit for bit
+    plain = run(spec, FedConfig(engine="async", async_cadence=ROWS, collect_sums=True),
+                {"rqm_quantize": R}, "[5f] async plain corner")
+    if not plain.engine._plain:
+        raise AssertionError("[5f] cadence 40, max_staleness 0, no timeout: not the plain corner")
+    per = run(spec, FedConfig(engine="perround", collect_sums=True), {"rqm_quantize": R},
+              "[5f] perround")
+    same_runs(torch, {"[5f] perround": per, "[5f] async plain corner": plain},
+              "[5f] the async plain corner and eager perround")
+
+    # (b) stale versions and late clients: materialized == fused dense, each
+    # aggregation accounted at its realized size
+    stale = FedConfig(engine=ASYNC_SPEC, async_timeout=ASYNC_TIMEOUT, collect_sums=True)
+    tr = run(spec, stale, {"rqm_quantize": R}, "[5f] async stale materialized")
+    fused = run(spec, dataclasses.replace(stale, fused_rounds=True), {"rqm_round_sum_dense": R},
+                "[5f] async stale fused dense")
+    same_runs(torch, {"materialized": tr, "fused dense": fused},
+              "[5f] async, max_staleness 4, timeout 2: materialized and fused dense")
+    extras = tr.round_extras
+    if not any(n < ROWS for n in tr.realized_n) or max(e["staleness_max"] for e in extras) < 1:
+        raise AssertionError(f"[5f] no weight-0 row or no stale version: {extras}")
+    for vec, n in zip(tr.accountant.history, tr.realized_n):
+        want = [tr.mech.per_round_epsilon(n, a) if n else 0.0 for a in tr.cfg.accountant_alphas]
+        if not np.array_equal(vec, want):
+            raise AssertionError(f"[5f] an aggregation of {n} is not accounted at {n}")
+    report["stale"] = {"spec": ASYNC_SPEC, "timeout": ASYNC_TIMEOUT,
+                       "realized_n": list(tr.realized_n),
+                       "staleness_max": [e["staleness_max"] for e in extras],
+                       "staleness_discount": [e["staleness_discount"] for e in extras]}
+    log(f"[5f] stale and late: realized {tr.realized_n}, staleness "
+        f"{report['stale']['staleness_max']}, materialized == fused dense, accounted at "
+        f"the realized sizes")
+    del fused
+
+    # (c) streamed staging == full staging
+    streamed = run(spec, dataclasses.replace(stale, staging="stream"), {"rqm_quantize": R},
+                   "[5f] async stale streamed")
+    same_runs(torch, {"full": tr, "streamed": streamed}, "[5f] async: full and streamed staging")
+    report["streamed"] = {"staged_bytes_total": streamed.staged_bytes_total,
+                          "staged_bytes_last_block": streamed.staged_bytes_last_block}
+    del streamed
+
+    # (d) aggregations whose rows all time out move nothing, cost nothing
+    empty = FedTrainer(spec, dataclasses.replace(stale, async_timeout=1e-6, server_opt="momentum",
+                                                 collect_sums=False), device="cuda")
+    flat, m = empty.flat.clone(), empty.opt_state["m"].clone()
+    counted("[5f] all-timeout aggregations", {"rqm_quantize": ASYNC_EMPTY},
+            lambda: [empty.round() for _ in range(ASYNC_EMPTY)])
+    if empty.realized_n != [0] * ASYNC_EMPTY or not torch.equal(empty.flat, flat) or \
+            not torch.equal(empty.opt_state["m"], m) or empty.accountant.rdp_epsilon(8.0) != 0.0:
+        raise AssertionError(f"[5f] all-timeout aggregations moved the state or cost eps: "
+                             f"{empty.realized_n}")
+    report["all timeout"] = {"realized_n": empty.realized_n}
+    log(f"[5f] all-timeout aggregations: realized {empty.realized_n}, nothing moved")
+    del empty
+
+    # (e) a resumed run continues bit for bit
+    out_dir = os.path.join(ROOT, "build", "phase5f")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = dataclasses.replace(stale, collect_sums=False, ckpt_dir=out_dir,
+                              ckpt_every=ASYNC_RESUME // 2)
+    full = FedTrainer(spec, cfg, device="cuda")
+    counted("[5f] checkpointed", {"rqm_quantize": ASYNC_RESUME},
+            lambda: full.train(ASYNC_RESUME, eval_every=ASYNC_RESUME, log=quiet))
+    res = FedTrainer(spec, cfg, device="cuda")
+    res.restore_checkpoint(ASYNC_RESUME // 2)
+    counted("[5f] resumed", {"rqm_quantize": ASYNC_RESUME - ASYNC_RESUME // 2},
+            lambda: res.train(ASYNC_RESUME - ASYNC_RESUME // 2, eval_every=ASYNC_RESUME,
+                              log=quiet))
+    same_state(torch, full, res, "[5f] async: uninterrupted and resumed")
+    if not torch.equal(full.engine.hist, res.engine.hist) or \
+            full.engine.sim._agg_times != res.engine.sim._agg_times:
+        raise AssertionError("[5f] async: the resumed ring or arrival trace differs")
+    log(f"[5f] resumed at {ASYNC_RESUME // 2} of {ASYNC_RESUME}: parameters, ring, arrival "
+        f"trace and accountant bit for bit")
+    del full, res
+
+    # (f) reported: rounds/s on the host's clock, in turns with eager
+    # perround, no sums kept (no read back a round), beside phase 5c's
+    runs = {"async stale": tr, "async plain corner": plain, "perround": per}
+    rates = {name: [] for name in runs}
+    for t in runs.values():
+        t.cfg.collect_sums = False
+    for _ in range(HOST_REPS):
+        for name, t in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.engine.advance(HOST_ROUNDS)
+            torch.cuda.synchronize()
+            rates[name].append(HOST_ROUNDS / (time.perf_counter() - t0))
+    report["clock"] = {
+        "rounds": HOST_ROUNDS, "card": card,
+        "rounds_per_s": {name: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                                "reps": len(v), "each": v} for name, v in rates.items()},
+        "phase5c_rounds_per_s_median": {k: v["median"]
+                                        for k, v in clock["rounds_per_s"].items()}}
+    log(f"[5f] rounds/s (median of {HOST_REPS} x {HOST_ROUNDS}, in turns): async stale "
+        f"{report['clock']['rounds_per_s']['async stale']['median']}, async plain corner "
+        f"{report['clock']['rounds_per_s']['async plain corner']['median']}, eager perround "
+        f"{report['clock']['rounds_per_s']['perround']['median']}; phase 5c eager "
+        f"perround {clock['rounds_per_s']['perround']['median']}, graphed scan "
+        f"{clock['rounds_per_s']['scan']['median']}; nvidia-smi: {card}")
+    return report
+
+
+def aggregator(torch, counted, card: str) -> dict:
+    """Phase 5g: the aggregator round-server at the paper's widths, rqm,
+    each gated run counted. Returns the report."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import wire
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.core.renyi import RenyiAccountant
+    from repro_torch.fed.cohort import draw_seed
+    from repro_torch.launch.aggregator import (AggregatorServer, _simulated_grads,
+                                               simulate_client_updates)
+
+    mech = make_mechanism(SPECS["rqm"])
+    R, H, per_round = AGG_ROUNDS, AGG_ROUNDS // 2, ROWS // AGG_BATCH
+    out_dir = os.path.join(ROOT, "build", "phase5g")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    report = {}
+
+    def server(**kw):
+        return AggregatorServer(mech, DIM, cohort=ROWS, device="cuda", **kw)
+
+    def keep_sums(srv) -> list:
+        """Each round's SecAgg sum, read back as the server makes it."""
+        sums, secure_sum = [], srv._secure_sum
+
+        def kept(take):
+            z = secure_sum(take)
+            sums.append(z.cpu().numpy())
+            return z
+
+        srv._secure_sum = kept
+        return sums
+
+    def serve(srv, produce, rounds: int) -> tuple[float, int, list]:
+        """The service thread serves while a producer thread runs
+        ``produce(submit)``, ``submit`` a blocking submit that records its
+        wait; returns the steady seconds, from the first poll that sees a
+        round served to the last round (no thread start-up, no first
+        round), the rounds served in them, and the waits."""
+        waits, errors = [], []
+
+        def submit(batch):
+            t0 = time.perf_counter()
+            if not srv.submit(batch, block=True, timeout=120.0):
+                raise AssertionError("[5g] a blocking submit was refused")
+            waits.append(time.perf_counter() - t0)
+
+        def producer():
+            try:
+                produce(submit)
+            except BaseException as err:  # re-raised below
+                errors.append(err)
+
+        srv.start(poll=0.0005)
+        thread = threading.Thread(target=producer)
+        thread.start()
+        deadline, t_first, seen = time.perf_counter() + 120.0, 0.0, 0
+        while srv.rounds_served < rounds and time.perf_counter() < deadline and not errors:
+            if not seen and srv.rounds_served:
+                t_first, seen = time.perf_counter(), srv.rounds_served
+            time.sleep(0.0002)
+        seconds = time.perf_counter() - t_first
+        thread.join()
+        srv.shutdown()
+        if errors:
+            raise errors[0]
+        if srv.rounds_served != rounds:
+            raise AssertionError(f"[5g] served {srv.rounds_served} of {rounds} rounds")
+        return seconds, rounds - seen, waits
+
+    # (a) packed uplink through the service thread, with backpressure
+    first = server(queue_limit=AGG_QUEUE, ckpt_dir=out_dir, ckpt_every=H)
+    sums = keep_sums(first)
+    gen = torch.Generator().manual_seed(0)
+    batches: list = []
+
+    def produce(submit):
+        # every batch made first, then submitted as fast as the queue takes it
+        for i in range(R * per_round):
+            batches.append(simulate_client_updates(
+                mech, DIM, gen, AGG_BATCH, round_tag=i // per_round, first_id=i * AGG_BATCH,
+                packed=True, device="cuda"))
+        for b in batches:
+            submit(b)
+
+    n = R * ROWS
+    served = {}
+    counted("[5g] packed service", {"rqm_quantize": n, "pack_flat": n, "unpack_flat": n},
+            lambda: served.update(zip(("seconds", "timed", "waits"),
+                                      serve(first, produce, R))))
+    blocked = sum(1 for w in served["waits"] if w > 1e-3)
+    if not blocked:
+        raise AssertionError("[5g] the producer never waited on the full queue")
+    rounds_of = [[u for b in batches[r * per_round:(r + 1) * per_round] for u in b]
+                 for r in range(R)]
+    for r, take in enumerate(rounds_of):
+        host = np.sum([u.payload.unpack().astype(np.int64) for u in take], axis=0)
+        if not np.array_equal(sums[r], host):
+            raise AssertionError(f"[5g] round {r}'s SecAgg sum is not the host sum")
+    if any(u.payload.bits != 4 for take in rounds_of for u in take):
+        raise AssertionError("[5g] the uplink is not 4-bit packed")
+    # the first batch's words are its levels packed by the host's numpy
+    # codec: the clients' gradients and seeds redrawn from the stream
+    # (simulate_client_updates' order), quantized on the card again
+    replay = torch.Generator().manual_seed(0)
+    grads = _simulated_grads(mech, DIM, replay, AGG_BATCH, "cuda")
+    for u, g, seed in zip(batches[0], grads, [draw_seed(replay) for _ in range(AGG_BATCH)]):
+        levels = mech.quantize(g, seed).reshape(-1).cpu().numpy()
+        if not np.array_equal(u.payload.words, wire.pack_bits_np(levels, 4)):
+            raise AssertionError("[5g] encode_wire's 4-bit words are not its levels packed")
+    # a CPU replay of the port's server on the same payloads
+    cpu = AggregatorServer(mech, DIM, cohort=ROWS, device="cpu")
+    for b in batches:
+        cpu.submit(b)
+    cpu.drain()
+    got, want = first.flat.cpu().numpy(), cpu.flat.numpy()
+    tol = R * (first.lr * np.spacing(np.float32(2.0 * mech.params.x_max))
+               + np.spacing(np.maximum(np.abs(got), np.abs(want)).astype(np.float32)))
+    if cpu.realized_n != first.realized_n or not np.all(np.abs(got - want) <= tol):
+        raise AssertionError("[5g] the card's server and its CPU replay differ")
+    report["packed service"] = {
+        "rounds": R, "cohort": ROWS, "batch": AGG_BATCH, "queue_limit": AGG_QUEUE,
+        "submits_blocked": blocked, "submits": len(served["waits"]), "sums_equal_host": True,
+        "words_equal_host_pack": AGG_BATCH,
+        "cpu_replay_bit_for_bit": bool(np.array_equal(got, want)),
+        "uplink_bytes_a_round": first.round_extras[0]["uplink_bytes"],
+        "eps_spent": first.snapshot()["eps_spent"]}
+    del cpu
+
+    # (b) packed-direct: the same levels packed at 10 bits, where the cohort
+    # of 40's bound (600) fits, add as words and unpack once a round
+    wide = [[dataclasses.replace(u, payload=wire.PackedPayload.pack(u.payload.unpack(), BITS))
+             for u in b] for b in batches]
+    direct = server(queue_limit=len(wide))
+    direct_sums = keep_sums(direct)
+
+    def direct_run():
+        for b in wide:
+            direct.submit(b)
+        direct.drain()
+
+    counted("[5g] packed-direct", {"unpack_flat": R}, direct_run)
+    if not (all(np.array_equal(a, b) for a, b in zip(direct_sums, sums))
+            and len(direct_sums) == R and torch.equal(direct.flat, first.flat)):
+        raise AssertionError("[5g] the packed-direct sums differ from the unpacked ones")
+    report["packed direct"] = {"bits": BITS, "rounds": R, "bit_for_bit": True,
+                               "uplink_bytes_a_round": direct.round_extras[0]["uplink_bytes"]}
+    log(f"[5g] packed-direct at {BITS} bits == unpack at intake, bit for bit, {R} rounds")
+    del direct
+
+    # (c) the budget halt: exactly at exhaustion, then every submit refused
+    acc = RenyiAccountant(alphas=first.accountant.alphas)
+    vec = first._eps_vector(ROWS)
+    at, after = (acc.projected_dp_epsilon(first.budget_delta, vec, rounds)[0]
+                 for rounds in (AGG_HALT, AGG_HALT + 1))
+    budget = at + (after - at) / 2
+    halting = server(queue_limit=len(batches), budget_eps=budget)
+
+    def halt_run():
+        for b in batches:
+            halting.submit(b, block=False)
+        halting.drain()
+
+    counted("[5g] budget halt", {"unpack_flat": AGG_HALT * ROWS}, halt_run)
+    snap = halting.snapshot()
+    if not (snap["halted"] and snap["rounds_served"] == AGG_HALT and snap["eps_spent"] <= budget
+            and not halting.submit(batches[0], block=False)):
+        raise AssertionError(f"[5g] budget halt: {snap}")
+    report["budget halt"] = {"budget_eps": budget, "rounds": snap["rounds_served"],
+                             "eps_spent": snap["eps_spent"],
+                             "batches_rejected": halting.batches_rejected}
+    log(f"[5g] budget halt: {snap['rounds_served']} rounds, eps_spent {snap['eps_spent']} of "
+        f"{budget}, further submits refused")
+    del halting
+
+    # (d) a checkpoint resumes, and the resumed server continues identically
+    resumed = server(queue_limit=len(batches), ckpt_dir=out_dir)
+    if resumed.resume(H) != H:
+        raise AssertionError("[5g] resumed at the wrong round")
+
+    def resume_run():
+        for b in batches[H * per_round:]:
+            resumed.submit(b)
+        resumed.drain()
+
+    counted("[5g] resumed", {"unpack_flat": (R - H) * ROWS}, resume_run)
+    if not (torch.equal(resumed.flat, first.flat) and resumed.realized_n == first.realized_n
+            and all(np.array_equal(a, b) for a, b in zip(resumed.accountant.history,
+                                                       first.accountant.history))):
+        raise AssertionError("[5g] the resumed server differs from the uninterrupted one")
+    log(f"[5g] resumed at {H} of {R}: parameters and accountant bit for bit")
+    del resumed
+
+    # (e) reported: rounds served a second through the service thread in
+    # steady serve, packed against dense uplink, the payloads made
+    # beforehand and cycled
+    forms = {"packed": batches,
+             "dense": [[dataclasses.replace(u, payload=u.payload.unpack()) for u in b]
+                       for b in batches]}
+    rates = {name: [] for name in forms}
+    uplink = {}
+    clock_rounds = AGG_CYCLES * R
+    for _ in range(AGG_REPS):
+        for name, form in forms.items():
+            srv = server(queue_limit=AGG_QUEUE)
+            seconds, timed, _ = serve(
+                srv, lambda submit: [submit(b) for b in form * AGG_CYCLES], clock_rounds)
+            rates[name].append(timed / seconds)
+            uplink[name] = srv.round_extras[0]["uplink_bytes"]
+    report["clock"] = {
+        "rounds": clock_rounds, "card": card,
+        "uplink_bytes_a_round": uplink,
+        "rounds_per_s": {name: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                                "reps": len(v), "each": v} for name, v in rates.items()}}
+    log(f"[5g] packed service {R} rounds: SecAgg sums == host sums, CPU replay within the "
+        f"1-ULP contract (bit for bit: {report['packed service']['cpu_replay_bit_for_bit']})")
+    log(f"[5g] rounds served/s in steady serve (of {clock_rounds}, the rounds after the "
+        f"first a poll sees, median of {AGG_REPS}): packed "
+        f"{report['clock']['rounds_per_s']['packed']['median']}, dense "
+        f"{report['clock']['rounds_per_s']['dense']['median']}; uplink bytes a round: packed "
+        f"{uplink['packed']}, dense {uplink['dense']}; nvidia-smi: {card}")
+    return report
 
 
 def fill_sources(torch, tr, rounds: int) -> dict:
@@ -1605,6 +1994,12 @@ def main() -> int:
     # phase 5e: heterogeneous cohorts, each run counted
     hetero, poisson = hetero_cohorts(torch, FedConfig, run, counted, clock, card)
     log(json.dumps({"hetero": hetero}))
+
+    # phase 5f: the async engine, each run counted
+    log(json.dumps({"async": async_engine(torch, FedConfig, run, counted, clock, card)}))
+
+    # phase 5g: the aggregator round-server, each gated run counted
+    log(json.dumps({"aggregator": aggregator(torch, counted, card)}))
 
     # phase 6: where a warm round spends device time, FedConfig()'s round
     # for each mechanism (graphed), the graphed fused packed round, the

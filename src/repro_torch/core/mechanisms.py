@@ -149,6 +149,37 @@ class Mechanism:
         return self.encode_sum_batch(self._clip(g), seed, weights=weights,
                                      row_offset=row_offset, pack_bits=pack_bits)
 
+    # -- wire format (core/wire.py) ------------------------------------------
+    @property
+    def payload_bits(self):
+        """Minimal width of one client's message fields, the bit length of
+        ``sum_bound(1)`` (RQM m=16: levels reach 15, 4 bits; PBM m=16:
+        levels reach m, 5 bits); None for a mechanism whose messages are
+        not bounded integers (the noise-free baseline)."""
+        b = self.sum_bound(1)
+        return wire.sum_bits(b) if b > 0 else None
+
+    def encode_wire(self, g, seed):
+        """Clip and encode one client's vector ``g`` (a tensor on any
+        device, or an array) with the uint32 ``seed`` (an int, or a 0-d or
+        1-element int32 device tensor), packed at the minimal payload
+        width: the host-side ``wire.PackedPayload`` a client submits to the
+        aggregator. The encode is ``quantize``: row 0 of a one-row batch,
+        whose RNG counters are the flat indices, the reference's
+        single-leaf encode's counters. On the card the levels are packed
+        there (``pack_flat``) and only the words are copied to the host;
+        on the CPU the plain codec packs them. A mechanism without a
+        packable integer message returns its dense encode as a numpy array
+        (the noise-free baseline's floats)."""
+        from repro_torch.kernels.pack_kernel import pack_flat
+
+        z = self.quantize(torch.as_tensor(g), seed).reshape(-1)
+        b = self.payload_bits
+        if b is None or not wire.packable(self.sum_bound(1), b):
+            return z.cpu().numpy()
+        return wire.PackedPayload(words=pack_flat(z, b).cpu().numpy(), bits=b,
+                                  length=z.numel())
+
     # -- introspection -------------------------------------------------------
     def spec(self) -> dict:
         """Canonical dict spec: ``make_mechanism(mech.spec())`` rebuilds an

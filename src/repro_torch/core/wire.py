@@ -9,8 +9,12 @@ dense sum whenever every coordinate's sum fits ``bits`` bits.
 
 ``pack_bits``/``unpack_bits`` work on torch tensors on any device (int64
 arithmetic, see ``kernels/prng.py``); the ``_np`` twins on numpy arrays.
+``PackedPayload`` is one client's packed message as the aggregator's
+intake and queue hold it: a host (numpy) object, as in the reference.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,6 +39,11 @@ def packed_words(n: int, bits: int) -> int:
     return -(-int(n) // k)
 
 
+def packed_nbytes(n: int, bits: int) -> int:
+    """Bytes on the wire for ``n`` packed fields (4 bytes per word)."""
+    return packed_words(n, bits) * (WORD_BITS // 8)
+
+
 def sum_bits(bound: int) -> int:
     """Minimal field width holding every value in ``[0, bound]``."""
     bound = int(bound)
@@ -43,6 +52,15 @@ def sum_bits(bound: int) -> int:
             f"sum_bits needs a positive aggregated-value bound, got {bound}"
         )
     return max(1, bound.bit_length())
+
+
+def payload_bits(m: int) -> int:
+    """Minimal width of one client's message for an ``m``-level mechanism
+    whose levels span ``0..m-1``: ``ceil(log2(m))``."""
+    m = int(m)
+    if m < 2:
+        raise ValueError(f"payload_bits needs >= 2 levels, got {m}")
+    return sum_bits(m - 1)
 
 
 def packable(bound: int, bits: int | None = None) -> bool:
@@ -126,3 +144,57 @@ def unpack_bits_np(words: np.ndarray, bits: int, n: int) -> np.ndarray:
     shifts = (np.arange(k, dtype=np.uint32) * np.uint32(bits))[:, None]
     fields = (w[None, :] >> shifts) & mask
     return fields.reshape(-1)[:n].astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedPayload:
+    """A bit-packed integer client payload: ``words`` int32 words carrying
+    ``length`` fields of ``bits`` each (the planar layout above), what
+    ``Mechanism.encode_wire`` returns and the aggregator's intake and
+    queue hold. ``dtype`` tags the unpacked element type (int32, the
+    level indices of every grid mechanism)."""
+
+    words: np.ndarray
+    bits: int
+    length: int
+    dtype: str = "int32"
+
+    def __post_init__(self):
+        object.__setattr__(self, "words", np.ascontiguousarray(self.words, dtype=np.int32))
+        k = fields_per_word(self.bits)  # validates the width
+        if self.length < 0:
+            raise ValueError(f"length must be >= 0, got {self.length}")
+        want = packed_words(self.length, self.bits)
+        if self.words.ndim != 1 or self.words.shape[0] != want:
+            raise ValueError(
+                f"PackedPayload of {self.length} fields at {self.bits} bits needs "
+                f"({want},) words ({k}/word), got array of shape {self.words.shape}")
+        if self.dtype != "int32":
+            raise ValueError(f"only int32 unpacked payloads are defined (integer level "
+                             f"indices), got dtype tag {self.dtype!r}")
+
+    @classmethod
+    def pack(cls, z, bits: int) -> "PackedPayload":
+        """Pack a flat integer vector at ``bits`` per field; the caller
+        guarantees ``0 <= z < 2**bits``."""
+        z = np.asarray(z)
+        return cls(words=pack_bits_np(z, bits), bits=int(bits),
+                   length=int(z.reshape(-1).shape[0]))
+
+    def unpack(self) -> np.ndarray:
+        """The dense int32 payload this carries."""
+        return unpack_bits_np(self.words, self.bits, self.length)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes on the wire and in the queue."""
+        return int(self.words.nbytes)
+
+    @property
+    def wire_bits(self) -> int:
+        return self.nbytes * 8
+
+    @property
+    def shape(self) -> tuple:
+        """The dense payload's shape."""
+        return (self.length,)

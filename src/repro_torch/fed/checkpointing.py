@@ -6,11 +6,14 @@ flat parameters, the server optimizer's state, the round stream (the
 ``torch.Generator`` that draws each round's cohort, kernel seed and
 participation mask, as its uint8 state tensor), the host engine's numpy
 sampling stream (``host_rng``: its PCG64 state as 6 uint64, the
-reference's leaf) and the accountant's per-round history (eps vectors
-and realized cohort sizes). Every ported engine is a function of (flat,
-opt_state, generator, host_rng) and the deterministically staged data,
-and the accountant is replayed from its history, so a restored trainer
-continues the uninterrupted run bit for bit.
+reference's leaf), the accountant's per-round history (eps vectors
+and realized cohort sizes) and, under ``"engine"``, an engine's own
+state (``Engine.state``: the async engine's arrival simulator, its PCG64
+state through ``pack_host_rng`` and its aggregation times, and off its
+plain corner the parameter ring). Every ported engine is a function of
+that state and the deterministically staged data, and the accountant is
+replayed from its history, so a restored trainer continues the
+uninterrupted run bit for bit.
 
 Every checkpoint carries a fingerprint of what defines the trajectory
 and its accounting: the mechanism's spec, the task's spec, the FedConfig
@@ -19,7 +22,9 @@ reference's but for the family: the port's engines draw from a
 ``torch.Generator``, not ``jax.random``, so they are a trajectory of
 their own, ``"torch"`` (``"torch_host"`` for the host engine, whose
 fixed cohorts come from its numpy stream and whose encode takes a seed a
-client: another trajectory, as the reference's ``"host"``), and a
+client: another trajectory, as the reference's ``"host"``; and
+``"torch_async"`` for the async engine, with the reference's async
+fields, as its ``"async"``), and a
 checkpoint of either package is refused by the other with the
 fingerprint's ValueError. Restoring into a trainer of
 another fingerprint raises: replaying one mechanism's eps history under
@@ -44,6 +49,7 @@ _FINGERPRINT_FIELDS = (
 )
 TRAJECTORY = "torch"
 HOST_TRAJECTORY = "torch_host"
+ASYNC_TRAJECTORY = "torch_async"
 _U64 = (1 << 64) - 1
 
 
@@ -77,7 +83,24 @@ def fingerprint_fields(trainer) -> dict:
     # None and {} build the same optimizer
     fields["server_opt_options"] = fields["server_opt_options"] or {}
     fields["task"] = trainer.task.spec()
-    fields["trajectory"] = HOST_TRAJECTORY if cfg.engine == "host" else TRAJECTORY
+    if cfg.engine == "host":
+        fields["trajectory"] = HOST_TRAJECTORY
+    elif cfg.engine == "async":
+        # the arrival trace and the staleness ring define this trajectory
+        # too: the reference's async fields, the defaults resolved
+        fields["trajectory"] = ASYNC_TRAJECTORY
+        cadence = int(cfg.async_cadence or cfg.clients_per_round)
+        fields["async"] = {
+            "cadence": cadence,
+            "max_staleness": int(cfg.async_max_staleness),
+            "staleness_weight": str(cfg.async_staleness_weight),
+            "arrivals": str(cfg.async_arrivals),
+            "rate": float(cfg.async_rate) if cfg.async_rate is not None else float(cadence),
+            "latency": float(cfg.async_latency),
+            "timeout": None if cfg.async_timeout is None else float(cfg.async_timeout),
+        }
+    else:
+        fields["trajectory"] = TRAJECTORY
     return fields
 
 
@@ -95,8 +118,8 @@ def fingerprint(trainer) -> np.ndarray:
 
 
 def _tree(trainer, eps_history: np.ndarray, realized_n: np.ndarray, fp: np.ndarray,
-          host_rng: np.ndarray) -> dict:
-    return {
+          host_rng: np.ndarray, engine) -> dict:
+    tree = {
         "flat": trainer.flat,
         "opt": trainer.opt_state,
         "key": trainer.generator.get_state(),
@@ -105,6 +128,11 @@ def _tree(trainer, eps_history: np.ndarray, realized_n: np.ndarray, fp: np.ndarr
         "realized_n": realized_n,
         "fingerprint": fp,
     }
+    if engine is not None:
+        # the engine's own state (the async engine's arrival trace and
+        # ring); engines without it keep the leaves above alone
+        tree["engine"] = engine
+    return tree
 
 
 def save_checkpoint(trainer) -> str:
@@ -115,7 +143,7 @@ def save_checkpoint(trainer) -> str:
     hist = trainer.accountant.history
     eps = np.stack(hist) if hist else np.zeros((0, len(cfg.accountant_alphas)))
     tree = _tree(trainer, eps, np.asarray(trainer.realized_n, np.int64), fingerprint(trainer),
-                 pack_host_rng(trainer._rng))
+                 pack_host_rng(trainer._rng), trainer.engine.state())
     return store.save(cfg.ckpt_dir, trainer.accountant.rounds, tree)
 
 
@@ -141,8 +169,11 @@ def restore_checkpoint(trainer, step=None) -> int:
             f"the original mechanism spec and the trajectory-defining FedConfig fields "
             f"({', '.join(_FINGERPRINT_FIELDS)}), or start a fresh checkpoint directory.")
     like = _tree(trainer, np.zeros((step, len(cfg.accountant_alphas)), np.float64),
-                 np.zeros(step, np.int64), np.zeros(32, np.uint8), np.zeros(6, np.uint64))
+                 np.zeros(step, np.int64), np.zeros(32, np.uint8), np.zeros(6, np.uint64),
+                 trainer.engine.state_template(step))
     data = store.restore(cfg.ckpt_dir, step, like)
+    if "engine" in data:
+        trainer.engine.load_state(data["engine"])
     trainer.flat = data["flat"]
     trainer.opt_state = data["opt"]
     trainer.generator.set_state(data["key"])

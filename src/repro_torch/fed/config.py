@@ -34,7 +34,8 @@ class FedConfig:
     # the card, sums kept on the device until the block ends), "perround"
     # (one eager round per call), "host" (the legacy loop: per-round host
     # staging, per-client encode) or "shard" (eager rounds over a process
-    # group, one cohort slice per rank), e.g. "shard:shards=1,packed=true"
+    # group, one cohort slice per rank) or "async" (buffered aggregation
+    # under seeded arrival traffic), e.g. "shard:shards=1,packed=true"
     engine: str = "scan"
     local_lr: float = 0.1
     task: str = "emnist_cnn"
@@ -92,6 +93,26 @@ class FedConfig:
     shard_packed: Optional[bool] = None
     # > 1: the reference's 2-D client x model mesh (not ported)
     model_shards: int = 1
+    # async engine (engine="async"; fed/async_engine.py): buffered
+    # aggregation under a seeded arrival process. async_cadence updates
+    # are drained per aggregation (None: clients_per_round);
+    # async_max_staleness bounds how many versions old a buffered
+    # update's parameters may be (0, no timeout and full staging: the
+    # perround round itself); async_staleness_weight scales the decoded
+    # aggregate ("uniform" or "poly:<a>", post-processing, the accounting
+    # untouched); async_arrivals is an arrival-process spec
+    # (fed/arrivals.py: "poisson", "diurnal:period=24,amplitude=0.5");
+    # async_rate arrivals per unit of simulated time (None: the cadence);
+    # async_latency the mean exponential compute latency; with
+    # async_timeout set, clients slower than it are stragglers, masked out
+    # of the SecAgg sum, the aggregation accounted at the surviving count.
+    async_cadence: Optional[int] = None
+    async_max_staleness: int = 0
+    async_staleness_weight: str = "uniform"
+    async_arrivals: str = "poisson"
+    async_rate: Optional[float] = None
+    async_latency: float = 1.0
+    async_timeout: Optional[float] = None
     # telemetry (telemetry/tracker.py): a tracker spec ("json:runs/a.json",
     # "csv:runs/a.csv", a "+"-joined composite, a list of specs) or a
     # Tracker; None is the noop tracker. The trainer's ``tracker=``

@@ -19,8 +19,8 @@ process group. Adding one is one registered class:
 ``FedConfig.engine`` takes a registered name or a spec string
 (``"shard:shards=1,packed=true"``), parsed by ``make_engine``. The port
 registers ``scan``, ``perround``, ``host`` and ``shard`` (in that order,
-``fed/engines.py``); the reference's ``async`` engine is refused with
-NotImplementedError naming its ROADMAP.md item.
+``fed/engines.py``), then ``async`` (``fed/async_engine.py``), the
+reference's order.
 """
 from __future__ import annotations
 
@@ -30,7 +30,6 @@ from typing import Callable, ClassVar, Dict, Tuple, Type
 from repro_torch.core.mechanisms import parse_mechanism_spec
 
 _REGISTRY: Dict[str, Type["Engine"]] = {}
-_NOT_PORTED = {"async": "queue A item 10"}
 
 
 def register_engine(name: str) -> Callable[[type], type]:
@@ -56,9 +55,6 @@ def engine_names() -> tuple:
 
 def get_engine(name: str) -> Type["Engine"]:
     """The registered engine class ``name``."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} is not ported yet: ROADMAP.md {_NOT_PORTED[name]}")
     cls = _REGISTRY.get(name)
     if cls is None:
         raise ValueError(f"unknown engine {name!r}; registered: {', '.join(_REGISTRY)}")
@@ -160,3 +156,21 @@ class Engine:
 
     def advance(self, rounds: int) -> None:
         raise NotImplementedError
+
+    # -- the engine's own checkpoint state (fed/checkpointing.py) -----------
+    # An engine whose trajectory depends on state beyond (flat, opt_state,
+    # the round stream, host_rng), as the async engine's parameter ring
+    # and arrival trace, saves it through these hooks under the
+    # checkpoint's "engine" leaf: state() a tree of fixed-shape tensors
+    # and arrays (None: nothing to save), state_template(steps_done) a
+    # tree of the same structure to restore into, load_state(tree) installs
+    # a restored one.
+
+    def state(self):
+        return None
+
+    def state_template(self, steps_done: int):
+        return None
+
+    def load_state(self, tree) -> None:
+        raise NotImplementedError(f"engine {self.name!r} has no checkpoint state")

@@ -28,7 +28,7 @@ seed gives bit-identical parameters under any of them:
     it equals ``scan`` bit for bit.
 
 Every engine carries the server optimizer's state beside the parameters.
-The reference's ``async`` engine is refused (``fed/engine.py``).
+The fifth, ``async``, is ``fed/async_engine.py``.
 """
 from __future__ import annotations
 

@@ -81,13 +81,16 @@ def hot_path_pack_bits(mech, cfg, slate: int) -> int | None:
     return wire.sum_bits(bound) if wire.packable(bound) else None
 
 
-def make_client_grad(mech, unravel, task, cfg=None):
+def make_client_grad(mech, unravel, task, cfg=None, *, per_row: bool = False):
     """Per-client releases of a cohort batch, ``client_grads(flat, batch)
     -> (clients, dim)``, ``vmap`` over the clients axis of every batch
     leaf: the clipped gradient (``local_steps`` 1, Algorithm 1), or the
     clipped negative delta ``flat - flat_new`` after ``cfg.local_steps``
     SGD steps at ``cfg.local_lr`` (FedAvg-RQM). Either is one [-c, c]
-    vector a client a round, accounted the same."""
+    vector a client a round, accounted the same. ``per_row``: ``flat`` is
+    (clients, dim), row i the parameters client i computes at (the async
+    engine's stale versions), mapped with the batch (``in_dims=(0, 0)``;
+    ``unravel`` slices each row into views, so no row is copied)."""
     local_steps = cfg.local_steps if cfg is not None else 1
     local_lr = cfg.local_lr if cfg is not None else 0.0
 
@@ -102,7 +105,8 @@ def make_client_grad(mech, unravel, task, cfg=None):
             cur = cur - local_lr * flat_grad(cur, batch)
         return flat - cur
 
-    per_client = vmap(flat_grad if local_steps <= 1 else client_delta, in_dims=(None, 0))
+    per_client = vmap(flat_grad if local_steps <= 1 else client_delta,
+                      in_dims=(0 if per_row else None, 0))
 
     def client_grads(flat: torch.Tensor, batch: dict) -> torch.Tensor:
         return per_client(flat, batch).clamp(-mech.clip, mech.clip)

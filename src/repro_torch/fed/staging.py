@@ -16,6 +16,8 @@ a leading clients axis (streamed: (rounds, clients) axes). Both return
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -44,22 +46,26 @@ def replay_cohorts(cfg: FedConfig, slate: int, generator: torch.Generator,
     return cohort.draw_block(cfg, slate, replay, length)[:, :slate].numpy().astype(np.int64)
 
 
+def stage_ids(ids, device, fetch) -> tuple[dict, int]:
+    """The data of the clients ``ids`` (an integer array of any shape) on
+    ``device``, leaf by leaf with ids' shape leading; ``fetch(cid)`` gives
+    one client's dict (the task's ``client_batch``, or a cache of it)."""
+    ids = np.asarray(ids)
+    leaves = None
+    for idx, cid in np.ndenumerate(ids):
+        data = fetch(int(cid))
+        if leaves is None:
+            leaves = {k: np.empty(ids.shape + v.shape, v.dtype) for k, v in data.items()}
+        for k, v in data.items():
+            leaves[k][idx] = v
+    return _to_device(leaves, device)
+
+
 def stage_stream_block(task, cfg: FedConfig, slate: int, generator: torch.Generator,
                        length: int, rank: int, shards: int, device) -> tuple[dict, int]:
     """This rank's slice of each of the next ``length`` rounds' cohorts,
     in drawn order: leaves of shape (length, slate // shards, ...)."""
     n_per = slate // shards
     ids = replay_cohorts(cfg, slate, generator, length)[:, rank * n_per:(rank + 1) * n_per]
-    cache: dict = {}  # a client's data is deterministic: stage it once a block
-    leaves = None
-    for t in range(length):
-        for u, cid in enumerate(ids[t]):
-            cid = int(cid)
-            if cid not in cache:
-                cache[cid] = task.client_batch(cid)
-            if leaves is None:
-                leaves = {k: np.empty((length, n_per) + v.shape, v.dtype)
-                          for k, v in cache[cid].items()}
-            for k, v in cache[cid].items():
-                leaves[k][t, u] = v
-    return _to_device(leaves, device)
+    # a client's data is deterministic: fetch it once a block
+    return stage_ids(ids, device, functools.cache(task.client_batch))

@@ -22,6 +22,7 @@ from repro_torch.core import wire
 from repro_torch.core.mechanisms import make_mechanism
 from repro_torch.core.renyi import RenyiAccountant
 from repro_torch.fed import checkpointing, cohort, rounds, staging
+from repro_torch.fed import async_engine as _async_engine  # noqa: F401  (registers "async")
 from repro_torch.fed import engines as _engines  # noqa: F401  (registers the engines)
 from repro_torch.fed.config import FedConfig, validate_config
 from repro_torch.fed.engine import get_engine, make_engine
@@ -87,8 +88,9 @@ class FedTrainer:
         self.shards = 1  # the shard engine sets its rank count
         self.staged_bytes_total = 0
         self.staged_bytes_last_block = 0
-        # the engine may claim a process group and widen the slate before
-        # anything is staged or built
+        # the engine may claim a process group and set the slate (the
+        # shard engine rounds it to its ranks, the async engine makes it
+        # its cadence) before anything is staged or built
         self.engine = engine_cls(self)
         self.pack_bits = rounds.hot_path_pack_bits(self.mech, fed_cfg, self.slate)
         self.client_data = None  # streamed staging stages each block's cohorts
@@ -127,7 +129,7 @@ class FedTrainer:
         mesh = None
         if cfg.engine == "shard":
             mesh = {"axes": {"shard": self.shards}, "devices": self.shards}
-        return {
+        meta = {
             "kind": "fed_train",
             "fingerprint": bytes(checkpointing.fingerprint(self)).hex(),
             "engine": cfg.engine,
@@ -147,6 +149,10 @@ class FedTrainer:
             "mesh": mesh,
             "backend": self.device.type,
         }
+        if cfg.engine == "async":
+            # the arrival traffic and staleness policy the run aggregates under
+            meta["async"] = checkpointing.fingerprint_fields(self)["async"]
+        return meta
 
     def _advance_tracked(self, n_rounds: int) -> None:
         """Every round of every engine goes through here: one timed scope

@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -37,6 +38,9 @@ NVCC_FLAGS = (
 )
 
 launches: collections.Counter = collections.Counter()
+# launches may come from several threads (the aggregator's service thread
+# and its producers): each count's read-modify-write holds this lock
+_counting = threading.Lock()
 
 _libs: dict = {}
 _funcs: dict = {}
@@ -138,7 +142,8 @@ def launch(lib: str, fn: str, argtypes, *args) -> None:
     the stream passed last and returns ``cudaGetLastError()``); raise if
     the launch was refused, else count it under ``fn``."""
     call(lib, fn, argtypes, *args)
-    launches[fn] += 1
+    with _counting:
+        launches[fn] += 1
 
 
 def check_cuda(name: str, t, dtype) -> None:

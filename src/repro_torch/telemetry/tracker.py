@@ -110,8 +110,7 @@ class Tracker:
         """Wall-clock timing scope totals (telemetry/timing.py summary)."""
 
     def log_snapshot(self, snap: dict) -> None:
-        """A service health/status snapshot (the reference's aggregator;
-        not ported yet)."""
+        """A service health/status snapshot (``launch/aggregator.py``)."""
 
     def log_payload(self, key: str, obj) -> None:
         """A free-form named payload (benchmark result tables)."""

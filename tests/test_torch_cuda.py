@@ -860,3 +860,125 @@ def test_graphed_poisson_round_equals_perround(deterministic, fused, packed):
     for a, b in zip(scan.round_sums, per.round_sums):
         np.testing.assert_array_equal(a, b)
     assert scan.accountant.rdp_epsilon(8.0) == per.accountant.rdp_epsilon(8.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,spec", [
+    ("rqm", "rqm:c=0.02,m=16,q=0.42"), ("pbm", "pbm:c=0.02,m=16,theta=0.25"),
+    ("qmgeo", "qmgeo:c=0.02,m=16,r=0.6"), ("rqm", "rqm:c=0.02,m=64,q=0.5"),
+], ids=["rqm 4 bits", "pbm 5 bits", "qmgeo 4 bits", "rqm 6 bits"])
+def test_encode_wire_on_the_card_equals_the_cpu(cuda, name, spec):
+    """A client's packed message: the quantize kernel, then pack_flat on
+    the card, only the words copied back; == the plain encode and codec on
+    the CPU, word for word (QMGeo within QMGEO_CPU_BUDGET of its levels),
+    with an int seed and with a 0-d device seed. An odd length packs one
+    word a thread (V = 1), an even one with an even word count two (V = 2);
+    the card's levels packed by the host's numpy codec are its words."""
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.kernels.prng import seed_bits
+
+    mech = make_mechanism(spec)
+    for dim in (30_001, 30_000):
+        g = torch.from_numpy(np.random.default_rng(8).normal(0, 0.02, dim).astype(np.float32))
+        want = mech.encode_wire(g, SEED)
+        for seed, dev in ((SEED, ""), (torch.tensor(seed_bits(SEED), dtype=torch.int32,
+                                                    device=cuda), "_dev")):
+            ops.reset_launches()
+            got = mech.encode_wire(g.to(cuda), seed)
+            assert dict(ops.launches) == {f"{name}_quantize{dev}": 1, "pack_flat": 1}
+            assert isinstance(got, wire.PackedPayload) and isinstance(got.words, np.ndarray)
+            assert (got.bits, got.length) == (want.bits, want.length) == (mech.payload_bits, dim)
+            levels = mech.quantize(g.to(cuda), seed).reshape(-1).cpu().numpy()
+            np.testing.assert_array_equal(got.words, wire.pack_bits_np(levels, got.bits))
+            if name == "qmgeo":
+                diff = got.unpack() - want.unpack()
+                assert np.abs(diff).max() <= 1
+                assert np.count_nonzero(diff) <= math.ceil(QMGEO_CPU_BUDGET * diff.size)
+            else:
+                np.testing.assert_array_equal(got.words, want.words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 16])
+def test_aggregator_intake_on_the_card_equals_the_cpu(cuda, bits):
+    """The aggregator's SecAgg sum on the card: packed payloads unpacked
+    at intake (unpack_flat once a packed payload) and the packed-direct
+    word sum (unpack_flat once a round), at 4 bits and at 16 bits with the
+    top field across the sign bit; == the server on the CPU (plain codec),
+    sums and (at 4 bits, served) parameters bit for bit. A server asked
+    for ``cuda`` keeps the index of the card current at construction."""
+    import dataclasses as dc
+
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.fed.updates import ClientUpdate
+    from repro_torch.launch.aggregator import AggregatorServer
+
+    m = 16 if bits == 4 else 32768  # 16 bits: two clients of 32767 fill a field
+    mech = make_mechanism(f"rqm:c=0.02,m={m},q=0.42")
+    direct_cohort = 1 if bits == 4 else 2
+    rng = np.random.default_rng(bits)
+    for dim in (30_001, 30_000):  # the codec's walk at V = 1 and V = 2
+        for cohort, unpacks in ((direct_cohort, 1), (direct_cohort + 2, direct_cohort + 2)):
+            rows = rng.integers(0, m, (2 * cohort, dim)).astype(np.int32)
+            rows[:, :64] = m - 1  # at 16 bits the first cohort's sum fills the top field
+            # the second cohort's last client is late (weight 0)
+            take = [ClientUpdate(payload=wire.PackedPayload.pack(z, bits),
+                                 weight=int(i != 2 * cohort - 1)) for i, z in enumerate(rows)]
+            servers = [AggregatorServer(mech, dim, cohort=cohort, device=d)
+                       for d in (cuda, "cpu")]
+            card, cpu = servers
+            # the index pinned, so the service thread's guard names this card
+            assert card.device == torch.device("cuda", torch.cuda.current_device())
+            for srv in servers:
+                srv.submit(take)
+            for part in (slice(0, cohort), slice(cohort, 2 * cohort)):
+                ops.reset_launches()
+                z_card = card._secure_sum(take[part])
+                assert dict(ops.launches) == {"unpack_flat": unpacks}
+                z_cpu = cpu._secure_sum(take[part])
+                assert z_card.is_cuda and torch.equal(z_card.cpu(), z_cpu)
+                weights = np.asarray([u.weight for u in take[part]])
+                np.testing.assert_array_equal(z_cpu.numpy(),
+                                              (rows[part] * weights[:, None]).sum(0))
+                dense = [dc.replace(u, payload=u.payload_array()) for u in take[part]]
+                assert torch.equal(card._secure_sum(dense), z_card)
+            if bits == 16:
+                continue  # m = 32768's exact accounting is no concern of this test
+            for srv in servers:
+                assert srv.drain() == 2
+            assert torch.equal(card.flat.cpu(), cpu.flat)
+            assert card.realized_n == cpu.realized_n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["materialized", "fused dense"])
+def test_async_engine_on_the_card(deterministic, fused):
+    """The async engine off its plain corner (stale versions, late
+    clients): materialized == fused dense bit for bit, one quantize or
+    dense round-sum launch an aggregation, nothing else; the plain corner
+    == eager perround."""
+    cfg = FedConfig(engine="async:max_staleness=2,staleness_weight=poly:0.5,timeout=1.0",
+                    collect_sums=True, **SMALL)
+    runs = {}
+    for f in (False, True):
+        tr = FedTrainer(SPECS["rqm"], dataclasses.replace(cfg, fused_rounds=f),
+                        device=deterministic)
+        ops.reset_launches()
+        for _ in range(4):
+            tr.round()
+        assert dict(ops.launches) == ({"rqm_round_sum_dense": 4} if f else {"rqm_quantize": 4})
+        runs[f] = tr
+    a, b = runs[False], runs[True]
+    assert a.realized_n == b.realized_n and min(a.realized_n) < 6
+    assert torch.equal(a.flat, b.flat) and torch.equal(a.engine.hist, b.engine.hist)
+    for x, y in zip(a.round_sums, b.round_sums):
+        np.testing.assert_array_equal(x, y)
+    plain = FedTrainer(SPECS["rqm"], dataclasses.replace(cfg, engine="async", fused_rounds=fused),
+                       device=deterministic)
+    per = FedTrainer(SPECS["rqm"], dataclasses.replace(cfg, engine="perround",
+                                                       fused_rounds=fused),
+                     device=deterministic)
+    for _ in range(3):
+        plain.round()
+        per.round()
+    assert torch.equal(plain.flat, per.flat)

@@ -2,9 +2,8 @@
 against the reference's (``repro/fed/engine.py``) on the CPU.
 
 Contracts:
-  * ``scan``, ``perround``, ``host`` and ``shard`` register in the
-    reference's order; ``async`` is refused with NotImplementedError
-    naming its ROADMAP.md item, by name and as a spec;
+  * ``scan``, ``perround``, ``host``, ``shard`` and ``async`` register in
+    the reference's order;
   * each engine's spec options are the reference's (but scan's
     ``unroll``, which sets the XLA-only ``scan_unroll``), and a spec
     string parses to the reference's options and FedConfig overrides and
@@ -48,7 +47,7 @@ EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "exampl
 SMALL = dict(num_clients=24, clients_per_round=4, lr=1.0, eval_size=64,
              samples_per_client=8)
 SPEC = "none:c=0.05"
-PORTED = ("scan", "perround", "host", "shard")
+PORTED = ("scan", "perround", "host", "shard", "async")
 
 
 def _trainer(engine="scan", **overrides):
@@ -57,20 +56,12 @@ def _trainer(engine="scan", **overrides):
 
 def test_builtin_engines_register_in_the_reference_order():
     assert engine_names() == PORTED
-    assert jengine.engine_names() == PORTED + ("async",)
+    assert jengine.engine_names() == PORTED
     for name in PORTED:
         assert get_engine(name).name == name
     assert get_engine("scan") is engines.ScanEngine
     assert get_engine("host").stages_population is False
     assert get_engine("shard").supports_streaming and get_engine("shard").blocked
-
-
-@pytest.mark.parametrize("spec", ["async", "async:cadence=6"])
-def test_async_is_refused_naming_its_item(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
-        make_engine(spec)
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        _trainer(spec)
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -85,7 +76,9 @@ def test_spec_options_are_the_reference(name):
 
 @pytest.mark.parametrize("spec", [
     "scan", "perround", "host", "shard", "scan:block=2", "shard:shards=2,staging=stream",
-    "shard:packed=true,shards=1", "shard:model=1",
+    "shard:packed=true,shards=1", "shard:model=1", "async",
+    "async:cadence=6,max_staleness=2,staleness_weight=poly:0.5",
+    "async:arrivals=diurnal,rate=2.5,latency=0.5,timeout=1.5",
 ])
 def test_spec_parses_as_the_reference(spec):
     got, want = make_engine(spec), jengine.make_engine(spec)

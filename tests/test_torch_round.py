@@ -264,7 +264,6 @@ def test_wire_width_selection():
 @pytest.mark.parametrize("overrides", [
     # the shard engine is ported; its 2-D client x model mesh is not
     pytest.param(dict(engine="shard", model_shards=2), id="engine=shard"),
-    dict(engine="async"),
     dict(task="lm"),
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(overrides):
