@@ -128,18 +128,36 @@ which raises and exits non-zero:
      (d) resumed from (a)'s checkpoint at round 3: bit for bit; (e)
      reported: rounds served a second, packed and dense uplink, 3 reps,
      and the uplink bytes a round;
+  5h. the lm task (``FedConfig(task="lm:model=<arch>")``: the reduced
+     model-zoo configs at the task's seq_len 64 and batch 2, rqm, a cohort
+     of 40 from 200 clients, 3 rounds a run): (a) each of the ten configs
+     fused packed on graphed scan and eager perround, parameters and sums
+     bit for bit, the held-out loss finite and its perplexity reported;
+     for mamba2-370m also materialized (graphed and eager), a one-rank
+     NCCL shard and the async plain corner, all equal to the fused run;
+     pbm and qmgeo fused (graphed, eager) and materialized, equal; the
+     host engine under dropout 0.1, held to scan as in 5e; graphed
+     rounds/s, fused packed and materialized, over 5 blocks of 20 under
+     ``set_sync_debug_mode("error")``; (b) the full-width mamba2-370m
+     (419,763,712 parameters, random from a seed): one client's loss and
+     flat gradient at seq_len 64 and batch 2, timed, with its peak
+     memory; two such clipped gradients through rqm_round_sum_dense and
+     decode_apply_sum, each equal to its plain version (run in column
+     chunks) bit for bit; lines start with [5h], reports "lm" and
+     "lm_full_width";
   6. profile: device time by kernel over 3 more rounds of FedConfig()'s
      trainer for each mechanism (graphed; phase 5's, and phase 5c's for
      rqm), of phase 5e's graphed Poisson round, of the graphed fused packed
-     one, the rqm shard one and the eager perround one (tables in
-     build/profiles/), and what the eager round's fill kernels fill;
+     one, the rqm shard one, the eager perround one and phase 5h's graphed
+     fused packed lm round (mamba2-370m; tables in build/profiles/), and
+     what the eager round's fill kernels fill;
   7. Fig. 3 report: held-out accuracy and Renyi eps at alpha=8 after 120
      default rounds of benchmarks/fig3_fl_emnist.py's FED settings;
      whether noise-free >= RQM >= PBM held, and the reference's own
      ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
      (reported, not gated).
 
-Every run of phases 4 to 5g (but their reports) sets the kernels' launch counters to 0
+Every run of phases 4 to 5h (but their reports) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
@@ -238,6 +256,16 @@ AGG_QUEUE = 8
 AGG_HALT = 3
 AGG_REPS = 3
 AGG_CYCLES = 15  # the clock's passes over the 6 rounds' payloads: 90 rounds a rep
+# phase 5h: the lm task (each reduced model-zoo config through FedTrainer
+# at its default seq_len 64 and batch 2, a cohort of 40 from a population
+# of LM_CLIENTS), LM_ROUNDS rounds a run; mamba2-370m also at full width
+LM_ROUNDS = 3
+LM_CLIENTS = 200
+LM_ARCH = "mamba2-370m"  # the task's default model
+LM_DROPOUT = 0.1  # the host engine's comparison with scan (heterogeneous cohorts)
+LM_CLOCK_ROUNDS, LM_CLOCK_REPS = 20, 5
+LM_FULL_DIM = 419_763_712  # the full-width mamba2-370m's parameters
+LM_FULL_CHUNK = 1 << 24  # columns a chunk of the plain versions at full width
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -935,8 +963,8 @@ def profile_rounds(torch, tr, rounds: int, tag: str) -> dict:
     }
 
 
-def run_path(torch, spec: str, cfg, expect: dict, tag: str):
-    """ROUNDS rounds through FedTrainer on the card, with the launch
+def run_path(torch, spec: str, cfg, expect: dict, tag: str, rounds: int = ROUNDS):
+    """``rounds`` rounds through FedTrainer on the card, with the launch
     counters set to 0 just before and read just after; checked by the
     counters, the accountant and finite parameters. Returns the trainer
     and the counts."""
@@ -956,7 +984,7 @@ def run_path(torch, spec: str, cfg, expect: dict, tag: str):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    advance(ROUNDS - 1)
+    advance(rounds - 1)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t1
     counts = dict(ops.launches)
@@ -964,7 +992,7 @@ def run_path(torch, spec: str, cfg, expect: dict, tag: str):
     if counts != expect:
         raise AssertionError(f"{tag}: launch counts {counts}, expected {expect}")
     alpha = 8.0
-    if len(tr.realized_n) != ROUNDS or not all(0 <= n <= tr.slate for n in tr.realized_n):
+    if len(tr.realized_n) != rounds or not all(0 <= n <= tr.slate for n in tr.realized_n):
         raise AssertionError(f"{tag}: realized cohort sizes {tr.realized_n}")
     # every round at its realized size (the fixed cohort's at every round)
     want = sum(tr.mech.per_round_epsilon(n, alpha) for n in tr.realized_n if n > 0)
@@ -978,11 +1006,11 @@ def run_path(torch, spec: str, cfg, expect: dict, tag: str):
         "run": tag, "engine": cfg.engine, "graphed": getattr(tr.engine, "graph", None) is not None,
         "fused_rounds": cfg.fused_rounds, "collect_sums": cfg.collect_sums,
         "pack_bits": tr.pack_bits, "shards": tr.shards, "staging": cfg.staging,
-        "staged_bytes_total": tr.staged_bytes_total, "rounds": ROUNDS,
+        "staged_bytes_total": tr.staged_bytes_total, "rounds": rounds,
         "slate": tr.slate, "realized_n": tr.realized_n, "setup_s": setup_s,
-        "first_round_s": first_s, "steady_rounds_per_s": (ROUNDS - 1) / steady_s,
-        "launches": counts, "rdp_alpha8": got, "eval_accuracy": metrics["accuracy"],
-        "eval_loss": metrics["loss"]}))
+        "first_round_s": first_s, "steady_rounds_per_s": (rounds - 1) / steady_s,
+        "launches": counts, "rdp_alpha8": got, "eval_accuracy": metrics.get("accuracy"),
+        "eval_loss": metrics["loss"], "eval_ppl": metrics.get("ppl")}))
     return tr, counts
 
 
@@ -1767,6 +1795,262 @@ def aggregator(torch, counted, card: str) -> dict:
     return report
 
 
+def lm_task(torch, FedConfig, run, card: str) -> tuple[dict, object]:
+    """Phase 5h (a): the lm task on the card. Each of the ten reduced
+    configs, fused packed (rqm, the wire packed on auto), LM_ROUNDS rounds
+    on graphed scan and eager perround: parameters and sums bit for bit,
+    the held-out loss finite and its perplexity reported. For mamba2-370m
+    also: materialized graphed scan, perround, a one-rank NCCL shard and
+    the async plain corner, all equal to the fused runs; pbm and qmgeo
+    fused (graphed and eager) and materialized (graphed), equal; the host
+    engine under dropout, held to scan as phase 5e holds it; and the
+    graphed round's rounds/s, fused packed and materialized, over
+    LM_CLOCK_REPS blocks of LM_CLOCK_ROUNDS under
+    set_sync_debug_mode("error"). Lines start with [5h]. Returns the
+    report and the clocked fused packed trainer (phase 6 profiles it)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.fed.trainer import FedTrainer
+
+    R = LM_ROUNDS
+    base = FedConfig(num_clients=LM_CLIENTS, fused_rounds=True, collect_sums=True)
+
+    def packed(name, dev):
+        return {f"{name}_round_sum_packed{dev}": R, "unpack_decode_apply": R, "unpack_flat": R}
+
+    def check_eval(tr, tag) -> dict:
+        ev = tr.evaluate()
+        if not (math.isfinite(ev["loss"]) and math.isfinite(ev["ppl"]) and ev["ppl"] > 1.0):
+            raise AssertionError(f"{tag}: held-out loss {ev['loss']}, ppl {ev['ppl']}")
+        return ev
+
+    report: dict = {"archs": {}, "rounds": R, "clients": LM_CLIENTS,
+                    "cohort": base.clients_per_round}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(base, task=f"lm:model={arch}")
+        tag = f"[5h] {arch}"
+        scan = run(SPECS["rqm"], cfg, packed("rqm", "_dev"), f"{tag} scan fused packed", R)
+        per = run(SPECS["rqm"], dataclasses.replace(cfg, engine="perround"), packed("rqm", ""),
+                  f"{tag} perround fused packed", R)
+        same_runs(torch, {f"{tag} scan": scan, f"{tag} perround": per},
+                  f"{tag}: graphed scan and perround, fused packed")
+        ev = check_eval(scan, tag)
+        report["archs"][arch] = {"dim": scan.flat.numel(), "pack_bits": scan.pack_bits,
+                                 "eval_loss": ev["loss"], "eval_ppl": ev["ppl"],
+                                 "eval_tokens": ev["eval_tokens"]}
+        log(f"{tag}: dim {scan.flat.numel()}, {R} rounds graphed == eager, held-out loss "
+            f"{ev['loss']}, ppl {ev['ppl']}")
+        if arch == LM_ARCH:
+            fused_scan = scan
+        del scan, per
+
+    # mamba2-370m: the other paths, engines and mechanisms, against the fused run
+    cfg = dataclasses.replace(base, task=f"lm:model={LM_ARCH}")
+    mat = dataclasses.replace(cfg, fused_rounds=False)
+    tag = f"[5h] {LM_ARCH}"
+    runs = {
+        "scan fused packed": fused_scan,
+        "scan materialized": run(SPECS["rqm"], mat, {"rqm_quantize_dev": R},
+                                 f"{tag} scan materialized", R),
+        "perround materialized": run(SPECS["rqm"], dataclasses.replace(mat, engine="perround"),
+                                     {"rqm_quantize": R}, f"{tag} perround materialized", R),
+        "shard": run(SPECS["rqm"], dataclasses.replace(mat, engine="shard", shards=1),
+                     {"rqm_quantize": R, "pack_flat": R, "unpack_flat": R}, f"{tag} shard", R),
+        "async plain corner": run(SPECS["rqm"], dataclasses.replace(mat, engine="async"),
+                                  {"rqm_quantize": R}, f"{tag} async plain corner", R),
+    }
+    if not runs["async plain corner"].engine._plain:
+        raise AssertionError(f"{tag}: the async run is not the plain corner")
+    same_runs(torch, {f"{tag} {k}": v for k, v in runs.items()},
+              f"{tag}: fused == materialized, graphed scan == perround == one-rank NCCL shard "
+              "== async plain corner")
+    del runs
+    for name, fused_expect in (("pbm", lambda dev: {f"pbm_round_sum_dense{dev}": R}),
+                               ("qmgeo", lambda dev: packed("qmgeo", dev))):
+        mech_runs = {
+            "scan fused": run(SPECS[name], cfg, fused_expect("_dev"), f"{tag} {name} scan fused", R),
+            "perround fused": run(SPECS[name], dataclasses.replace(cfg, engine="perround"),
+                                  fused_expect(""), f"{tag} {name} perround fused", R),
+            "scan materialized": run(SPECS[name], mat, {f"{name}_quantize_dev": R},
+                                     f"{tag} {name} scan materialized", R),
+        }
+        same_runs(torch, {f"{tag} {name} {k}": v for k, v in mech_runs.items()},
+                  f"{tag} {name}: graphed scan == perround, fused == materialized")
+        report[f"{name}_eval_loss"] = check_eval(mech_runs["scan fused"], tag)["loss"]
+        del mech_runs
+    # the host engine replays the round stream's draws under heterogeneous cohorts
+    hetero = dataclasses.replace(mat, dropout=LM_DROPOUT)
+    scan_h = run(SPECS["rqm"], hetero, {"rqm_quantize_dev": R}, f"{tag} scan dropout", R)
+    host = run(SPECS["rqm"], dataclasses.replace(hetero, engine="host"), {"rqm_quantize": R},
+               f"{tag} host dropout", R)
+    if host.realized_n != scan_h.realized_n or not all(
+            np.array_equal(a, b) for a, b in zip(host.accountant.history,
+                                                 scan_h.accountant.history)):
+        raise AssertionError(f"{tag} host: realized sizes or eps history differ from scan's")
+    diff = float((host.flat - scan_h.flat).abs().max())
+    if diff > 1e-5:  # phase 5e's tolerance for the host engine against scan
+        raise AssertionError(f"{tag} host: parameters {diff} from scan's")
+    report["host"] = {"realized_n": host.realized_n, "max_abs_diff_from_scan": diff,
+                      "bit_for_bit": bool(torch.equal(host.flat, scan_h.flat))}
+    log(f"{tag}: host == scan under dropout {LM_DROPOUT} in realized sizes "
+        f"{host.realized_n} and eps history; parameters {diff} apart "
+        f"(bit for bit: {report['host']['bit_for_bit']})")
+    del host, scan_h
+
+    # rounds/s of the graphed round, no sums kept
+    rates, clocked = {}, {}
+    for path, c in (("fused packed", cfg), ("materialized", mat)):
+        tr = FedTrainer(SPECS["rqm"], dataclasses.replace(
+            c, collect_sums=False, scan_block=LM_CLOCK_ROUNDS), device="cuda")
+        tr.run_block(1)  # capture
+        each = []
+        for _ in range(LM_CLOCK_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                tr.run_block(LM_CLOCK_ROUNDS)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            each.append(LM_CLOCK_ROUNDS / (time.perf_counter() - t0))
+        rates[path] = {"median": statistics.median(each), "min": min(each), "max": max(each),
+                       "reps": len(each), "each": each}
+        clocked[path] = tr
+        del tr
+    report["clock"] = {"arch": LM_ARCH, "rounds": LM_CLOCK_ROUNDS, "sync_debug_mode": "error",
+                       "rounds_per_s": rates, "nvidia_smi": card}
+    log(f"{tag}: graphed rounds/s (median of {LM_CLOCK_REPS} x {LM_CLOCK_ROUNDS}): fused packed "
+        f"{rates['fused packed']['median']}, materialized {rates['materialized']['median']}; "
+        f"nvidia-smi: {card}")
+    return report, clocked["fused packed"]
+
+
+def lm_full_width(torch, counted, card: str) -> dict:
+    """Phase 5h (b): the full-width mamba2-370m (LM_FULL_DIM parameters,
+    random from a seed) on the card: its loss and flat gradient
+    (``torch.func.grad``, the round's client gradient) of one client at
+    seq_len 64 and batch 2, timed (CUDA events) and its peak memory; then
+    two such clipped gradients (two token batches) through the round's
+    kernels, counted: rqm_round_sum_dense (RNG counters row * dim + c
+    below 2**32 at rows 0-1) and decode_apply_sum, each held bit for bit
+    against its plain version run in column chunks of LM_FULL_CHUNK."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import ravel
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.eval.lm_eval import batch_to
+    from repro_torch.fed import cohort
+    from repro_torch.kernels import decode_apply_kernel, rqm_kernel
+    from repro_torch.kernels.prng import MASK32
+    from repro_torch.models import model
+    from repro_torch.models.common import ParallelCtx
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    flat, unravel = ravel(params)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dim = flat.numel()
+    if dim != LM_FULL_DIM:
+        raise AssertionError(f"[5h] full width: {dim} parameters, expected {LM_FULL_DIM}")
+    pipe = TokenPipeline(cfg, 64, 2, seed=0, branch=4)
+    batches = [batch_to(pipe.batch(i), "cuda") for i in range(2)]
+
+    def loss(f, batch):
+        return model.loss_fn(unravel(f), cfg, ParallelCtx(), batch)[0]
+
+    grad_and_loss = torch.func.grad_and_value(loss)
+    mech = make_mechanism(SPECS["rqm"])
+    grads, losses, ms, peak_above = [], [], [], []
+    for batch in batches:  # the first includes the warm-up
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g, value = grad_and_loss(flat, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        peak_above.append(torch.cuda.max_memory_allocated() - before)
+        grads.append(g.clamp_(-mech.clip, mech.clip))
+        losses.append(float(value))
+        del g
+    if not all(math.isfinite(v) for v in losses) or not all(
+            bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"[5h] full width: loss {losses} or a gradient is not finite")
+    x = torch.stack(grads)
+    del grads
+    weights = torch.ones(2, dtype=torch.int32, device="cuda")
+    seed = cohort.draw_seed(torch.Generator().manual_seed(5))
+    lr = 0.5
+    out = {}
+
+    def kernels():
+        out["sum"] = mech.quantize_sum_batch(x, seed, weights=weights)
+        out["new"] = decode_apply_kernel.decode_apply_sum(flat, out["sum"], mech.params, 2, lr)
+
+    counted("[5h] full width", {"rqm_round_sum_dense": 1, "decode_apply_sum": 1}, kernels)
+    z_sum, new = out["sum"], out["new"]
+    k_ms = {}
+    for name, fn in (("rqm_round_sum_dense", lambda: mech.quantize_sum_batch(x, seed,
+                                                                             weights=weights)),
+                     ("decode_apply_sum", lambda: decode_apply_kernel.decode_apply_sum(
+                         flat, z_sum, mech.params, 2, lr))):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        k_ms[name] = start.elapsed_time(end)
+    # the plain versions, column chunk by column chunk, on the card
+    rows = torch.arange(2, dtype=torch.int64, device="cuda")[:, None]
+    if (2 * dim - 1) > MASK32:
+        raise AssertionError("[5h] full width: the counters of rows 0-1 pass 2**32")
+    t0 = time.perf_counter()
+    bad_sum = bad_new = draws = 0
+    m = mech.params.m
+    for c0 in range(0, dim, LM_FULL_CHUNK):
+        c1 = min(c0 + LM_FULL_CHUNK, dim)
+        cols = torch.arange(c0, c1, dtype=torch.int64, device="cuda")
+        counters = rows * dim + cols[None]
+        xc = x[:, c0:c1].contiguous()
+        levels = rqm_kernel.rqm_encode_counters(xc, seed, counters, mech.params)
+        plain_sum = levels.to(torch.int64).sum(0).to(torch.int32)
+        bad_sum += int((plain_sum != z_sum[c0:c1]).sum())
+        plain_new = decode_apply_kernel.decode_apply_plain(flat[c0:c1], z_sum[c0:c1],
+                                                           mech.params, 2, lr)
+        bad_new += int((plain_new != new[c0:c1]).sum())
+        for r in range(2):  # the draws the encode needs (rqm_needed_draws, by chunk)
+            j, i_lo, i_hi, p_up = rqm_kernel.rqm_bracket(xc[r], seed, counters[r], mech.params)
+            down = torch.where(i_lo > 0, j - i_lo + 1, j)
+            up = torch.where(i_hi < m - 1, i_hi - j, m - 2 - j)
+            draws += int((down + up).sum()) + int(((p_up > 0) & (p_up < 1)).sum())
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if bad_sum or bad_new:
+        raise AssertionError(f"[5h] full width: {bad_sum} sums and {bad_new} parameters differ "
+                             f"from the plain versions")
+    report = {"arch": LM_ARCH, "dim": dim, "leaves": len(unravel.shapes),
+              "init_s": init_s, "loss": losses, "grad_ms": ms,
+              # each gradient's peak above what was allocated as it began
+              "grad_peak_above_bytes": peak_above, "params_bytes": 4 * dim,
+              "kernel_ms": k_ms,
+              # x and the weights read, the sum written; w and the sum read, w' written
+              "bound_ms": {"rqm_round_sum_dense": bound(4 * 2 * dim + 8 + 4 * dim, draws),
+                           "decode_apply_sum": bound(12 * dim)},
+              "needed_draws": draws, "plain_chunked_s": plain_s, "plain_chunk": LM_FULL_CHUNK,
+              "sum_equal": True, "params_equal": True, "nvidia_smi": card}
+    log(f"[5h] full width {LM_ARCH}: {dim} parameters, loss {losses}, grad ms {ms}, peak "
+        f"above the allocated {peak_above} B; rqm_round_sum_dense "
+        f"{k_ms['rqm_round_sum_dense']} ms and decode_apply_sum {k_ms['decode_apply_sum']} ms "
+        f"at dim {dim} == their plain versions bit for bit; nvidia-smi: {card}")
+    return report
+
+
 def fill_sources(torch, tr, rounds: int) -> dict:
     """Device ms a round of the fill kernels of an eager round, by the ops
     above each aten::fill_ and its shape (torch.profiler)."""
@@ -1860,8 +2144,8 @@ def main() -> int:
     counts: dict = {}  # launches by entry, summed over the main-path runs
     paths: dict = {}  # the runs that launched each entry
 
-    def run(spec, cfg, expect, tag):
-        tr, run_counts = run_path(torch, spec, cfg, expect, tag)
+    def run(spec, cfg, expect, tag, rounds=ROUNDS):
+        tr, run_counts = run_path(torch, spec, cfg, expect, tag, rounds)
         for k, v in run_counts.items():
             counts[k] = counts.get(k, 0) + v
             paths.setdefault(k, []).append(tag)
@@ -2001,6 +2285,12 @@ def main() -> int:
     # phase 5g: the aggregator round-server, each gated run counted
     log(json.dumps({"aggregator": aggregator(torch, counted, card)}))
 
+    # phase 5h: the lm task, every reduced config, and mamba2-370m at full width
+    lm_report, lm_profiled = lm_task(torch, FedConfig, run, card)
+    log(json.dumps({"lm": lm_report}))
+    log(json.dumps({"lm_full_width": lm_full_width(torch, counted, card)}))
+    torch.cuda.empty_cache()
+
     # phase 6: where a warm round spends device time, FedConfig()'s round
     # for each mechanism (graphed), the graphed fused packed round, the
     # shard round and, eager, the perround engine's
@@ -2011,10 +2301,11 @@ def main() -> int:
     profiled["rqm_shard_collected"] = shard_profiled
     profiled["rqm_perround"] = clocked["perround"]
     profiled["rqm_poisson_default"] = poisson
+    profiled["lm_mamba2_scan_fused_packed"] = lm_profiled
     for tag, tr in profiled.items():
         log(json.dumps({"round_profile": profile_rounds(torch, tr, PROFILE_ROUNDS, tag)}))
     log(json.dumps({"fill_sources": fill_sources(torch, clocked["perround"], PROFILE_ROUNDS)}))
-    del profiled, clocked, fused_profiled, shard_profiled, default_trainers, poisson
+    del profiled, clocked, fused_profiled, shard_profiled, default_trainers, poisson, lm_profiled
 
     # phase 7: the paper's comparison, reported
     log(json.dumps({"fig3_report": fig3_report(torch, FedConfig)}))

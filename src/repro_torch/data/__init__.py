@@ -1,1 +1,2 @@
-"""Synthetic EMNIST data and its federated partition (numpy)."""
+"""Synthetic data (numpy): EMNIST and its federated partition, and the
+LM token stream."""

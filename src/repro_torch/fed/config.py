@@ -91,7 +91,8 @@ class FedConfig:
     shards: Optional[int] = None
     staging: str = "full"
     shard_packed: Optional[bool] = None
-    # > 1: the reference's 2-D client x model mesh (not ported)
+    # > 1: the reference's 2-D client x model mesh for the lm task (not
+    # ported)
     model_shards: int = 1
     # async engine (engine="async"; fed/async_engine.py): buffered
     # aggregation under a seeded arrival process. async_cadence updates
@@ -144,8 +145,8 @@ def validate_config(cfg: FedConfig) -> None:
             "model_shards > 1 (the 2-D client x model mesh) requires "
             f"engine='shard', got engine={cfg.engine!r}")
     if cfg.model_shards > 1:
-        raise _not_ported("model_shards > 1 (the 2-D client x model mesh, which needs "
-                          "the lm task)", "queue A item 12")
+        raise _not_ported("model_shards > 1 (the lm task's 2-D client x model mesh)",
+                          "queue A item 12")
     if cfg.max_cohort is not None and cfg.subsampling != "poisson":
         raise ValueError("max_cohort only applies to subsampling='poisson'")
     if cfg.ckpt_every < 0:

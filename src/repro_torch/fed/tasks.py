@@ -1,20 +1,147 @@
-"""The client task a round trains: the paper's EMNIST CNN (the
-``emnist_cnn`` task of ``repro/fed/tasks.py``). The ``lm`` task of the
-reference is not ported yet (ROADMAP.md queue A item 12)."""
+"""The client-task registry (counterpart of ``repro/fed/tasks.py``): WHAT
+the federated round trains.
+
+A task is a registered class (``@register_task``) built from the shared
+``"name:k=v"`` spec grammar (``FedConfig.task``); it owns everything
+model- and data-specific about a round:
+
+  * ``init_params(generator)``: the model the server optimizes, drawn
+    from a ``torch.Generator`` on the task's device;
+  * ``loss(params, batch)``: the per-client objective over an opaque
+    batch dict (the engines stage, index and ``vmap`` whole leaves);
+  * ``client_batch(cid)``: the client's deterministic local dataset, a
+    dict of numpy arrays of fixed shapes across clients;
+  * ``evaluate(flat, unravel)``: held-out metrics (must report "loss").
+
+Two registered tasks, in the reference's order:
+
+  * ``"emnist_cnn"`` (default): the paper's EMNIST setup;
+  * ``"lm"``: federated private LM fine-tuning, per-client token batches
+    from ``data/lm.py`` through a reduced model-zoo config, at tp = 1.
+    Its model-axis hooks (the reference's 2-D client x model mesh,
+    ``model_shards > 1``) are ROADMAP.md queue A item 12.
+"""
 from __future__ import annotations
+
+import inspect
+from typing import ClassVar, Dict, Type
 
 import torch
 
 from repro_torch.core.mechanisms import parse_mechanism_spec
 from repro_torch.fed import cnn
 
+_TASKS: Dict[str, Type["ClientTask"]] = {}
+# the arguments every task takes, which a spec does not set
+_FIXED_ARGS = ("self", "cfg", "device")
 
-class EmnistCnnTask:
+
+def register_task(name: str):
+    """Class decorator: register a ClientTask subclass under ``name``."""
+
+    def deco(cls: type) -> type:
+        if not (isinstance(cls, type) and issubclass(cls, ClientTask)):
+            raise TypeError(f"{cls!r} must subclass ClientTask")
+        existing = _TASKS.get(name)
+        if existing is not None and existing is not cls:
+            raise ValueError(f"task {name!r} already registered to {existing}")
+        cls.name = name
+        _TASKS[name] = cls
+        return cls
+
+    return deco
+
+
+def task_names() -> tuple:
+    """Registered task names (stable registration order)."""
+    return tuple(_TASKS)
+
+
+def get_task(name: str) -> Type["ClientTask"]:
+    cls = _TASKS.get(name)
+    if cls is None:
+        raise ValueError(f"unknown task {name!r}; registered: {', '.join(_TASKS)}")
+    return cls
+
+
+def make_task(spec, fed_cfg, device="cuda") -> "ClientTask":
+    """Build a registered task from a spec string on ``device``. Explicit
+    options are checked against the task's constructor signature."""
+    if isinstance(spec, ClientTask):
+        return spec
+    name, opts = parse_mechanism_spec(spec)
+    cls = get_task(name)
+    params = inspect.signature(cls.__init__).parameters
+    accepted = {p for p in params if p not in _FIXED_ARGS}
+    unknown = set(opts) - accepted
+    if unknown:
+        raise ValueError(
+            f"task {name!r} does not accept option(s) {sorted(unknown)}; "
+            f"accepted: {sorted(accepted) if accepted else '(none)'}"
+        )
+    task = cls(fed_cfg, device, **opts)
+    task.options = tuple(sorted(opts.items()))
+    return task
+
+
+class ClientTask:
+    """One federated client workload (see the module docstring)."""
+
+    name: ClassVar[str] = "?"
+    # whether the task can run tensor-parallel over a 2-D ("shard",
+    # "model") mesh (model_shards > 1)
+    supports_model_axis: ClassVar[bool] = False
+
+    # explicit spec options, set by make_task (canonical fingerprinting)
+    options: tuple = ()
+
+    def spec(self) -> str:
+        """Canonical spec string: parses back to an equal task."""
+        if not self.options:
+            return self.name
+        body = ",".join(f"{k}={v}" for k, v in self.options)
+        return f"{self.name}:{body}"
+
+    def init_params(self, generator: torch.Generator):
+        raise NotImplementedError
+
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """Scalar training loss (tp == 1)."""
+        raise NotImplementedError
+
+    def client_batch(self, cid: int) -> dict:
+        """Client ``cid``'s deterministic local dataset (numpy)."""
+        raise NotImplementedError
+
+    def evaluate(self, flat: torch.Tensor, unravel) -> dict:
+        """Held-out metrics of the flat parameters; must include "loss"."""
+        raise NotImplementedError
+
+    # -- model-axis hooks (2-D mesh; tp > 1) ---------------------------------
+    def bind_model_axis(self, ctx) -> None:
+        raise ValueError(
+            f"task {self.name!r} does not support a model axis "
+            f"(model_shards > 1); only tasks with supports_model_axis "
+            f"can run on a 2-D mesh"
+        )
+
+    def shard_params(self, params, ctx):
+        raise NotImplementedError
+
+    def local_loss(self, local_params, batch, ctx):
+        raise NotImplementedError
+
+    def gather_grads(self, local_grads, ctx):
+        raise NotImplementedError
+
+
+@register_task("emnist_cnn")
+class EmnistCnnTask(ClientTask):
     """Dirichlet non-iid synthetic EMNIST partition, the ``fed/cnn.py``
     model, accuracy and loss on a held-out split. Eval data lives on
     ``device``."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device="cuda"):
         from repro_torch.data.federated import FederatedPartition
 
         self.cfg = cfg
@@ -32,12 +159,6 @@ class EmnistCnnTask:
         self.eval_images = torch.from_numpy(ev_im).to(self.device)
         self.eval_labels = torch.from_numpy(ev_lb).to(self.device)
 
-    name = "emnist_cnn"
-
-    def spec(self) -> str:
-        """Canonical spec string (the task takes no options)."""
-        return self.name
-
     def init_params(self, generator: torch.Generator) -> dict:
         return cnn.cnn_init(generator, device=self.device)
 
@@ -45,7 +166,6 @@ class EmnistCnnTask:
         return cnn.cnn_loss(params, batch["images"], batch["labels"])
 
     def client_batch(self, cid: int) -> dict:
-        """Client ``cid``'s deterministic local dataset (numpy)."""
         im, lb = self.partition.client_data(int(cid))
         return {"images": im, "labels": lb}
 
@@ -57,13 +177,65 @@ class EmnistCnnTask:
         return {"accuracy": float(acc), "loss": float(loss)}
 
 
-def make_task(spec: str, cfg, device) -> EmnistCnnTask:
-    name, opts = parse_mechanism_spec(spec)
-    if name == "lm":
-        raise NotImplementedError(
-            "task 'lm' is not ported yet: ROADMAP.md queue A item 12")
-    if name != "emnist_cnn":
-        raise ValueError(f"unknown task {name!r}; ported: emnist_cnn")
-    if opts:
-        raise ValueError(f"task 'emnist_cnn' takes no options, got {sorted(opts)}")
-    return EmnistCnnTask(cfg, device)
+def _model_axis_not_ported(*_args, **_kwargs):
+    raise NotImplementedError(
+        "the lm task's model axis (model_shards > 1, the 2-D client x model mesh) "
+        "is not ported yet: ROADMAP.md queue A item 12")
+
+
+@register_task("lm")
+class LmTask(ClientTask):
+    """Federated private LM fine-tuning over the model zoo.
+
+    Client ``cid``'s local dataset is the ``TokenPipeline`` batch ``cid``
+    (Markov token sequences, deterministic per (seed, cid)). The loss is
+    the zoo's next-token CE (+ MoE aux) in float32; any registered config
+    runs, always its reduced variant, the default a shrunk
+    ``mamba2-370m``."""
+
+    supports_model_axis = True
+
+    def __init__(self, cfg, device="cuda", model: str = "mamba2-370m", seq_len: int = 64,
+                 batch: int = 2, branch: int = 4, eval_batch: int = 4,
+                 eval_batches: int = 2, eval_seed: int = 9_999):
+        from repro_torch.configs.registry import get_config
+        from repro_torch.data.lm import TokenPipeline
+
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.model = model
+        self.model_cfg = get_config(model, reduced=True)
+        self.seq_len = int(seq_len)
+        self.batch = int(batch)
+        self.eval_batch = int(eval_batch)
+        self.eval_batches = int(eval_batches)
+        # client cid's fixed local data is the pipeline's batch(cid):
+        # deterministic per (seed, cid), disjoint from the eval stream
+        self._pipe = TokenPipeline(self.model_cfg, self.seq_len, self.batch,
+                                   seed=cfg.seed, branch=int(branch))
+        self._eval_pipe = TokenPipeline(self.model_cfg, self.seq_len, self.eval_batch,
+                                        seed=int(eval_seed), branch=int(branch))
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        from repro_torch.models import model as model_lib
+
+        return model_lib.init_params(generator, self.model_cfg, device=self.device)
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        from repro_torch.models import model as model_lib
+        from repro_torch.models.common import ParallelCtx
+
+        return model_lib.loss_fn(params, self.model_cfg, ParallelCtx(), batch)[0]
+
+    def client_batch(self, cid: int) -> dict:
+        return self._pipe.batch(int(cid))
+
+    def evaluate(self, flat: torch.Tensor, unravel) -> dict:
+        from repro_torch.eval.lm_eval import perplexity, stream_ce
+
+        ce, tokens = stream_ce(unravel(flat), self.model_cfg, self._eval_pipe,
+                               self.eval_batches, self.device)
+        return {"loss": ce, "ppl": perplexity(ce), "eval_tokens": tokens}
+
+    # the 2-D ("shard", "model") mesh's hooks
+    bind_model_axis = shard_params = local_loss = gather_grads = _model_axis_not_ported

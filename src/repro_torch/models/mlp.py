@@ -1,0 +1,55 @@
+"""Dense MLP variants (counterpart of ``repro/models/mlp.py``), at tp = 1.
+
+Kinds:
+  swiglu        silu(x Wg) * (x Wu) Wd        (llama/mistral/chatglm/qwen…)
+  geglu         gelu(x Wg) * (x Wu) Wd        (gemma)
+  squared_relu  relu(x W1)^2 Wd               (nemotron-4)
+  gelu          gelu(x W1) Wd                 (musicgen)
+
+GELU is the tanh approximation, ``jax.nn.gelu``'s default.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
+
+GATED = {"swiglu", "geglu"}
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (approximate=True)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def init_params(generator: torch.Generator, kind: str, d_model: int, d_ff: int,
+                device="cuda") -> dict:
+    def init(shape, in_axis):
+        return dense_init(generator, shape, in_axis=in_axis, device=device)
+
+    if kind in GATED:
+        p = {"w_gate": init((d_model, 1, d_ff), 0), "w_up": init((d_model, 1, d_ff), 0)}
+    else:
+        p = {"w_in": init((d_model, 1, d_ff), 0)}
+    p["w_down"] = init((1, d_ff, d_model), 1)
+    return p
+
+
+def forward(params: dict, kind: str, ctx: ParallelCtx, x: torch.Tensor) -> torch.Tensor:
+    """x: (..., D) -> (..., D)."""
+    if kind in GATED:
+        g = x @ squeeze_tp(params["w_gate"], 1).to(x.dtype)
+        u = x @ squeeze_tp(params["w_up"], 1).to(x.dtype)
+        act = F.silu(g) if kind == "swiglu" else gelu(g)
+        h = act * u
+    else:
+        h = x @ squeeze_tp(params["w_in"], 1).to(x.dtype)
+        if kind == "squared_relu":
+            h = torch.square(F.relu(h))
+        elif kind == "gelu":
+            h = gelu(h)
+        else:
+            raise ValueError(f"unknown mlp kind {kind!r}")
+    y = h @ squeeze_tp(params["w_down"], 0).to(h.dtype)
+    return ctx.sp_scatter(y)

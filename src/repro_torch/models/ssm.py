@@ -1,0 +1,152 @@
+"""Mamba2 (state-space duality / SSD) blocks, the training forward
+(counterpart of the first half of ``repro/models/ssm.py``), at tp = 1.
+
+The chunked SSD algorithm (Dao & Gu, 2024) as dense einsums per chunk:
+an intra-chunk quadratic form, whose decay is masked to ``-inf`` BEFORE
+``exp`` (masking after it would overflow), and the inter-chunk state
+recurrence, here a Python loop over the static chunk count (the
+reference's ``lax.scan``) that reads nothing back to the host. The
+decode step and its recurrent state are ROADMAP.md queue A item 13.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMSpec:
+    d_model: int
+    state_dim: int          # N
+    head_dim: int = 64      # P (mamba2 convention)
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 128
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def num_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+def init_params(generator: torch.Generator, spec: SSMSpec, device="cuda") -> dict:
+    h, di = spec.num_heads, spec.d_inner
+    D, N, W = spec.d_model, spec.state_dim, spec.conv_width
+
+    def init(shape, in_axis=0):
+        return dense_init(generator, shape, in_axis=in_axis, device=device)
+
+    # dt log-uniform in [dt_min, dt_max]; its bias the inverse softplus
+    u = torch.rand((1, h), generator=generator, dtype=torch.float32)
+    dt = torch.exp(u * (math.log(spec.dt_max) - math.log(spec.dt_min)) + math.log(spec.dt_min))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32)[None])
+    return {
+        "w_zx": init((D, 1, 2 * di)),  # z (gate) and x streams
+        "w_bc": init((D, 2 * N)),  # shared B and C projections (ngroups=1)
+        "w_dt": init((D, 1, h)),
+        "conv_x": init((1, W, di), 1),
+        "conv_bc": init((W, 2 * N)),
+        "A_log": a_log.to(device),
+        "D_skip": torch.ones((1, h), device=device),
+        "dt_bias": dt_bias.to(device),
+        "norm": torch.zeros((1, di), device=device),
+        "w_out": init((1, di, D), 1),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _gated_rms_norm(y, z, w, ctx: ParallelCtx, eps: float = 1e-6):
+    """Mamba2's RMSNormGated over the full d_inner dimension."""
+    x = (y * F.silu(z)).to(torch.float32)
+    var = x.square().sum(-1, keepdim=True) / x.shape[-1]
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + w.to(torch.float32))).to(y.dtype)
+
+
+def _depthwise_causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C); w: (W, C) depthwise causal conv + silu."""
+    W, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = sum(xp[:, i:i + S] * w[i] for i in range(W))
+    return F.silu(out)
+
+
+def _project(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor):
+    """x: (B,S,D) -> z,xs:(B,S,di_l), B,C:(B,S,2N), dt:(B,S,h_l)."""
+    zx = x @ squeeze_tp(params["w_zx"], 1).to(x.dtype)
+    di_l = zx.shape[-1] // 2
+    z, xs = zx[..., :di_l], zx[..., di_l:]
+    bc = x @ params["w_bc"].to(x.dtype)
+    dt_raw = x @ squeeze_tp(params["w_dt"], 1).to(x.dtype)
+    dt = softplus(dt_raw.to(torch.float32) + squeeze_tp(params["dt_bias"], 0))
+    return z, xs, bc, dt
+
+
+def forward(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor) -> torch.Tensor:
+    """Training path (chunked SSD). x: (B, S, D) -> (B, S, D)."""
+    B, S, D = x.shape
+    N, P_, Q = spec.state_dim, spec.head_dim, min(spec.chunk, x.shape[1])
+    if S % Q != 0:
+        Q = S  # irregular (small/test) lengths: single chunk
+    nC = S // Q
+    z, xs, bc, dt = _project(params, spec, ctx, x)
+    h_l = dt.shape[-1]
+
+    xs = _depthwise_causal_conv(xs, squeeze_tp(params["conv_x"], 0).to(x.dtype))
+    bc = _depthwise_causal_conv(bc, params["conv_bc"].to(x.dtype))
+    Bm, Cm = bc[..., :N], bc[..., N:]
+
+    A = -torch.exp(squeeze_tp(params["A_log"], 0))  # (h_l,) negative
+    xh = xs.reshape(B, nC, Q, h_l, P_).to(torch.float32)
+    dt_c = dt.reshape(B, nC, Q, h_l)
+    B_c = Bm.reshape(B, nC, Q, N).to(torch.float32)
+    C_c = Cm.reshape(B, nC, Q, N).to(torch.float32)
+
+    da = dt_c * A  # (B, nC, Q, h)  log-decay increments
+    cum = torch.cumsum(da, dim=2)  # within-chunk inclusive cumsum
+    # intra-chunk: y[i] = sum_{j<=i} exp(cum_i - cum_j) (C_i.B_j) dt_j x_j
+    decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nC,Q_i,Q_j,h)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    decay = torch.where(mask[None, None, :, :, None], decay, -math.inf)
+    cb = torch.einsum("bcin,bcjn->bcij", C_c, B_c)  # (B,nC,Q,Q)
+    attn = cb[..., None] * torch.exp(decay)  # (B,nC,Q,Q,h)
+    y_intra = torch.einsum("bcijh,bcjh,bcjhp->bcihp", attn, dt_c, xh)
+
+    # chunk states: S_c = sum_j exp(cum_end - cum_j) dt_j x_j B_j^T  (h,P,N)
+    seg = cum[:, :, -1:, :] - cum  # decay from j to end of chunk
+    states = torch.einsum("bcjh,bcjh,bcjhp,bcjn->bchpn", torch.exp(seg), dt_c, xh, B_c)
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nC,h) whole-chunk decay
+
+    # the state entering each chunk: h_0 = 0, h_{c+1} = h_c * decay_c + S_c
+    h = torch.zeros((B, h_l, P_, N), dtype=torch.float32, device=x.device)
+    before = []
+    for c in range(nC):
+        before.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_before = torch.stack(before, dim=1)  # (B,nC,h,P,N)
+
+    # inter-chunk: y_inter[i] = exp(cum_i) * C_i . h_entering
+    y_inter = torch.einsum("bcin,bchpn,bcih->bcihp", C_c, h_before, torch.exp(cum))
+
+    y = (y_intra + y_inter).reshape(B, S, h_l, P_)
+    y = y + squeeze_tp(params["D_skip"], 0)[None, None, :, None] * xs.reshape(
+        B, S, h_l, P_).to(torch.float32)
+    y = y.reshape(B, S, h_l * P_).to(x.dtype)
+    # gated RMSNorm (mamba2): norm(y * silu(z))
+    y = _gated_rms_norm(y, z, squeeze_tp(params["norm"], 0), ctx)
+    out = y @ squeeze_tp(params["w_out"], 0).to(y.dtype)
+    return ctx.sp_scatter(out)

@@ -982,3 +982,65 @@ def test_async_engine_on_the_card(deterministic, fused):
         plain.round()
         per.round()
     assert torch.equal(plain.flat, per.flat)
+
+
+LM_FED = dict(num_clients=8, clients_per_round=4, samples_per_client=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b", "phi3.5-moe-42b-a6.6b",
+                                  "gemma3-4b", "pixtral-12b"])
+@pytest.mark.parametrize("fused", [False, True], ids=["materialized", "fused packed"])
+def test_lm_graphed_round_equals_perround(deterministic, arch, fused):
+    """The lm task (ssm, hybrid with the shared block, moe, windowed and
+    prefixed reduced configs): 3 graphed scan rounds == 3 eager perround
+    rounds, parameters and sums bit for bit, one quantize (or round-sum,
+    unpack + decode-apply and, keeping sums, unpack) launch a round."""
+    cfg = FedConfig(task=f"lm:model={arch},seq_len=32,batch=1", collect_sums=True,
+                    fused_rounds=fused, **LM_FED)
+    scan = FedTrainer(SPECS["rqm"], cfg, device=deterministic)
+    ops.reset_launches()
+    scan.run_block(3)
+    counts = dict(ops.launches)
+    per = FedTrainer(SPECS["rqm"], dataclasses.replace(cfg, engine="perround"),
+                     device=deterministic)
+    for _ in range(3):
+        per.round()
+    assert counts == ({"rqm_round_sum_packed_dev": 3, "unpack_decode_apply": 3,
+                       "unpack_flat": 3} if fused else {"rqm_quantize_dev": 3})
+    assert torch.equal(scan.flat, per.flat)
+    for a, b in zip(scan.round_sums, per.round_sums):
+        np.testing.assert_array_equal(a, b)
+    ev = scan.evaluate()
+    assert math.isfinite(ev["loss"]) and ev["ppl"] > 1.0
+
+
+@pytest.mark.cuda
+def test_lm_loss_on_the_card_matches_the_cpu(deterministic):
+    """Every reduced config's loss and gradient on the card from the CPU's
+    parameters, within the tolerances the CPU holds against the JAX
+    reference (tests/test_torch_lm_model.py)."""
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.convert import ravel
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.models import model
+    from repro_torch.models.common import ParallelCtx
+
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, reduced=True)
+        flat, unravel = ravel(model.init_params(torch.Generator().manual_seed(1), cfg,
+                                                device="cpu"))
+        batch = {k: torch.from_numpy(v) for k, v in TokenPipeline(cfg, 64, 2).batch(0).items()}
+
+        def loss(f, b, unravel=unravel, cfg=cfg):
+            return model.loss_fn(unravel(f), cfg, ParallelCtx(), b)[0]
+
+        g_cpu, l_cpu = torch.func.grad_and_value(loss)(flat, batch)
+        flat_d, unravel_d = ravel(model.init_params(torch.Generator().manual_seed(1), cfg,
+                                                    device=deterministic))
+        assert torch.equal(flat_d.cpu(), flat)
+        g, value = torch.func.grad_and_value(
+            lambda f, b: model.loss_fn(unravel_d(f), cfg, ParallelCtx(), b)[0])(
+            flat_d, {k: v.to(deterministic) for k, v in batch.items()})
+        assert abs(float(value) - float(l_cpu)) <= 2e-6 * abs(float(l_cpu)), arch
+        assert float((g.cpu() - g_cpu).abs().max()) <= 1e-5 * float(g_cpu.abs().max()), arch

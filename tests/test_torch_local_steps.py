@@ -28,7 +28,7 @@ from repro.fed.config import FedConfig as JaxFedConfig
 from repro.fed.trainer import FedTrainer as JaxFedTrainer
 from repro.kernels import ops as jops
 from repro.optim import sgd as jax_sgd
-from repro_torch.convert import params_from_numpy, ravel
+from repro_torch.convert import ravel, tree_from_numpy
 from repro_torch.core.mechanisms import make_mechanism
 from repro_torch.fed import rounds
 from repro_torch.fed.config import FedConfig
@@ -68,7 +68,7 @@ def reference_local_round():
 def test_delta_stack_matches_reference(reference_local_round, record_property):
     ref = reference_local_round
     tr = FedTrainer(SPEC, FedConfig(engine="perround", **SMALL), device="cpu")
-    flat, _ = ravel(params_from_numpy(ref["params0"], device="cpu"))
+    flat, _ = ravel(tree_from_numpy(ref["params0"], device="cpu"))
     np.testing.assert_array_equal(flat.numpy(), ref["flat0"])
     batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
     deltas = tr.client_grads(flat, batch)

@@ -4,7 +4,7 @@ clients, cohorts of 6).
 
   * data: identical arrays for identical seeds;
   * CNN: loss and per-client clipped gradients at the reference's initial
-    parameters (carried over with ``params_from_numpy``), allclose at
+    parameters (carried over with ``tree_from_numpy``), allclose at
     rtol 1e-5, atol 1e-6;
   * one round handed the reference round's clipped gradient stack, cohort
     and ``key_to_seed(k_enc)``: the SecAgg sum exact, the parameters
@@ -43,7 +43,7 @@ from repro.fed.config import FedConfig as JaxFedConfig
 from repro.fed.trainer import FedTrainer as JaxFedTrainer
 from repro.kernels import decode_apply_kernel as jdecode
 from repro.kernels import ops as jops
-from repro_torch.convert import params_from_numpy, ravel
+from repro_torch.convert import ravel, tree_from_numpy
 from repro_torch.core import wire
 from repro_torch.core.mechanisms import make_mechanism
 from repro_torch.data.emnist import SyntheticEMNIST
@@ -102,7 +102,7 @@ def port_trainer(reference_round):
     """The port's trainer on the small problem, started from the
     reference's initial parameters."""
     tr = FedTrainer(SPEC, FedConfig(collect_sums=True, **FUSED, **SMALL), device="cpu")
-    tr.flat, _ = ravel(params_from_numpy(reference_round["params0"], device="cpu"))
+    tr.flat, _ = ravel(tree_from_numpy(reference_round["params0"], device="cpu"))
     return tr
 
 
@@ -128,7 +128,7 @@ def test_data_matches_reference(reference_round, port_trainer):
 
 
 def test_flat_layout_matches_ravel_pytree(reference_round):
-    params = params_from_numpy(reference_round["params0"], device="cpu")
+    params = tree_from_numpy(reference_round["params0"], device="cpu")
     flat, unravel = ravel(params)
     assert flat.shape == (222_030,)
     np.testing.assert_array_equal(flat.numpy(), reference_round["flat0"])
@@ -142,7 +142,7 @@ def test_cnn_loss_and_client_grads_match_reference(reference_round, port_trainer
     ids = reference_round["ids"]
     data = reference_round["client_data"]
     params_j = reference_round["params0"]
-    params_t = params_from_numpy(params_j, device="cpu")
+    params_t = tree_from_numpy(params_j, device="cpu")
     im, lb = data["images"][ids[0]], data["labels"][ids[0]]
     want = float(jcnn.cnn_loss(params_j, im, lb))
     got = float(cnn.cnn_loss(params_t, torch.from_numpy(im), torch.from_numpy(lb)))
@@ -261,13 +261,16 @@ def test_wire_width_selection():
     assert rounds.hot_path_pack_bits(mech, cfg, 5000) is None
 
 
-@pytest.mark.parametrize("overrides", [
+@pytest.mark.parametrize("overrides,match", [
     # the shard engine is ported; its 2-D client x model mesh is not
-    pytest.param(dict(engine="shard", model_shards=2), id="engine=shard"),
-    dict(task="lm"),
-], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
-def test_unported_options_raise(overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    pytest.param(dict(engine="shard", model_shards=2), "ROADMAP.md", id="engine=shard"),
+    # the lm task is ported at tp = 1; its model axis is not
+    pytest.param(dict(task="lm:seq_len=16,batch=1", engine="shard", model_shards=2),
+                 r"the lm task's 2-D client x model mesh.*ROADMAP.md queue A item 12",
+                 id="task=lm"),
+])
+def test_unported_options_raise(overrides, match):
+    with pytest.raises(NotImplementedError, match=match):
         FedTrainer(SPEC, FedConfig(**{**SMALL, **overrides}), device="cpu")
 
 
