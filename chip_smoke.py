@@ -145,6 +145,30 @@ which raises and exits non-zero:
      decode_apply_sum, each equal to its plain version (run in column
      chunks) bit for bit; lines start with [5h], reports "lm" and
      "lm_full_width";
+  5i. serving (``models/*``'s decode halves, ``launch/serve.py``) and the
+     single-leaf encodes, no gradients: (a) each reduced config (batch 2,
+     prompt 64, capacity 96; pixtral and musicgen with prefix
+     embeddings; the MoE configs at a capacity that drops nothing),
+     prefill then 8 decode steps, and reduced gemma3 at prompt 96 past
+     its window of 64: every token in [0, padded_vocab), prefill's token
+     == forward_hidden's argmax at the last position, the first decoded
+     token == a teacher-forced forward over prompt + 1; (b) gemma3-4b at
+     full width (4,550,996,480 parameters from a CUDA generator), batch
+     4, prompt 1280 (past the 1024 window: the re-lay and the ring), 32
+     tokens, and (c) zamba2-1.2b (1,016,819,712), prompt 512: the same
+     gates; init s, prefill ms and tokens/s, decode ms a step (median
+     after the first) and tokens/s, the host's dispatch ms and the
+     device's busy ms a step, peak memory, beside the step's bound
+     (weights but the embedding table, and the caches, read once), and
+     one more step's launches by the operator and by the port's source
+     line that issued them (torch.profiler, a torch-function mode's
+     ranges); (d)
+     rqm/pbm/qmgeo_fast on a 1-D and a 3-D leaf and rqm_tree over the
+     CNN's tree, counted (rows 5-7), each == its plain version and
+     ``_batch`` row 0, rqm_ref == rqm_fast; (e) the paper-cohort
+     calibration on the host, timed, a repeat computing 0 epsilons;
+     lines start with [5i], reports "serve_reduced", "serve_full_width",
+     "single_leaves", "calibration";
   6. profile: device time by kernel over 3 more rounds of FedConfig()'s
      trainer for each mechanism (graphed; phase 5's, and phase 5c's for
      rqm), of phase 5e's graphed Poisson round, of the graphed fused packed
@@ -157,7 +181,7 @@ which raises and exits non-zero:
      ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
      (reported, not gated).
 
-Every run of phases 4 to 5h (but their reports) sets the kernels' launch counters to 0
+Every run of phases 4 to 5i (but their reports) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
@@ -266,6 +290,15 @@ LM_DROPOUT = 0.1  # the host engine's comparison with scan (heterogeneous cohort
 LM_CLOCK_ROUNDS, LM_CLOCK_REPS = 20, 5
 LM_FULL_DIM = 419_763_712  # the full-width mamba2-370m's parameters
 LM_FULL_CHUNK = 1 << 24  # columns a chunk of the plain versions at full width
+# phase 5i: serving. (a) each reduced config: batch, prompt, capacity and
+# decode steps, and reduced gemma3's prompt past its window of 64;
+# (b)-(c) full width: (batch, prompt, generated tokens, parameters), the
+# decode steps profiled at the end
+SERVE_BATCH, SERVE_PROMPT, SERVE_CAP, SERVE_STEPS = 2, 64, 96, 8
+SERVE_LONG_PROMPT = 96
+SERVE_FULL = {"gemma3-4b": (4, 1280, 32, 4_550_996_480),
+              "zamba2-1.2b": (4, 512, 32, 1_016_819_712)}
+SERVE_PROFILED = 3
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -2051,6 +2084,315 @@ def lm_full_width(torch, counted, card: str) -> dict:
     return report
 
 
+def serve_gates(torch, model, cfg, params, toks, pe, gen, tag: str) -> dict:
+    """Phase 5i's gates on one generation ``gen`` (B, k) of prompt
+    ``toks`` (+ ``pe``): every token in [0, padded_vocab); the prefill's
+    token == the argmax of forward_hidden's last position; the first
+    decoded token == the argmax of a teacher-forced forward over prompt +
+    1. Returns the two gates' top-2 logit margins (their smallest)."""
+    from repro_torch.models.common import ParallelCtx, rms_norm
+
+    ctx = ParallelCtx()
+    vocab = cfg.padded_vocab(1)
+    if not bool(((gen >= 0) & (gen < vocab)).all()):
+        raise AssertionError(f"{tag}: a token outside [0, {vocab})")
+    seq = torch.cat([toks, gen[:, :1]], 1)
+    h, _ = model.forward_hidden(params, cfg, ctx, seq, pe)
+    h = rms_norm(h[:, -2:], params["final_norm"])
+    margins = {}
+    for i, what in enumerate(("prefill == forward", "decode == teacher-forced")):
+        want = model.lm_head_argmax(params, ctx, h[:, i])
+        if not torch.equal(want, gen[:, i]):
+            raise AssertionError(f"{tag}: {what}: {gen[:, i].tolist()} != {want.tolist()}")
+        logits = h[:, i] @ params["lm_head"][:, 0]
+        top2 = torch.topk(logits, 2, dim=-1).values
+        margins[what] = float((top2[:, 0] - top2[:, 1]).min())
+    return margins
+
+
+def no_drop(cfg):
+    """A MoE config at capacity T * top_k: its training forward then drops
+    no token, as decode never does (the teacher-forced gate's forward
+    would otherwise drop tokens that the decode step keeps)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+
+
+def serve_reduced(torch, card: str) -> dict:
+    """Phase 5i (a): each reduced config served on the card (SERVE_BATCH x
+    SERVE_PROMPT, capacity SERVE_CAP, prefill then SERVE_STEPS decode
+    steps; pixtral and musicgen with prefix embeddings; the MoE configs
+    at a capacity that drops nothing), and reduced gemma3 at a prompt of
+    SERVE_LONG_PROMPT past its window of 64 (prefill's re-lay, the ring):
+    ``serve_gates`` on each."""
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.launch.serve import generate, synthetic_prompt
+    from repro_torch.models import model
+
+    report = {}
+    cases = [(arch, SERVE_PROMPT) for arch in ARCH_IDS] + [("gemma3-4b", SERVE_LONG_PROMPT)]
+    for arch, prompt in cases:
+        cfg = no_drop(get_config(arch, reduced=True))
+        tag = f"[5i] {arch} reduced, prompt {prompt}"
+        params = model.init_params(torch.Generator("cuda").manual_seed(0), cfg, device="cuda")
+        toks, pe = synthetic_prompt(cfg, SERVE_BATCH, prompt,
+                                    torch.Generator("cuda").manual_seed(1), "cuda")
+        gen, caches, t_prefill, t_decode = generate(
+            params, cfg, toks, SERVE_STEPS + 1, pe, capacity=prompt + SERVE_CAP - SERVE_PROMPT)
+        windows = [c["k"].shape[3] for c in caches if "k" in c]
+        margins = serve_gates(torch, model, cfg, params, toks, pe, gen, tag)
+        report[f"{arch}@{prompt}"] = {"tokens": gen.cpu().tolist(), "cache_slots": windows,
+                                      "prefill_s": t_prefill, "decode_s": t_decode,
+                                      "margins": margins}
+        log(f"{tag}: prefill + {SERVE_STEPS} decode steps, cache slots {windows}, gates held "
+            f"(top-2 margins {margins})")
+        del params, caches
+    report["nvidia_smi"] = card
+    return report
+
+
+def issuer_mode(torch):
+    """A torch-function mode that runs each torch call made by the port
+    inside a profiler range named ``@file:line function`` of its
+    innermost ``repro_torch`` frame, so that a trace can say which
+    source line issued each kernel (``launches_by_issuer``)."""
+    from torch.overrides import TorchFunctionMode
+
+    class Issuer(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            f = sys._getframe(1)
+            while f is not None and "repro_torch/" not in f.f_code.co_filename:
+                f = f.f_back
+            where = ("@outside repro_torch" if f is None else
+                     f"@{f.f_code.co_filename.split('repro_torch/')[-1]}:{f.f_lineno} "
+                     f"{f.f_code.co_name}")
+            with torch.profiler.record_function(where):
+                return func(*args, **(kwargs or {}))
+
+    return Issuer()
+
+
+def launches_by_issuer(prof) -> tuple:
+    """The device activities of a CPU + CUDA trace, each kernel counted
+    against the outermost operator that launched it and against the
+    ``issuer_mode`` range around that operator: (device activities,
+    {operator: kernels}, {source line: kernels}), largest first."""
+    from collections import Counter
+
+    by_op, by_line, total = Counter(), Counter(), 0
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA") and not e.name.startswith("@"):
+            total += 1  # not the ranges' own device-side annotations
+        if not e.kernels or e.name.startswith("@"):
+            continue
+        op, up = e.name, e.cpu_parent
+        while up is not None and up.name.startswith("aten::"):
+            op, up = up.name, up.cpu_parent
+        while up is not None and not up.name.startswith("@"):
+            up = up.cpu_parent
+        by_op[op] += len(e.kernels)
+        by_line["no issuer range" if up is None else up.name[1:]] += len(e.kernels)
+    return total, dict(by_op.most_common()), dict(by_line.most_common())
+
+
+def serve_full_width(torch, arch: str, batch: int, prompt: int, gen_len: int, want_params: int,
+                     card: str) -> dict:
+    """Phase 5i (b), (c): ``arch`` at full width, random from a CUDA
+    generator: init seconds, prefill ms and tokens/s, decode ms a step
+    (CUDA events, median of the steps after the first) and tokens/s, the
+    host's dispatch ms a step (its clock around each call, no
+    synchronisation), device busy ms a step (torch.profiler over the last
+    SERVE_PROFILED steps, with its launches and largest kernels), peak
+    memory above what was allocated as it
+    began (parameters included); gate: the first decoded token ==
+    the teacher-forced forward over prompt + 1 (and prefill == forward).
+    The step's bound: every weight but the embedding table read once, and
+    every cache read once, over HBM's rate (its float32 operations, 2 a
+    weight a token over 67 TFLOP/s, are below it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.launch.serve import synthetic_prompt
+    from repro_torch.models import model
+    from repro_torch.models.common import ParallelCtx
+
+    tag = f"[5i] {arch} full width"
+    cfg = get_config(arch)
+    ctx = ParallelCtx()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator("cuda").manual_seed(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != want_params:
+        raise AssertionError(f"{tag}: {n_params} parameters, expected {want_params}")
+    toks, pe = synthetic_prompt(cfg, batch, prompt, torch.Generator("cuda").manual_seed(1), "cuda")
+    shape = InputShape("serve", prompt + gen_len, batch, "decode")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(gen_len + 1)]
+    ev[0].record()
+    nxt, caches = model.prefill(params, cfg, ctx, toks, shape, pe)
+    ev[1].record()
+    generated, host_ms = [nxt], []
+    timed = gen_len - 1 - SERVE_PROFILED
+    for i in range(timed):
+        h0 = time.perf_counter()
+        nxt, caches = model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + i)
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        ev[i + 2].record()
+        generated.append(nxt)
+    torch.cuda.synchronize()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(timed)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(timed, gen_len - 1):
+            nxt, caches = model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + i)
+            generated.append(nxt)
+        torch.cuda.synchronize()
+    by_kernel = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    busy_ms = sum(e.device_time_total for e in by_kernel) / 1e3 / SERVE_PROFILED
+    # device activities only: the trace also holds the host's runtime calls
+    launches_per_step = sum(str(e.device_type).endswith("CUDA")
+                            for e in prof.events()) / SERVE_PROFILED
+    top = {demangle(e.key)[:80]: e.device_time_total / 1e3 / SERVE_PROFILED
+           for e in by_kernel[:6]}
+    # one more step (the caches' last position; its token is not kept):
+    # who issues the launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with issuer_mode(torch):
+            model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + gen_len - 1)
+        torch.cuda.synchronize()
+    traced, by_op, by_line = launches_by_issuer(prof)
+    peak = torch.cuda.max_memory_allocated() - start_bytes  # parameters included
+    gen = torch.stack(generated, 1)
+    margins = serve_gates(torch, model, cfg, params, toks, pe, gen, tag)
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+    weight_bytes = 4 * (n_params - params["embed"].numel())
+    step_bound = bound(weight_bytes + cache_bytes)
+    steady = step_ms[1:]
+    decode_ms = statistics.median(steady)
+    report = {"arch": arch, "params": n_params, "leaves": len(leaves(params)),
+              "batch": batch, "prompt": prompt, "generated": gen_len, "init_s": init_s,
+              "prefill_ms": prefill_ms, "prefill_tok_per_s": batch * prompt / prefill_ms * 1e3,
+              "decode_ms_per_step": decode_ms, "decode_ms_min": min(steady),
+              "decode_ms_max": max(steady), "first_step_ms": step_ms[0],
+              "decode_tok_per_s": batch / decode_ms * 1e3,
+              "host_dispatch_ms_per_step": statistics.median(host_ms[1:]),
+              "device_busy_ms_per_step": busy_ms, "profiled_steps": SERVE_PROFILED,
+              "device_launches_per_step": launches_per_step, "top_kernels_ms_per_step": top,
+              "layers": len(cfg.layers), "traced_step_launches": traced,
+              "launches_by_op": by_op, "launches_by_line": by_line,
+              "weight_bytes": weight_bytes, "cache_bytes": cache_bytes,
+              "bound_ms": step_bound[0], "bound_by": step_bound[1],
+              "peak_bytes_above_start": peak, "margins": margins, "sample": gen[0, :16].tolist(),
+              "nvidia_smi": card}
+    log(f"{tag}: {n_params} parameters, init {init_s} s; prefill {batch}x{prompt} "
+        f"{prefill_ms} ms ({report['prefill_tok_per_s']} tok/s); decode {decode_ms} ms a step "
+        f"(median of {len(steady)}; {report['decode_tok_per_s']} tok/s), host dispatch "
+        f"{report['host_dispatch_ms_per_step']} ms, device busy {busy_ms} ms in "
+        f"{launches_per_step} launches, bound "
+        f"{step_bound[0]} ms ({step_bound[1]}: weights {weight_bytes} B + caches "
+        f"{cache_bytes} B); peak {peak} B above the start; gates held (margins {margins}); nvidia-smi: {card}")
+    log(f"{tag}: one step's {traced} launches over {len(cfg.layers)} layers; by operator "
+        f"{dict(list(by_op.items())[:16])}; by source line {dict(list(by_line.items())[:30])}")
+    del params, caches
+    torch.cuda.empty_cache()
+    return report
+
+
+def serve_single_leaves(torch, counted) -> dict:
+    """Phase 5i (d): ``ops.rqm_fast``, ``pbm_fast`` and ``qmgeo_fast`` on a
+    1-D leaf (the CNN's flat width) and a 3-D one, and ``rqm_tree`` over
+    the CNN's tree (one seed a leaf), counted; then each leaf against its
+    plain version on the card and ``<name>_batch`` row 0, and
+    ``ref.rqm_ref`` against ``rqm_fast``, bit for bit (those launches
+    uncounted)."""
+    import numpy as np
+
+    from repro_torch.convert import leaves
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.fed.cnn import cnn_init
+    from repro_torch.kernels import ops, pbm_kernel, qmgeo_kernel, ref, rqm_kernel
+
+    rng = np.random.default_rng(11)
+    shapes = [(DIM,), (32, 5, 5, 16)]
+    xs = [torch.from_numpy(rng.uniform(-0.026, 0.026, size=s).astype(np.float32)).cuda()
+          for s in shapes]
+    tree = cnn_init(torch.Generator().manual_seed(3), device="cuda")
+    seed = int(rng.integers(0, 1 << 32))
+    seeds = [(seed + 7919 * i) & 0xFFFFFFFF for i in range(len(leaves(tree)))]
+    plains = {"rqm": rqm_kernel.rqm_quantize_plain, "pbm": pbm_kernel.pbm_quantize_plain,
+              "qmgeo": qmgeo_kernel.qmgeo_quantize_plain}
+    params = {name: make_mechanism(SPECS[name]).params for name in plains}
+    out = {}
+
+    def encode():
+        for name in plains:
+            out[name] = [getattr(ops, f"{name}_fast")(x, seed, params[name]) for x in xs]
+        out["tree"] = ops.rqm_tree(tree, seeds, params["rqm"])
+
+    counted("[5i] single leaves", {"rqm_quantize": len(xs) + len(seeds),
+                                   "pbm_quantize": len(xs), "qmgeo_quantize": len(xs)}, encode)
+    for name, plain in plains.items():
+        for x, got in zip(xs, out[name]):
+            flat = x.reshape(1, -1)
+            if not (got.shape == x.shape
+                    and torch.equal(got.reshape(-1), plain(flat, seed, params[name])[0])
+                    and torch.equal(got.reshape(-1),
+                                    getattr(ops, f"{name}_batch")(flat, seed, params[name])[0])):
+                raise AssertionError(f"[5i] {name}_fast on {tuple(x.shape)}: differs from its "
+                                     "plain version or the batch's row 0")
+    for x, got in zip(xs, out["rqm"]):
+        if not torch.equal(ref.rqm_ref(x.reshape(-1), seed, params["rqm"]), got.reshape(-1)):
+            raise AssertionError(f"[5i] rqm_ref != rqm_fast on {tuple(x.shape)}")
+    for leaf, s, got in zip(leaves(tree), seeds, leaves(out["tree"])):
+        want = rqm_kernel.rqm_quantize_plain(leaf.reshape(1, -1), s, params["rqm"])[0]
+        if not torch.equal(got.reshape(-1), want):
+            raise AssertionError(f"[5i] rqm_tree leaf {tuple(leaf.shape)} != its plain version")
+    report = {"shapes": shapes, "tree_leaves": [list(t.shape) for t in leaves(tree)],
+              "equal": True}
+    log(f"[5i] single leaves: rqm/pbm/qmgeo_fast on {shapes} and rqm_tree over the CNN's "
+        f"{len(seeds)} leaves == their plain versions and _batch row 0; rqm_ref == rqm_fast")
+    return report
+
+
+def calibration_report(card: str) -> dict:
+    """Phase 5i (e): the paper-cohort calibration on the host (RQM to eps
+    20 at delta 1e-5 over 200 rounds of 40, c = 0.02), timed, from an
+    empty epsilon cache; a repeat must compute 0 epsilons."""
+    from repro_torch.privacy import cache
+    from repro_torch.privacy.calibrate import calibrate
+
+    kw = dict(target_eps=20.0, target_delta=1e-5, rounds=200, cohort=40, c=0.02)
+    fresh = cache.reset()
+    t0 = time.perf_counter()
+    res = calibrate("rqm", **kw)
+    seconds = time.perf_counter() - t0
+    computes = fresh.computes
+    t0 = time.perf_counter()
+    again = calibrate("rqm", **kw)
+    repeat_s = time.perf_counter() - t0
+    if fresh.computes != computes or again.value != res.value:
+        raise AssertionError(f"[5i] calibration repeat computed {fresh.computes - computes} "
+                             "epsilons or moved its value")
+    if not 0.99 * 20.0 <= res.epsilon <= 20.0:
+        raise AssertionError(f"[5i] calibration missed its window: eps {res.epsilon}")
+    report = {"family": "rqm", **kw, "knob": res.knob, "value": res.value, "eps": res.epsilon,
+              "alpha": res.alpha, "accountant_evals": res.iterations, "computes": computes,
+              "seconds": seconds, "repeat_seconds": repeat_s, "repeat_computes": 0,
+              "host": "the chip machine's CPU", "nvidia_smi": card}
+    log(f"[5i] calibration: {res.describe()} in {seconds} s ({computes} epsilons computed); "
+        f"repeat {repeat_s} s, 0 computed")
+    return report
+
+
 def fill_sources(torch, tr, rounds: int) -> dict:
     """Device ms a round of the fill kernels of an eager round, by the ops
     above each aten::fill_ and its shape (torch.profiler)."""
@@ -2290,6 +2632,16 @@ def main() -> int:
     log(json.dumps({"lm": lm_report}))
     log(json.dumps({"lm_full_width": lm_full_width(torch, counted, card)}))
     torch.cuda.empty_cache()
+
+    # phase 5i: serving (each reduced config; gemma3-4b and zamba2-1.2b at
+    # full width), the single-leaf encodes, calibration
+    with torch.no_grad():
+        log(json.dumps({"serve_reduced": serve_reduced(torch, card)}))
+        for arch, (batch, prompt, gen_len, n_params) in SERVE_FULL.items():
+            log(json.dumps({"serve_full_width": serve_full_width(
+                torch, arch, batch, prompt, gen_len, n_params, card)}))
+    log(json.dumps({"single_leaves": serve_single_leaves(torch, counted)}))
+    log(json.dumps({"calibration": calibration_report(card)}))
 
     # phase 6: where a warm round spends device time, FedConfig()'s round
     # for each mechanism (graphed), the graphed fused packed round, the

@@ -14,9 +14,12 @@ Runs on the GPU (``--device cuda``, the default) or, with the plain
 PyTorch versions of every kernel, on the CPU (``--device cpu``).
 Heterogeneous cohorts (``--subsampling poisson`` selects each client
 i.i.d. a round, ``--dropout`` drops selected clients i.i.d.) are
-accounted at each round's realized size. ``--target-eps`` (calibrating
-each family to a privacy budget) is not ported yet: ROADMAP.md queue A
-item 3.
+accounted at each round's realized size. ``--target-eps`` calibrates
+each private family's knob to the budget (the other options fixed) and
+halts a run when the budget is spent:
+
+  PYTHONPATH=src python examples/fl_emnist_torch.py --rounds 50 --clients 400 \
+      --per-round 8 --mechanism rqm --target-eps 40
 """
 import argparse
 import dataclasses
@@ -27,10 +30,13 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
 
-from repro_torch.core.mechanisms import make_mechanism, mechanism_names  # noqa: E402
+from repro_torch.core.mechanisms import (  # noqa: E402
+    accepted_options, make_mechanism, mechanism_names, parse_mechanism_spec,
+)
 from repro_torch.fed.config import FedConfig  # noqa: E402
 from repro_torch.fed.engine import engine_names  # noqa: E402
 from repro_torch.fed.trainer import FedTrainer  # noqa: E402
+from repro_torch.privacy.calibrate import DEFAULT_ALPHAS, calibrate, calibration_knobs  # noqa: E402
 from repro_torch.telemetry import parse_tracker_spec  # noqa: E402
 
 
@@ -48,12 +54,25 @@ def _suffix_track_spec(spec: str, tag: str) -> str:
     return "+".join(parts)
 
 
-def run_one(spec, fcfg, device, resume=False, track=None, multi=False, **defaults):
-    """One mechanism end to end: build it from the spec, train with the
-    configured engine (resuming from its checkpoint directory when asked),
-    report its own accounting."""
-    mech = make_mechanism(spec, **defaults)
-    name = mech.name
+def run_one(spec, fcfg, device, target_eps=None, resume=False, track=None, multi=False,
+            **defaults):
+    """One mechanism end to end: build it from the spec (or calibrate its
+    family to ``target_eps``), train with the configured engine (resuming
+    from its checkpoint directory when asked), report its own accounting."""
+    name, explicit = parse_mechanism_spec(spec)
+    if target_eps is not None and name in calibration_knobs():
+        # the spec's inline options are fixed calibration options too; the
+        # knob inside the spec conflicts with solving for it (calibrate raises)
+        knob = calibration_knobs()[name]
+        opts = {k: v for k, v in defaults.items()
+                if k in accepted_options(name) and k != knob.option}
+        opts.update(explicit)
+        calibrated = calibrate(name, target_eps=target_eps, target_delta=fcfg.budget_delta,
+                               rounds=fcfg.rounds, cohort=fcfg.clients_per_round, **opts)
+        mech = calibrated.mechanism
+        print(f"[{name}] calibrated: {calibrated.describe()}")
+    else:
+        mech = make_mechanism(spec, **defaults)
     # one artifact per full mechanism spec: a sweep must not interleave
     # checkpoints or tracker series
     tag = f"{name}-{hashlib.sha256(mech.describe().encode()).hexdigest()[:8]}"
@@ -140,8 +159,8 @@ def main():
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="i.i.d. dropout probability of each selected client")
     ap.add_argument("--target-eps", type=float, default=None,
-                    help="calibrate each family to a total privacy budget (not ported "
-                         "yet: ROADMAP.md queue A item 3)")
+                    help="calibrate each private family to this total (eps, "
+                         "--target-delta)-DP budget over --rounds, and halt when spent")
     ap.add_argument("--target-delta", type=float, default=1e-5)
     ap.add_argument("--track", default=None,
                     help="tracker spec: 'json:runs/fl.json', 'csv:runs/fl.csv', or a "
@@ -152,10 +171,6 @@ def main():
     args = ap.parse_args()
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
-    if args.target_eps is not None:
-        raise NotImplementedError(
-            "--target-eps (calibration to a privacy budget) is not ported yet: "
-            "ROADMAP.md queue A item 3")
 
     fcfg = FedConfig(
         num_clients=args.clients, clients_per_round=args.per_round,
@@ -165,13 +180,17 @@ def main():
         fused_rounds=args.fused_rounds, server_opt=args.server_opt,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         subsampling=args.subsampling, dropout=args.dropout,
-        budget_delta=args.target_delta,
+        budget_eps=args.target_eps, budget_delta=args.target_delta,
+        # budget mode: account on the alpha grid calibration optimizes
+        # over, so the run affords exactly the calibrated rounds
+        accountant_alphas=(tuple(DEFAULT_ALPHAS) if args.target_eps is not None
+                           else FedConfig.accountant_alphas),
     )
     specs = ["none", "rqm", "pbm", "qmgeo"] if args.mechanism == "all" else [args.mechanism]
     defaults = dict(c=args.clip, m=args.m, q=args.q, delta_ratio=args.delta_ratio,
                     theta=args.theta, r=args.r)
-    results = [run_one(s, fcfg, args.device, resume=args.resume, track=args.track,
-                       multi=len(specs) > 1, **defaults)
+    results = [run_one(s, fcfg, args.device, target_eps=args.target_eps, resume=args.resume,
+                       track=args.track, multi=len(specs) > 1, **defaults)
                for s in specs]
     if args.out:
         with open(args.out, "w") as f:

@@ -52,6 +52,21 @@ def _structure(tree, leaves: list):
     return _Leaf(tree.shape)
 
 
+def leaves(tree) -> list:
+    """The tree's leaves in ravel_pytree order."""
+    out: list = []
+    _structure(tree, out)
+    return out
+
+
+def map_leaves(fn, tree):
+    """The tree with leaf ``t``, the i-th in ravel_pytree order, replaced
+    by ``fn(i, t)``."""
+    out: list = []
+    skeleton = _structure(tree, out)
+    return _fill(skeleton, iter([fn(i, t) for i, t in enumerate(out)]))
+
+
 def ravel(params) -> tuple[torch.Tensor, "Unravel"]:
     """Flatten a params tree in ravel_pytree order; returns the flat
     vector and the inverse map."""

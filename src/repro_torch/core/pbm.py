@@ -36,6 +36,16 @@ class PBMParams:
         return float(np.log2(self.m + 1))
 
 
+def quantize_with_uniforms(x: torch.Tensor, u: torch.Tensor, params: PBMParams) -> torch.Tensor:
+    """Deterministic core: z = #{t : u[t] < p(x)}, int32, where u has
+    shape ``(m,) + x.shape`` and ``p(x) = 1/2 + theta x / c`` in float32
+    (``theta`` and ``c`` rounded once, the division IEEE)."""
+    c = float(np.float32(params.c))
+    x = x.to(torch.float32).clamp(-c, c)
+    p = 0.5 + f32_const(params.theta, x.device) * x / f32_const(c, x.device)
+    return (u < p[None]).sum(0, dtype=torch.int32)
+
+
 def decode_sum(z_sum: torch.Tensor, n, params: PBMParams) -> torch.Tensor:
     """Unbiased decode of the SecAgg sum of n devices' Binomial draws. At
     an int n the scale and the centre are Python doubles rounded once to

@@ -1,13 +1,13 @@
 """Renyi-DP accounting (counterpart of ``repro/core/renyi.py``).
 
 Numerically exact on the discrete outcome pmfs (float64, log space), as
-in the paper's Section 6.1. The reference's disk-backed privacy cache
-is replaced by an in-process memo of the aggregate epsilons.
+in the paper's Section 6.1. Every aggregate epsilon goes through the
+privacy cache (``privacy/cache.py``: an in-process memo and an optional
+disk layer shared across processes), keyed as the reference keys it.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Sequence
 
@@ -22,6 +22,7 @@ from repro_torch.core.distribution import (
 from repro_torch.core.grid import RQMParams
 from repro_torch.core.pbm import PBMParams
 from repro_torch.core.qmgeo import QMGeoParams
+from repro_torch.privacy.cache import cached_epsilon
 
 _EPS = 1e-300
 
@@ -58,40 +59,38 @@ def worst_case_inputs(c: float, n: int, seed: int = 0) -> tuple[np.ndarray, np.n
     return np.concatenate([[c], rest]), np.concatenate([[-c], rest])
 
 
-def _per_device_pmf(params):
-    if isinstance(params, PBMParams):
-        return lambda v: pbm_outcome_distribution(v, params.c, params.m, params.theta)
-    if isinstance(params, QMGeoParams):
-        return lambda v: qmgeo_outcome_distribution(v, params)
-    return lambda v: rqm_outcome_distribution(v, params)
+def _aggregate_epsilon(family: str, params, pmf, n: int, alpha: float, seed: int) -> float:
+    """The worst-case aggregate epsilon of n devices whose per-device pmf
+    is ``pmf``, through the privacy cache."""
 
+    def compute():
+        x, xp = worst_case_inputs(params.c, n, seed)
+        return renyi_divergence(aggregate_distribution([pmf(float(v)) for v in x]),
+                                aggregate_distribution([pmf(float(v)) for v in xp]), alpha)
 
-@functools.lru_cache(maxsize=None)
-def _aggregate_epsilon(params, n: int, alpha: float, seed: int) -> float:
-    """The memo: one entry per (params, n, alpha, seed); the params'
-    type names the mechanism."""
-    x, xp = worst_case_inputs(params.c, n, seed)
-    pmf = _per_device_pmf(params)
-    return renyi_divergence(aggregate_distribution([pmf(float(v)) for v in x]),
-                            aggregate_distribution([pmf(float(v)) for v in xp]), alpha)
+    return cached_epsilon(family, params, n, alpha, seed, compute)
 
 
 def rqm_aggregate_epsilon(params: RQMParams, n: int, alpha: float, seed: int = 0) -> float:
     """Worst-case aggregate Renyi-DP epsilon of RQM with n devices
-    (memoized)."""
-    return _aggregate_epsilon(params, int(n), float(alpha), int(seed))
+    (cached)."""
+    return _aggregate_epsilon("rqm", params, lambda v: rqm_outcome_distribution(v, params),
+                              n, alpha, seed)
 
 
 def pbm_aggregate_epsilon(params: PBMParams, n: int, alpha: float, seed: int = 0) -> float:
     """Worst-case aggregate Renyi-DP epsilon of PBM with n devices
-    (memoized)."""
-    return _aggregate_epsilon(params, int(n), float(alpha), int(seed))
+    (cached)."""
+    return _aggregate_epsilon(
+        "pbm", params, lambda v: pbm_outcome_distribution(v, params.c, params.m, params.theta),
+        n, alpha, seed)
 
 
 def qmgeo_aggregate_epsilon(params: QMGeoParams, n: int, alpha: float, seed: int = 0) -> float:
     """Worst-case aggregate Renyi-DP epsilon of the truncated-geometric
-    quantizer with n devices (memoized)."""
-    return _aggregate_epsilon(params, int(n), float(alpha), int(seed))
+    quantizer with n devices (cached)."""
+    return _aggregate_epsilon("qmgeo", params, lambda v: qmgeo_outcome_distribution(v, params),
+                              n, alpha, seed)
 
 
 def rdp_to_dp(total_eps, alphas, delta: float) -> tuple[float, float]:

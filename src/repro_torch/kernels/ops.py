@@ -1,6 +1,13 @@
 """Public kernel entry points (counterpart of ``repro/kernels/ops.py``).
 
-Per mechanism (rqm, pbm, qmgeo) two entries, built by one factory each:
+Per mechanism (rqm, pbm, qmgeo) the single-leaf entries
+``<name>(x, seed, params)`` and ``<name>_fast`` (one function under two
+names: the reference's Pallas entry and its fused-jnp twin are the same
+kernel here), which encode a leaf of any shape as row 0 of a one-row
+batch, so that its RNG counters are its flat indices (the reference's
+element ``offset`` is reached through ``_batch``'s ``row_offset``);
+``rqm_tree(tree, seeds, params)``, one seed a leaf in ``ravel_pytree``'s
+leaf order; and two entries built by one factory each:
 
   * ``<name>_batch(x, seed, params, *, row_offset=0)``: the materialized
     encode of a (clients, dim) batch, (clients, dim) int32 levels (the
@@ -32,12 +39,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import convert
 from repro_torch.kernels import fused_round_kernel, pbm_kernel, qmgeo_kernel, rqm_kernel
 from repro_torch.kernels._build import launches, reset_launches
 from repro_torch.kernels.decode_apply_kernel import decode_apply
 from repro_torch.kernels.pack_kernel import pack_flat, unpack_flat
 
-__all__ = ["launches", "reset_launches", "rqm_batch", "pbm_batch", "qmgeo_batch",
+__all__ = ["launches", "reset_launches", "rqm", "rqm_fast", "pbm", "pbm_fast", "qmgeo",
+           "qmgeo_fast", "rqm_tree", "rqm_batch", "pbm_batch", "qmgeo_batch",
            "rqm_round_sum", "pbm_round_sum", "qmgeo_round_sum", "pack_flat",
            "unpack_flat", "decode_apply"]
 
@@ -51,6 +60,16 @@ def _make_batch(name: str, quantize_fn):
 
     batch.__name__ = f"{name}_batch"
     return batch
+
+
+def _make_single(name: str, batch):
+    def single(x: torch.Tensor, seed, params) -> torch.Tensor:
+        """int32 levels of a leaf of any shape: row 0 of a one-row batch,
+        element i drawing counter i."""
+        return batch(x.reshape(1, -1).to(torch.float32), seed, params).reshape(x.shape)
+
+    single.__name__ = f"{name}_fast"
+    return single
 
 
 def _make_round_sum(name: str):
@@ -78,3 +97,18 @@ qmgeo_batch = _make_batch("qmgeo", qmgeo_kernel.qmgeo_quantize)
 rqm_round_sum = _make_round_sum("rqm")
 pbm_round_sum = _make_round_sum("pbm")
 qmgeo_round_sum = _make_round_sum("qmgeo")
+
+rqm = rqm_fast = _make_single("rqm", rqm_batch)
+pbm = pbm_fast = _make_single("pbm", pbm_batch)
+qmgeo = qmgeo_fast = _make_single("qmgeo", qmgeo_batch)
+
+
+def rqm_tree(tree, seeds, params):
+    """RQM leaf by leaf over a params tree, leaf i (in ``ravel_pytree``'s
+    order, ``convert.leaves``) with its own ``seeds[i]``; the reference
+    splits a key into one per leaf."""
+    n_leaves = len(convert.leaves(tree))
+    if len(seeds) != n_leaves:
+        raise ValueError(f"rqm_tree needs one seed a leaf: {n_leaves} leaves, "
+                         f"{len(seeds)} seeds")
+    return convert.map_leaves(lambda i, leaf: rqm(leaf, seeds[i], params), tree)

@@ -1,5 +1,5 @@
-"""GQA attention, the training forward (counterpart of the first half of
-``repro/models/attention.py``), at tp = 1.
+"""GQA attention (counterpart of ``repro/models/attention.py``), at tp = 1:
+the chunked causal forward (training and prefill) and the KV-cache decode.
 
 Plain PyTorch ops mirroring the reference's einsums, with its masking as
 written: scores masked to ``NEG_INF = -1e30`` (not -inf, so that a fully
@@ -7,8 +7,16 @@ masked row stays finite) before a float32 softmax; queries in blocks of
 ``q_chunk``; a sliding-window layer reads only the ``[block start -
 window, block end)`` keys, the front padding masked by ``k_pos >= 0``.
 The reference rematerializes each block (``jax.checkpoint``); remat moves
-memory, not values, and is left out. The decode half (KV caches, the
-ring buffer, flash-decoding) is ROADMAP.md queue A item 13.
+memory, not values, and is left out.
+
+A decode cache is a dict of ``k`` and ``v``, each (B, tp, kvl, S, hd),
+float32 or int8 codes with bfloat16 per-token ``k_scale``/``v_scale``.
+Where the reference's ``dynamic_update_slice`` returns new caches,
+``decode`` writes the new token into the cache's buffers IN PLACE (a
+step at full width would otherwise copy every cache) and returns the
+same dict: a cache is not to be reused after the step that wrote it.
+Flash-decoding over a sequence-sharded cache (``seq_sharded=True``) is
+ROADMAP.md queue A item 13.
 """
 from __future__ import annotations
 
@@ -104,8 +112,15 @@ def forward(params: dict, spec: AttentionSpec, ctx: ParallelCtx, x: torch.Tensor
     Queries are processed in blocks of q_chunk; for sliding-window layers
     only the [blk_start - window, blk_end) key slice is read."""
     sh = plan(spec, ctx.tp)
-    B, S, D = x.shape
     q, k, v = _project_qkv(params, spec, sh, x, positions)
+    return _attend(params, spec, ctx, sh, q, k, v)
+
+
+def _attend(params: dict, spec: AttentionSpec, ctx: ParallelCtx, sh: AttnSharding,
+            q, k, v) -> torch.Tensor:
+    """The chunked causal attention and output projection of ``forward``
+    on projected q (B,S,ql,hd), k, v (B,S,kvl,hd)."""
+    B, S = q.shape[:2]
     qpg = sh.q_local // sh.kv_local  # q heads per local kv head
     q = q.reshape(B, S, sh.kv_local, qpg, spec.head_dim)
 
@@ -115,7 +130,7 @@ def forward(params: dict, spec: AttentionSpec, ctx: ParallelCtx, x: torch.Tensor
     n_chunks = S // C
 
     def arange(n):
-        return torch.arange(n, dtype=torch.int64, device=x.device)
+        return torch.arange(n, dtype=torch.int64, device=q.device)
 
     outs = []
     if spec.window is not None and spec.window < S:
@@ -140,3 +155,119 @@ def forward(params: dict, spec: AttentionSpec, ctx: ParallelCtx, x: torch.Tensor
     if sh.dup_attn > 1:
         y = y / sh.dup_attn
     return y
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve): one new token against a KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache_shape(spec: AttentionSpec, tp: int, batch: int, max_len: int) -> dict:
+    sh = plan(spec, tp)
+    return {
+        "k": (batch, tp, sh.kv_local, max_len, spec.head_dim),
+        "v": (batch, tp, sh.kv_local, max_len, spec.head_dim),
+    }
+
+
+def quant_kv(x: torch.Tensor):
+    """(..., hd) -> (int8 codes, per-vector bfloat16 scale): symmetric
+    per-token quantization, ``x / scale`` rounded half to even and clipped
+    to +-127, ``scale = max(|x|, 1e-8) / 127``."""
+    x = x.to(torch.float32)
+    # divide by a device tensor: PyTorch's CUDA division by a Python
+    # scalar multiplies by its reciprocal, which is not IEEE division
+    levels = torch.full((), 127.0, device=x.device)
+    scale = x.abs().amax(-1, keepdim=True).clamp(min=1e-8) / levels
+    q = torch.round(x / scale).clamp(-127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale.to(torch.float32)).to(dtype)
+
+
+def _cache_read(cache: dict, prefix: str, dtype) -> torch.Tensor:
+    """Read k or v from a cache dict, dequantizing if stored int8."""
+    buf = squeeze_tp(cache[prefix], 1)
+    if buf.dtype == torch.int8:
+        return dequant_kv(buf, squeeze_tp(cache[prefix + "_scale"], 1), dtype)
+    return buf
+
+
+def _cache_write(cache: dict, prefix: str, new: torch.Tensor, idx: int, *,
+                 masked_write: Optional[torch.Tensor] = None) -> None:
+    """Write one token ``new`` (B, kvl, 1, hd) at sequence index ``idx``
+    into the cache's buffers in place, quantizing if the cache is int8.
+    Where the boolean ``masked_write`` is False the old entry stays."""
+    buf = squeeze_tp(cache[prefix], 1)  # (B, kvl, S, hd), a view
+    if buf.dtype == torch.int8:
+        q, s = quant_kv(new)
+        sc = squeeze_tp(cache[prefix + "_scale"], 1)
+        if masked_write is not None:
+            q = torch.where(masked_write, q, buf[:, :, idx:idx + 1])
+            s = torch.where(masked_write, s, sc[:, :, idx:idx + 1])
+        buf[:, :, idx:idx + 1] = q
+        sc[:, :, idx:idx + 1] = s
+        return
+    new = new.to(buf.dtype)
+    if masked_write is not None:
+        new = torch.where(masked_write, new, buf[:, :, idx:idx + 1])
+    buf[:, :, idx:idx + 1] = new
+
+
+def _attend_cache(params: dict, spec: AttentionSpec, ctx: ParallelCtx, sh: AttnSharding,
+                  q: torch.Tensor, cache: dict, valid: torch.Tensor) -> torch.Tensor:
+    """One query (B, kvl, qpg, hd) against the cache's keys where
+    ``valid`` (S,), then the output projection: (B, 1, D)."""
+    B = q.shape[0]
+    k_cache = _cache_read(cache, "k", q.dtype)  # (B, kvl, S, hd)
+    v_cache = _cache_read(cache, "v", q.dtype)
+    scores = torch.einsum("bkgh,bksh->bkgs", q, k_cache).to(torch.float32) * spec.scale
+    scores = torch.where(valid[None, None, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    attn = torch.einsum("bkgs,bksh->bkgh", w, v_cache).reshape(B, 1, sh.q_local * spec.head_dim)
+    y = attn @ squeeze_tp(params["wo"], 0).to(attn.dtype)
+    y = ctx.psum_model(y)
+    if sh.dup_attn > 1:
+        y = y / sh.dup_attn
+    return y
+
+
+def decode(params: dict, spec: AttentionSpec, ctx: ParallelCtx, x: torch.Tensor,
+           cache: dict, pos: int, *, seq_sharded: bool = False):
+    """One decode step. x: (B, 1, D); cache entries (B, 1(tp), kvl, S, hd);
+    pos: the number of tokens already in the cache. Writes the token's
+    k/v at ``pos`` in place; returns (y (B,1,D), cache)."""
+    if seq_sharded:
+        raise NotImplementedError(
+            "seq_sharded decode (flash-decoding over a sequence-sharded cache) is not "
+            "ported yet: ROADMAP.md queue A item 13")
+    sh = plan(spec, ctx.tp)
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(params, spec, sh, x, positions)
+    q = q.reshape(B, sh.kv_local, sh.q_local // sh.kv_local, spec.head_dim)
+    _cache_write(cache, "k", k_new.transpose(1, 2), pos)
+    _cache_write(cache, "v", v_new.transpose(1, 2), pos)
+    k_pos = torch.arange(cache["k"].shape[3], device=x.device)
+    valid = k_pos <= pos
+    if spec.window is not None:
+        valid = valid & (k_pos > pos - spec.window)
+    return _attend_cache(params, spec, ctx, sh, q, cache, valid), cache
+
+
+def prefill_kv(params: dict, spec: AttentionSpec, ctx: ParallelCtx, x: torch.Tensor,
+               positions: torch.Tensor, max_len: int):
+    """The causal forward of a whole prompt, and its k/v laid out as a
+    decode cache of ``max_len`` positions (zero past the prompt).
+    Returns (attn_out, cache)."""
+    sh = plan(spec, ctx.tp)
+    S = x.shape[1]
+    q, k, v = _project_qkv(params, spec, sh, x, positions)
+    cache = {name: k.new_zeros(shape)
+             for name, shape in init_cache_shape(spec, ctx.tp, x.shape[0], max_len).items()}
+    squeeze_tp(cache["k"], 1)[:, :, :S] = k.transpose(1, 2)
+    squeeze_tp(cache["v"], 1)[:, :, :S] = v.transpose(1, 2)
+    y = _attend(params, spec, ctx, sh, q, k, v)
+    return y, cache

@@ -1,6 +1,7 @@
-"""Model assembly (counterpart of ``repro/models/model.py``'s parameter and
-training halves), at tp = 1: embedding -> blocks (attn / ssm /
-shared_attn, mlp / moe) -> the vocab-chunked LM head loss.
+"""Model assembly (counterpart of ``repro/models/model.py``), at tp = 1:
+embedding -> blocks (attn / ssm / shared_attn, mlp / moe) -> the
+vocab-chunked LM head loss, and the serving path (``prefill``,
+``decode_step``, greedy ``lm_head_argmax``).
 
 Parameter tree (the reference's, leading ``tp`` axes kept at size 1):
   embed:      (tp, V_l, D)
@@ -13,7 +14,14 @@ Parameter tree (the reference's, leading ``tp`` axes kept at size 1):
 Everything computes in float32, the compute dtype the reference's lm task
 passes. The reference's remat (``jax.checkpoint`` of blocks and CE
 chunks) moves memory, not values, and is left out
-(``torch.utils.checkpoint`` does not compose with ``torch.func``). Serving (caches, prefill, decode) is
+(``torch.utils.checkpoint`` does not compose with ``torch.func``).
+
+Serving: ``prefill`` runs a prompt and builds one cache a layer (an
+attention layer's k/v, a sliding-window layer's as a ring buffer of
+``min(capacity, window)`` slots; an SSM layer's recurrent state), and
+``decode_step`` feeds one token a step, writing those caches IN PLACE
+and returning them (the reference returns new ones). ``cache_meta``, the
+caches' sharding over a mesh (and with it the int8 KV layout), is
 ROADMAP.md queue A item 13.
 """
 from __future__ import annotations
@@ -22,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import InputShape, LayerSpec, ModelConfig
 from repro_torch.models import attention, mlp, moe, ssm
 from repro_torch.models.common import ParallelCtx, dense_init, rms_norm, squeeze_tp
 
@@ -58,7 +66,7 @@ def _shared_layerspec(cfg: ModelConfig) -> LayerSpec:
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
     """Random float32 parameters of the reference's shapes at tp = 1,
-    drawn on the CPU from ``generator`` (the reference draws from
+    drawn from ``generator`` on its device (the reference draws from
     ``jax.random``: values differ, shapes and the special leaves do not)."""
     D = cfg.d_model
     V = cfg.padded_vocab(1)
@@ -131,8 +139,16 @@ def lm_head_loss(params: dict, cfg: ModelConfig, ctx: ParallelCtx, h: torch.Tens
     return per_chunk.sum() / n_tok, n_tok
 
 
+def lm_head_argmax(params: dict, ctx: ParallelCtx, h: torch.Tensor) -> torch.Tensor:
+    """Greedy next token. h: (B, D) -> (B,) int32; among equal logits the
+    smallest id (``torch.argmax`` returns the first maximum)."""
+    head = squeeze_tp(params["lm_head"], 1)
+    logits = (h @ head.to(h.dtype)).to(torch.float32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
-# Forward (train)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -184,3 +200,103 @@ def loss_fn(params: dict, cfg: ModelConfig, ctx: ParallelCtx, batch: dict):
     loss, n_tok = lm_head_loss(params, cfg, ctx, h, batch["labels"])
     total = loss + aux["moe_aux_loss"]
     return total, {"ce_loss": loss, "n_tokens": n_tok, **aux}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill, decode
+# ---------------------------------------------------------------------------
+
+
+def _mlp_or_moe(layer_params: dict, p: dict, cfg: ModelConfig, layer: LayerSpec,
+                ctx: ParallelCtx, h: torch.Tensor, *, decode: bool) -> torch.Tensor:
+    if layer.kind != "shared_attn" and cfg.moe is not None:
+        return moe.forward(layer_params["moe"], cfg.moe, ctx, h, decode=decode)[0]
+    return mlp.forward(p["mlp"], cfg.mlp_kind, ctx, h)
+
+
+def decode_step(params: dict, caches: tuple, cfg: ModelConfig, ctx: ParallelCtx,
+                tokens: torch.Tensor, pos: int):
+    """One decode step. tokens (B, 1); pos: the tokens already in the
+    caches. Writes the caches in place; returns (next_token (B,), caches)."""
+    x = embed(params, cfg, ctx, tokens)
+    for layer_params, layer, cache in zip(params["layers"], cfg.layers, caches):
+        if layer.kind == "ssm":
+            h = rms_norm(x, layer_params["norm1"])
+            x = x + ssm.decode(layer_params["ssm"], cfg.ssm, ctx, h, cache)[0]
+            continue
+        p = params.get("shared") if layer.kind == "shared_attn" else layer_params
+        spec = cfg.attn_spec(layer)
+        S_c = cache["k"].shape[3]
+        h = rms_norm(x, p["norm1"])
+        if layer.window is not None and S_c <= layer.window:
+            # ring-buffer window cache: write at pos % window
+            y, _ = _decode_ring(p["attn"], spec, ctx, h, cache, pos, S_c)
+        else:
+            y, _ = attention.decode(p["attn"], spec, ctx, h, cache, pos)
+        x = x + y
+        h = rms_norm(x, p["norm2"])
+        x = x + _mlp_or_moe(layer_params, p, cfg, layer, ctx, h, decode=True)
+    x = rms_norm(x, params["final_norm"])
+    return lm_head_argmax(params, ctx, x[:, 0]), caches
+
+
+def _decode_ring(attn_params: dict, spec, ctx: ParallelCtx, x: torch.Tensor, cache: dict,
+                 pos: int, window: int) -> torch.Tensor:
+    """Sliding-window decode against a ring-buffer cache of ``window``
+    slots, the token written at slot ``pos % window``; the keys' absolute
+    positions are rebuilt from the write pointer. Writes the cache in
+    place; returns (y (B, 1, D), cache)."""
+    sh = attention.plan(spec, ctx.tp)
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = attention._project_qkv(attn_params, spec, sh, x, positions)
+    q = q.reshape(B, sh.kv_local, sh.q_local // sh.kv_local, spec.head_dim)
+    slot = pos % window
+    attention._cache_write(cache, "k", k_new.transpose(1, 2), slot)
+    attention._cache_write(cache, "v", v_new.transpose(1, 2), slot)
+    # absolute position of ring slot s: the most recent write to that slot
+    slots = torch.arange(window, device=x.device)
+    abs_pos = torch.where(slots <= slot, pos - slot + slots, pos - slot - window + slots)
+    valid = (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - window)
+    return attention._attend_cache(attn_params, spec, ctx, sh, q, cache, valid), cache
+
+
+def prefill(params: dict, cfg: ModelConfig, ctx: ParallelCtx, tokens: torch.Tensor,
+            shape: InputShape, prefix_embeds: Optional[torch.Tensor] = None):
+    """Run the prompt through the model, building the decode caches for
+    ``shape.seq_len`` positions (prompt and generation). tokens (B, S_t);
+    prefix_embeds (B, P, D) or None. Returns (next_token (B,), caches)."""
+    x = embed(params, cfg, ctx, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    x = ctx.sp_slice(x)
+    caches = []
+    for layer_params, layer in zip(params["layers"], cfg.layers):
+        if layer.kind == "ssm":
+            h = ctx.sp_gather(rms_norm(x, layer_params["norm1"]))
+            y, state = ssm.forward(layer_params["ssm"], cfg.ssm, ctx, h, return_state=True)
+            x = x + y
+            caches.append({k: t.to(torch.float32) for k, t in state.items()})
+            continue
+        p = params.get("shared") if layer.kind == "shared_attn" else layer_params
+        spec = cfg.attn_spec(layer)
+        S_c = shape.seq_len if layer.window is None else min(shape.seq_len, layer.window)
+        h = ctx.sp_gather(rms_norm(x, p["norm1"]))
+        y, cache = attention.prefill_kv(p["attn"], spec, ctx, h, positions,
+                                        max_len=max(S_c, S))
+        if layer.window is not None and S_c < S:
+            # re-lay the last S_c keys into ring order (key p at slot
+            # p % S_c), the invariant _decode_ring reads
+            idx = [0] * S_c
+            for pos_abs in range(S - S_c, S):
+                idx[pos_abs % S_c] = pos_abs
+            idx = torch.tensor(idx, dtype=torch.int64, device=x.device)
+            cache = {k: t.index_select(3, idx) for k, t in cache.items()}
+        x = x + y
+        h = ctx.sp_gather(rms_norm(x, p["norm2"]))
+        x = x + _mlp_or_moe(layer_params, p, cfg, layer, ctx, h, decode=False)
+        caches.append(cache)
+    x = ctx.sp_gather(rms_norm(x, params["final_norm"]))
+    return lm_head_argmax(params, ctx, x[:, -1]), tuple(caches)

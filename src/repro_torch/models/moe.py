@@ -57,7 +57,10 @@ def init_params(generator: torch.Generator, spec: MoESpec, device="cuda") -> dic
     }
 
 
-def _capacity(spec: MoESpec, n_tokens: int) -> int:
+def _capacity(spec: MoESpec, n_tokens: int, *, decode: bool) -> int:
+    if decode:
+        # tiny T: full capacity, no drops
+        return max(1, n_tokens * spec.top_k)
     return max(1, int(spec.capacity_factor * n_tokens * spec.top_k / spec.num_experts))
 
 
@@ -74,15 +77,17 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def forward(params: dict, spec: MoESpec, ctx: ParallelCtx, x: torch.Tensor):
+def forward(params: dict, spec: MoESpec, ctx: ParallelCtx, x: torch.Tensor, *,
+            decode: bool = False):
     """x: (B, S, D). Returns (y, aux) with aux carrying the load-balance
-    loss and the drop fraction."""
+    loss and the drop fraction. ``decode``: every expert takes every
+    token (capacity T * top_k), so nothing is dropped."""
     B, S, D = x.shape
     T = B * S
     dev = x.device
     xt = x.reshape(T, D)
     e_l = spec.experts_local(ctx.tp)
-    C = _capacity(spec, T)
+    C = _capacity(spec, T, decode=decode)
     CAP = min(e_l * C, T * spec.top_k)
 
     # --- routing ---

@@ -1,12 +1,19 @@
-"""Mamba2 (state-space duality / SSD) blocks, the training forward
-(counterpart of the first half of ``repro/models/ssm.py``), at tp = 1.
+"""Mamba2 (state-space duality / SSD) blocks (counterpart of
+``repro/models/ssm.py``), at tp = 1: the chunked training / prefill
+forward and the recurrent decode step.
 
 The chunked SSD algorithm (Dao & Gu, 2024) as dense einsums per chunk:
 an intra-chunk quadratic form, whose decay is masked to ``-inf`` BEFORE
 ``exp`` (masking after it would overflow), and the inter-chunk state
 recurrence, here a Python loop over the static chunk count (the
-reference's ``lax.scan``) that reads nothing back to the host. The
-decode step and its recurrent state are ROADMAP.md queue A item 13.
+reference's ``lax.scan``) that reads nothing back to the host.
+
+Decode is the O(1) recurrent update h' = exp(A dt) h + dt * (B x), on a
+state dict of ``h`` (B, tp, h, P, N) and the raw pre-conv tails
+``conv_x`` (B, tp, W-1, di) and ``conv_bc`` (B, W-1, 2N), which
+``forward(..., return_state=True)`` hands over from a prompt. ``decode``
+updates the state's tensors in place (the reference returns new ones):
+a state is not to be reused after the step that wrote it.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ def init_params(generator: torch.Generator, spec: SSMSpec, device="cuda") -> dic
         return dense_init(generator, shape, in_axis=in_axis, device=device)
 
     # dt log-uniform in [dt_min, dt_max]; its bias the inverse softplus
-    u = torch.rand((1, h), generator=generator, dtype=torch.float32)
+    u = torch.rand((1, h), generator=generator, dtype=torch.float32, device=generator.device)
     dt = torch.exp(u * (math.log(spec.dt_max) - math.log(spec.dt_min)) + math.log(spec.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))
     a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32)[None])
@@ -96,8 +103,13 @@ def _project(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor):
     return z, xs, bc, dt
 
 
-def forward(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor) -> torch.Tensor:
-    """Training path (chunked SSD). x: (B, S, D) -> (B, S, D)."""
+def forward(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor, *,
+            return_state: bool = False):
+    """Training path (chunked SSD). x: (B, S, D) -> (B, S, D).
+
+    return_state: also return the decode-ready state dict (the final
+    recurrent state and the raw conv tails), so prefill can hand off to
+    ``decode``."""
     B, S, D = x.shape
     N, P_, Q = spec.state_dim, spec.head_dim, min(spec.chunk, x.shape[1])
     if S % Q != 0:
@@ -105,6 +117,7 @@ def forward(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor) -> t
     nC = S // Q
     z, xs, bc, dt = _project(params, spec, ctx, x)
     h_l = dt.shape[-1]
+    xs_raw, bc_raw = xs, bc  # pre-conv streams (decode conv state)
 
     xs = _depthwise_causal_conv(xs, squeeze_tp(params["conv_x"], 0).to(x.dtype))
     bc = _depthwise_causal_conv(bc, params["conv_bc"].to(x.dtype))
@@ -148,5 +161,60 @@ def forward(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor) -> t
     y = y.reshape(B, S, h_l * P_).to(x.dtype)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = _gated_rms_norm(y, z, squeeze_tp(params["norm"], 0), ctx)
-    out = y @ squeeze_tp(params["w_out"], 0).to(y.dtype)
-    return ctx.sp_scatter(out)
+    out = ctx.sp_scatter(y @ squeeze_tp(params["w_out"], 0).to(y.dtype))
+    if not return_state:
+        return out
+    W = spec.conv_width
+    final = {
+        "h": h[:, None],  # (B, 1(tp), h, P, N), the state after the last chunk
+        "conv_x": xs_raw[:, S - (W - 1):][:, None],
+        "conv_bc": bc_raw[:, S - (W - 1):],
+    }
+    # each in a buffer of its own: a view of the raw streams would keep the
+    # whole (B, S, 2 d_inner) projection alive for as long as the state
+    state = {name: final[name].new_empty(shape).copy_(final[name])
+             for name, shape in init_state_shape(spec, ctx.tp, B).items()}
+    return out, state
+
+
+def init_state_shape(spec: SSMSpec, tp: int, batch: int) -> dict:
+    h_l = spec.num_heads // tp
+    return {
+        "h": (batch, tp, h_l, spec.head_dim, spec.state_dim),
+        "conv_x": (batch, tp, spec.conv_width - 1, h_l * spec.head_dim),
+        "conv_bc": (batch, spec.conv_width - 1, 2 * spec.state_dim),
+    }
+
+
+def decode(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor, state: dict):
+    """One recurrent decode step. x: (B, 1, D); state per
+    ``init_state_shape``, updated in place. Returns (y (B,1,D), state)."""
+    B = x.shape[0]
+    N, P_ = spec.state_dim, spec.head_dim
+    z, xs, bc, dt = _project(params, spec, ctx, x)  # seq dim = 1
+    h_l = dt.shape[-1]
+
+    # rolling conv buffers
+    xs_hist = torch.cat([squeeze_tp(state["conv_x"], 1), xs], dim=1)  # (B, W, di_l)
+    w_cx = squeeze_tp(params["conv_x"], 0).to(x.dtype)
+    xs_t = F.silu(torch.einsum("bwc,wc->bc", xs_hist, w_cx))[:, None]
+    bc_hist = torch.cat([state["conv_bc"], bc], dim=1)
+    bc_t = F.silu(torch.einsum("bwc,wc->bc", bc_hist, params["conv_bc"].to(x.dtype)))[:, None]
+    Bm, Cm = bc_t[..., :N], bc_t[..., N:]
+
+    A = -torch.exp(squeeze_tp(params["A_log"], 0))
+    dt_t = dt[:, 0]  # (B, h)
+    xh = xs_t.reshape(B, h_l, P_).to(torch.float32)
+    dec = torch.exp(dt_t * A)  # (B, h)
+    h_prev = squeeze_tp(state["h"], 1)  # (B, h, P, N)
+    h_new = h_prev * dec[..., None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dt_t, xh, Bm[:, 0].to(torch.float32))
+    y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].to(torch.float32), h_new)
+    y = y + squeeze_tp(params["D_skip"], 0)[None, :, None] * xh
+    y = y.reshape(B, 1, h_l * P_).to(x.dtype)
+    y = _gated_rms_norm(y, z, squeeze_tp(params["norm"], 0), ctx)
+    out = ctx.psum_model(y @ squeeze_tp(params["w_out"], 0).to(y.dtype))
+    state["h"].copy_(h_new[:, None])
+    state["conv_x"].copy_(xs_hist[:, 1:][:, None])
+    state["conv_bc"].copy_(bc_hist[:, 1:])
+    return out, state

@@ -1044,3 +1044,86 @@ def test_lm_loss_on_the_card_matches_the_cpu(deterministic):
             flat_d, {k: v.to(deterministic) for k, v in batch.items()})
         assert abs(float(value) - float(l_cpu)) <= 2e-6 * abs(float(l_cpu)), arch
         assert float((g.cpu() - g_cpu).abs().max()) <= 1e-5 * float(g_cpu.abs().max()), arch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3001,), (4, 5, 7)], ids=["1d", "3d"])
+@pytest.mark.parametrize("name", list(QUANTIZE))
+def test_single_leaf_entries_on_the_card(cuda, name, shape):
+    """``ops.<name>_fast`` on a leaf launches its quantize kernel once and
+    equals the plain version (the CPU wrapper), ``<name>_batch`` row 0
+    and, for rqm, the ``ref.rqm_ref`` oracle, bit for bit (QMGeo against
+    the CPU within its budget)."""
+    from repro_torch.kernels import ref
+
+    params = QUANTIZE[name][0]
+    x = np.random.default_rng(7).uniform(-0.026, 0.026, size=shape).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda)
+    ops.reset_launches()
+    got = getattr(ops, f"{name}_fast")(xt, SEED, params)
+    torch.cuda.synchronize()
+    assert dict(ops.launches) == {f"{name}_quantize": 1}
+    assert got.shape == shape and got.is_cuda
+    row = getattr(ops, f"{name}_batch")(xt.reshape(1, -1), SEED, params)[0]
+    assert torch.equal(got.reshape(-1), row)
+    plain = QUANTIZE[name][2](xt.reshape(1, -1), SEED, params)[0]
+    assert torch.equal(got.reshape(-1), plain)
+    cpu = getattr(ops, f"{name}_fast")(torch.from_numpy(x), SEED, params)
+    diff = (got.cpu() - cpu).abs()
+    if name == "qmgeo":
+        assert int(diff.max()) <= 1
+        assert int((diff != 0).sum()) <= math.ceil(QMGEO_CPU_BUDGET * diff.numel())
+    else:
+        assert torch.equal(got.cpu(), cpu)
+    if name == "rqm":
+        assert torch.equal(got.reshape(-1), ref.rqm_ref(xt.reshape(-1), SEED, params))
+
+
+@pytest.mark.cuda
+def test_rqm_tree_on_the_card(cuda):
+    """``ops.rqm_tree`` over the CNN's parameter tree: one rqm_quantize a
+    leaf, each leaf == rqm_fast with its seed and == the CPU's."""
+    from repro_torch.convert import leaves
+    from repro_torch.fed.cnn import cnn_init
+
+    tree = cnn_init(torch.Generator().manual_seed(3), device=cuda)
+    seeds = [SEED + 17 * i for i in range(len(leaves(tree)))]
+    ops.reset_launches()
+    out = ops.rqm_tree(tree, seeds, PARAMS)
+    torch.cuda.synchronize()
+    assert dict(ops.launches) == {"rqm_quantize": len(seeds)}
+    cpu = ops.rqm_tree({k: v.cpu() for k, v in tree.items()}, seeds, PARAMS)
+    for leaf, seed, got, want in zip(leaves(tree), seeds, leaves(out), leaves(cpu)):
+        assert torch.equal(got, ops.rqm_fast(leaf, seed, PARAMS))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-4b", "zamba2-1.2b", "qwen3-moe-30b-a3b"])
+def test_reduced_serve_on_the_card(deterministic, arch):
+    """A reduced config served on the card (prompt 96, longer than gemma3's
+    window of 64) from the CPU's parameters: the same greedy tokens as on
+    the CPU for prefill and 4 decode steps; prefill == the forward's
+    argmax and the first decoded token == the teacher-forced one."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import generate, synthetic_prompt
+    from repro_torch.models import model
+    from repro_torch.models.common import ParallelCtx, rms_norm
+
+    cfg = get_config(arch, reduced=True)
+    if cfg.moe is not None:  # no token dropped by the forward either
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks, pe = synthetic_prompt(cfg, 2, 96, torch.Generator().manual_seed(1), "cpu")
+    want = generate(params, cfg, toks, 5, pe)[0]
+    params_d = model.init_params(torch.Generator().manual_seed(0), cfg, device=deterministic)
+    got = generate(params_d, cfg, toks.to(deterministic), 5,
+                   None if pe is None else pe.to(deterministic))[0]
+    assert torch.equal(got.cpu(), want)
+    seq = torch.cat([toks, want[:, :1]], 1).to(deterministic)
+    h, _ = model.forward_hidden(params_d, cfg, ParallelCtx(), seq,
+                                None if pe is None else pe.to(deterministic))
+    h = rms_norm(h, params_d["final_norm"])
+    assert torch.equal(model.lm_head_argmax(params_d, ParallelCtx(), h[:, -2]).cpu(), want[:, 0])
+    assert torch.equal(model.lm_head_argmax(params_d, ParallelCtx(), h[:, -1]).cpu(), want[:, 1])

@@ -14,7 +14,8 @@ Contracts:
     config; streamed staging is refused by the engines that cannot
     stream, and fused rounds by the host engine;
   * ``examples/fl_emnist_torch.py`` trains with an engine spec and a
-    heterogeneous cohort, and refuses ``--target-eps`` naming its item.
+    heterogeneous cohort, and with ``--target-eps`` calibrates the
+    family to the budget, as ``privacy.calibrate`` does.
 """
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
 import dataclasses
@@ -190,6 +191,17 @@ def test_example_script(monkeypatch, tmp_path):
     runpy.run_path(EXAMPLE, run_name="__main__")
     (result,) = json.loads(out.read_text())
     assert result["mechanism"] == "none" and result["history"][-1]["round"] == 2
-    monkeypatch.setattr(sys, "argv", argv[:-2] + ["--target-eps", "30"])
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        runpy.run_path(EXAMPLE, run_name="__main__")
+    # --target-eps: rqm's q calibrated to the budget of the run's rounds
+    from repro_torch.privacy.calibrate import calibrate
+
+    cal_out = tmp_path / "calibrated.json"
+    monkeypatch.setattr(sys, "argv", [EXAMPLE, "--device", "cpu", "--rounds", "2", "--clients",
+                                      "24", "--per-round", "4", "--mechanism", "rqm",
+                                      "--target-eps", "30", "--out", str(cal_out)])
+    runpy.run_path(EXAMPLE, run_name="__main__")
+    (result,) = json.loads(cal_out.read_text())
+    want = calibrate("rqm", target_eps=30.0, target_delta=1e-5, rounds=2, cohort=4, c=0.02,
+                     m=16, delta_ratio=1.0)
+    assert result["spec"] == want.mechanism.describe()
+    assert result["history"][-1]["round"] == 2
+    assert 0.99 * 30 <= result["dp_eps_at_1e-5"] <= 30

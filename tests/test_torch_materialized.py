@@ -40,6 +40,7 @@ from repro.fed.trainer import FedTrainer as JaxFedTrainer
 from repro.kernels import ops as jops
 from repro.optim.optimizers import sgd as jax_sgd
 from repro_torch.core import distribution, mechanisms, renyi
+from repro_torch.privacy import cache as privacy_cache
 from repro_torch.core.mechanisms import make_mechanism
 from repro_torch.core.pbm import PBMParams, decode_sum as pbm_decode_sum
 from repro_torch.core.qmgeo import QMGeoParams, decode_sum as qmgeo_decode_sum
@@ -111,7 +112,7 @@ def _golden_epsilon_cases():
 
 @pytest.mark.parametrize("name,params,n,alpha,eps,seed", list(_golden_epsilon_cases()))
 def test_golden_pbm_qmgeo_epsilons(name, params, n, alpha, eps, seed):
-    renyi._aggregate_epsilon.cache_clear()
+    privacy_cache.reset()  # computed fresh, not served from the cache
     if name == "pbm":
         got = renyi.pbm_aggregate_epsilon(PBMParams(**params), n, alpha, seed)
     else:

@@ -20,6 +20,7 @@ from repro.core import grid as jgrid
 from repro.core import renyi as jrenyi
 from repro.core import wire as jwire
 from repro_torch.core import distribution, grid, renyi, wire
+from repro_torch.privacy import cache as privacy_cache
 from repro_torch.core.mechanisms import RQMMechanism, make_mechanism, parse_mechanism_spec
 from repro_torch.kernels import decode_apply_kernel
 from repro_torch.fed import rounds
@@ -165,7 +166,7 @@ def _rqm_golden_cases():
 
 @pytest.mark.parametrize("params,n,alpha,eps,seed", list(_rqm_golden_cases()))
 def test_golden_rqm_epsilons(params, n, alpha, eps, seed):
-    renyi._aggregate_epsilon.cache_clear()
+    privacy_cache.reset()  # computed fresh, not served from the cache
     got = renyi.rqm_aggregate_epsilon(grid.RQMParams(**params), n, alpha, seed)
     assert abs(got - eps) <= 1e-9
 
