@@ -169,6 +169,36 @@ which raises and exits non-zero:
      calibration on the host, timed, a repeat computing 0 epsilons;
      lines start with [5i], reports "serve_reduced", "serve_full_width",
      "single_leaves", "calibration";
+  5j. distributed LM training at tp = 1 (``launch/train.py`` ->
+     ``distributed/step.py``: grad -> clip -> the per-leaf quantize
+     kernel -> SecAgg sum over the client group -> decode -> optimizer at
+     the warmup-cosine rate): (a) reduced gemma3, mamba2 and qwen3-moe
+     through the launcher, 3 steps of the plain run, the one-rank NCCL
+     plan (``--mesh-shape 1``) and the one-rank packed plan, parameters
+     and losses bit for bit, counted: one quantize launch a leaf a step,
+     and under packing one pack_flat and one unpack_flat a leaf a step;
+     the plain run's first step's levels of every leaf (kept as the step
+     made them) == ``<name>_quantize_plain``, and pack_flat/unpack_flat
+     of them == their plain versions; mamba2 also with pbm, qmgeo and
+     none; (b) ``--resume`` on reduced
+     mamba2: 4 steps checkpointed at 2, resumed, bit for bit (parameters,
+     optimizer state, losses), sgd and adam; (c) gemma3-4b at full width
+     (4,550,996,480 parameters from a CUDA generator), rqm, sgd, batch 2,
+     seq 256, 3 steps: the plain step against the one-rank packed plan's,
+     bit for bit by per-leaf digests of the bits and the embedding kept
+     whole on the host, the loss finite; step ms by CUDA events, tokens/s,
+     host dispatch ms a step, and over one more step under
+     torch.profiler the device busy ms, launches and the quantize
+     kernel's share; peak memory; the bound (6 x matmul parameters x
+     tokens over float32's 67 TFLOP/s, or the parameters read and written
+     once over 3.35 TB/s, the larger); one more step's rqm_quantize levels
+     of the first leaf of each shape (the 671,088,640-coordinate embedding
+     among them) == ``rqm_quantize_plain``, and pack_flat/unpack_flat of
+     them == their plain versions, in chunks of 2**24 with the chunk's
+     counters; (d) reported, not gated: the
+     example's ``--compare`` (none, rqm, pbm) on reduced gemma3 for 30
+     steps, each final ce; lines start with [5j], reports "train_reduced",
+     "train_resume", "train_full_width", "train_compare";
   6. profile: device time by kernel over 3 more rounds of FedConfig()'s
      trainer for each mechanism (graphed; phase 5's, and phase 5c's for
      rqm), of phase 5e's graphed Poisson round, of the graphed fused packed
@@ -181,7 +211,7 @@ which raises and exits non-zero:
      ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
      (reported, not gated).
 
-Every run of phases 4 to 5i (but their reports) sets the kernels' launch counters to 0
+Every run of phases 4 to 5j (but their reports) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
@@ -194,6 +224,7 @@ when CUDA is unavailable.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -299,6 +330,17 @@ SERVE_LONG_PROMPT = 96
 SERVE_FULL = {"gemma3-4b": (4, 1280, 32, 4_550_996_480),
               "zamba2-1.2b": (4, 512, 32, 1_016_819_712)}
 SERVE_PROFILED = 3
+# phase 5j: LM training. (a) the reduced configs and steps a run; (c)
+# full width: (arch, batch, seq, steps, parameters); (d) the example's
+# steps; float32's peak outside the tensor cores (NVIDIA data sheet, H100
+# SXM)
+TRAIN_ARCHS = ("gemma3-4b", "mamba2-370m", "qwen3-moe-30b-a3b")
+TRAIN_STEPS = 3
+TRAIN_FULL = ("gemma3-4b", 2, 256, 3, 4_550_996_480)
+TRAIN_COMPARE_STEPS = 30
+TRAIN_DIGEST_CHUNK = 1 << 26
+TRAIN_PLAIN_CHUNK = 1 << 24  # elements a chunk of the plain encode and codec at full width
+F32_FLOPS_PER_S = 67e12
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -2393,6 +2435,395 @@ def calibration_report(card: str) -> dict:
     return report
 
 
+def train_launch(torch, argv: list) -> dict:
+    """``launch/train.py``'s ``main(argv)`` on the card, its printed lines
+    kept out of this script's output."""
+    import io
+
+    from repro_torch.launch import train
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return train.main(argv)
+
+
+def same_train_runs(torch, runs: dict, what: str) -> None:
+    """Every run's parameters, optimizer state and losses bit for bit."""
+    from repro_torch.convert import leaves
+
+    (tag0, a), *rest = runs.items()
+    for tag, b in rest:
+        pa, pb = leaves(a["params"]), leaves(b["params"])
+        sa, sb = leaves(a["opt_state"]), leaves(b["opt_state"])
+        if len(pa) != len(pb) or not all(torch.equal(x, y) for x, y in zip(pa, pb)):
+            raise AssertionError(f"[5j] {what}: {tag}'s parameters differ from {tag0}'s")
+        if len(sa) != len(sb) or not all(torch.equal(x, y) for x, y in zip(sa, sb)):
+            raise AssertionError(f"[5j] {what}: {tag}'s optimizer state differs from {tag0}'s")
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"[5j] {what}: {tag}'s losses {b['losses']} != {a['losses']}")
+
+
+@contextlib.contextmanager
+def recorded_encodes(keep):
+    """Within the block, each ``Mechanism.quantize`` call (the train
+    step's per-leaf encode; ``i`` counts the block's calls) that
+    ``keep(i, g)`` accepts is kept as (mechanism, a copy of the gradient
+    leaf, the seed, a copy of the levels), the copies in host memory (a
+    full-width step leaves no room on the card for them). Copies launch
+    no counted kernel."""
+    from repro_torch.core.mechanisms import Mechanism
+
+    quantize, kept, calls = Mechanism.quantize, [], [0]
+
+    def recording(self, g, seed):
+        z = quantize(self, g, seed)
+        if keep(calls[0], g):
+            kept.append((self, g.detach().cpu(), seed, z.cpu()))
+        calls[0] += 1
+        return z
+
+    Mechanism.quantize = recording
+    try:
+        yield kept
+    finally:
+        Mechanism.quantize = quantize
+
+
+def held_encodes(torch, kept, what: str) -> list:
+    """Each kept encode's levels == ``<name>_quantize_plain`` of the
+    clipped leaf at its seed (row 0: a coordinate's counter is its flat
+    index), and ``pack_flat``/``unpack_flat`` of the levels at the
+    one-rank packed plan's width == their plain versions, bit for bit,
+    on the card. A leaf past TRAIN_PLAIN_CHUNK runs the plain encode
+    chunk by chunk, on the chunk's counters (offset by its first
+    coordinate); the plain codec takes the whole leaf (its word ``i``
+    holds coordinates ``i, i + W, ...``). These launches are not
+    counted. Returns the sizes held."""
+    from repro_torch.core import wire
+    from repro_torch.kernels import pack_kernel, pbm_kernel, qmgeo_kernel, rqm_kernel
+
+    kernels = {"rqm": rqm_kernel, "pbm": pbm_kernel, "qmgeo": qmgeo_kernel}
+    held = []
+    while kept:
+        mech, g, seed, z = kept.pop(0)  # host copies, each freed once held
+        kernel = kernels[mech.name]
+        plain = getattr(kernel, f"{mech.name}_quantize_plain")
+        encode = getattr(kernel, f"{mech.name}_encode_counters")
+        g, z, n = g.reshape(-1), z.reshape(-1), z.numel()
+        for c0 in range(0, n, TRAIN_PLAIN_CHUNK):
+            c1 = min(c0 + TRAIN_PLAIN_CHUNK, n)
+            x, want = mech._clip(g[c0:c1].cuda()), z[c0:c1].cuda()
+            if n <= TRAIN_PLAIN_CHUNK:
+                levels = plain(x.reshape(1, -1), seed, mech.params)[0]
+            else:
+                counters = torch.arange(c0, c1, dtype=torch.int64, device=x.device)
+                levels = encode(x, seed, counters, mech.params)
+            if not torch.equal(levels, want):
+                bad = int((levels != want).sum())
+                raise AssertionError(f"[5j] {what}: {mech.name}_quantize on a leaf of {n} "
+                                     f"coordinates differs from its plain version at {bad} "
+                                     f"of coordinates {c0}-{c1}")
+        del g, x, want, levels
+        z = z.cuda()
+        bits = wire.sum_bits(mech.sum_bound(1))
+        words = pack_kernel.pack_flat(z, bits)
+        if not torch.equal(words, pack_kernel.pack_flat_plain(z, bits)):
+            raise AssertionError(f"[5j] {what}: pack_flat at {bits} bits on a leaf of {n} "
+                                 "coordinates differs from its plain version")
+        back = pack_kernel.unpack_flat(words, bits, n)
+        if not (torch.equal(back, pack_kernel.unpack_flat_plain(words, bits, n))
+                and torch.equal(back, z)):
+            raise AssertionError(f"[5j] {what}: unpack_flat at {bits} bits on a leaf of {n} "
+                                 "coordinates differs from its plain version or the levels")
+        del words, back
+        held.append(n)
+    return held
+
+
+def train_reduced(torch, counted) -> dict:
+    """Phase 5j (a): each of TRAIN_ARCHS reduced, through the launcher:
+    the plain run, the one-rank NCCL plan and the one-rank packed plan,
+    TRAIN_STEPS steps each, bit for bit, each run counted; the plain
+    run's first step's per-leaf levels held against their plain versions
+    (``held_encodes``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.models import model
+
+    S = TRAIN_STEPS
+    report = {}
+    for arch in TRAIN_ARCHS:
+        n = len(leaves(model.param_meta(get_config(arch, reduced=True))))
+        names = ("rqm", "pbm", "qmgeo", "none") if arch == "mamba2-370m" else ("rqm",)
+        for name in names:
+            quantize = {} if name == "none" else {f"{name}_quantize": S * n}
+            codec = {} if name == "none" else {"pack_flat": S * n, "unpack_flat": S * n}
+            runs, held = {}, []
+            for tag, extra, expect in (("plain", [], quantize),
+                                       ("plan 1", ["--mesh-shape", "1"], quantize),
+                                       ("plan 1 packed", ["--mesh-shape", "1", "--packed"],
+                                        {**quantize, **codec})):
+                argv = ["--arch", arch, "--reduced", "--mechanism", name, "--steps", str(S),
+                        "--batch", "2", "--seq", "64", "--log-every", str(S)] + extra
+                out, kept = {}, []
+
+                def launch():
+                    # the plain run keeps its first step's encodes
+                    first = (lambda i, g: tag == "plain" and name != "none" and i < n)
+                    with recorded_encodes(first) as k:
+                        out.update(train_launch(torch, argv))
+                    kept.extend(k)
+
+                counted(f"[5j] {arch} {name} {tag}", expect, launch)
+                runs[tag] = out
+                if kept:
+                    held = held_encodes(torch, kept, f"{arch} {name} {tag}")
+            same_train_runs(torch, runs, f"{arch} {name}: plain, plan 1, plan 1 packed")
+            losses = runs["plain"]["losses"]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"[5j] {arch} {name}: losses {losses}")
+            if name != "none" and len(held) != n:
+                raise AssertionError(f"[5j] {arch} {name}: {len(held)} of {n} leaves held")
+            report[f"{arch} {name}"] = {"leaves": n, "losses": losses, "held_leaves": len(held),
+                                        "launches_per_step": {k: v // S for k, v in
+                                                              {**quantize, **codec}.items()}}
+            log(f"[5j] {arch} reduced, {name}: plain == plan 1 == plan 1 packed bit for bit "
+                f"over {S} steps, losses {losses}; {n} leaves, one quantize launch a leaf a "
+                f"step" + ("" if name == "none" else ", one pack_flat and unpack_flat a leaf "
+                           "a step packed; the first step's levels of every leaf == "
+                           f"{name}_quantize_plain, pack_flat/unpack_flat == their plain "
+                           "versions"))
+    return report
+
+
+def train_resume(torch, counted) -> dict:
+    """Phase 5j (b): 4 steps of reduced mamba2 checkpointed at 2 ==
+    resumed at 2, through the launcher, sgd and adam."""
+    import shutil
+
+    report = {}
+    for opt in ("sgd", "adam"):
+        root = os.path.join(ROOT, "build", "phase5j", opt)
+        shutil.rmtree(root, ignore_errors=True)
+        base = ["--arch", "mamba2-370m", "--reduced", "--steps", "4", "--batch", "2", "--seq",
+                "64", "--log-every", "4", "--server-opt", opt]
+        runs = {}
+        counted(f"[5j] resume {opt}: uninterrupted", None, lambda: runs.update(
+            full=train_launch(torch, base + ["--ckpt-every", "2", "--ckpt-dir",
+                                             os.path.join(root, "a")])))
+        os.makedirs(os.path.join(root, "b"))
+        shutil.copy(os.path.join(root, "a", "step_00000002.npz"), os.path.join(root, "b"))
+        counted(f"[5j] resume {opt}: resumed", None, lambda: runs.update(
+            resumed=train_launch(torch, base + ["--resume", "--ckpt-dir",
+                                                os.path.join(root, "b")])))
+        if runs["resumed"]["start"] != 2:
+            raise AssertionError(f"[5j] resume {opt}: started at {runs['resumed']['start']}")
+        runs["full"]["losses"] = runs["full"]["losses"][2:]
+        same_train_runs(torch, runs, f"resume {opt}")
+        report[opt] = {"losses": runs["resumed"]["losses"]}
+        log(f"[5j] resume {opt}: 4 steps == checkpointed at 2 and resumed, bit for bit")
+    return report
+
+
+def leaf_digest(torch, t) -> tuple:
+    """A leaf's bits as two int64 sums (plain and position-weighted),
+    wrapping, chunk by chunk on the card."""
+    bits = t.detach().reshape(-1).view(torch.int32)
+    plain = weighted = 0
+    for c0 in range(0, bits.numel(), TRAIN_DIGEST_CHUNK):
+        x = bits[c0:c0 + TRAIN_DIGEST_CHUNK].to(torch.int64)
+        pos = torch.arange(c0 + 1, c0 + 1 + x.numel(), dtype=torch.int64, device=x.device)
+        plain += int(x.sum())
+        weighted += int((x * pos).sum())
+    return plain, weighted % (1 << 64)
+
+
+def train_full_width(torch, counted, card: str) -> dict:
+    """Phase 5j (c): gemma3-4b at full width, random from a CUDA
+    generator, rqm and sgd at the launcher's warmup-cosine rate, batch 2,
+    seq 256: TRAIN_FULL's steps of the plain step and of the one-rank
+    packed plan's, bit for bit (per-leaf digests; the embedding whole on
+    the host), each run counted; step ms by CUDA events, host dispatch ms
+    a step (its clock around each call), peak memory above the start;
+    then one more plain step under torch.profiler: device busy ms,
+    launches (device activities), the quantize kernel's share; then one
+    more whose encodes of the first leaf of each shape are held against
+    their plain versions (``held_encodes``, in chunks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.distributed.step import (build_train_step_fn, make_plan, make_train_step,
+                                              train_seeds)
+    from repro_torch.eval.lm_eval import batch_to
+    from repro_torch.models import model
+    from repro_torch.models.common import ParallelCtx
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import warmup_cosine
+
+    arch, batch, seq, steps, want_params = TRAIN_FULL
+    cfg = get_config(arch)
+    mech, opt = make_mechanism(SPECS["rqm"]), make_optimizer("sgd")
+    lr_fn = warmup_cosine(0.2, warmup=steps // 10 + 1, total_steps=steps, device="cuda")
+    pipe = TokenPipeline(cfg, seq, batch, seed=0)
+    runs = {}
+
+    def run(tag: str, step_fn, profiled: bool) -> dict:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init_params(torch.Generator("cuda").manual_seed(1), cfg, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in leaves(params))
+        if n_params != want_params:
+            raise AssertionError(f"[5j] {arch}: {n_params} parameters, expected {want_params}")
+        n_leaves = len(leaves(params))
+        state, losses, host_ms = opt.init(params), [], []
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        out = {}
+
+        def go():
+            nonlocal params, state
+            ev[0].record()
+            for step in range(steps):
+                b = batch_to(pipe.batch(step), "cuda")
+                seeds = train_seeds(0, step, 0, n_leaves)
+                h0 = time.perf_counter()
+                params, state, metrics = step_fn(params, state, step, b, seeds)
+                host_ms.append((time.perf_counter() - h0) * 1e3)
+                ev[step + 1].record()
+                losses.append(metrics["loss"])
+
+        quantize = {"rqm_quantize": steps * n_leaves}
+        codec = {"pack_flat": steps * n_leaves, "unpack_flat": steps * n_leaves}
+        counted(f"[5j] {arch} full width {tag}", {**quantize, **(codec if "packed" in tag
+                                                                 else {})}, go)
+        step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+        peak = torch.cuda.max_memory_allocated() - start_bytes
+        losses = [float(v) for v in losses]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[5j] {arch} {tag}: losses {losses}")
+        out = {"init_s": init_s, "losses": losses, "step_ms": step_ms, "host_ms": host_ms,
+               "peak_bytes_above_start": peak, "leaves": n_leaves, "params": n_params,
+               "digests": [leaf_digest(torch, t) for t in leaves(params)],
+               "embed": params["embed"].cpu()}
+        if profiled:
+            b = batch_to(pipe.batch(steps), "cuda")
+            seeds = train_seeds(0, steps, 0, n_leaves)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                h0 = time.perf_counter()
+                params, state, _ = step_fn(params, state, steps, b, seeds)
+                out["profiled_host_ms"] = (time.perf_counter() - h0) * 1e3
+                torch.cuda.synchronize()
+            by_kernel = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+            busy = sum(e.device_time_total for e in by_kernel) / 1e3
+            quantize_ms = sum(e.device_time_total for e in by_kernel
+                              if "quantize_kernel" in e.key) / 1e3
+            out.update(
+                device_busy_ms=busy,
+                device_launches=sum(str(e.device_type).endswith("CUDA")
+                                    for e in prof.events()),
+                quantize_ms=quantize_ms, quantize_share=quantize_ms / busy,
+                top_kernels_ms={demangle(e.key)[:80]: e.device_time_total / 1e3
+                                for e in by_kernel[:8]})
+            # one more step keeps the first leaf of each shape's encode
+            # (the embedding, 671,088,640 coordinates, among them)
+            seen = set()
+
+            def first_of_shape(i, g):
+                new = tuple(g.shape) not in seen
+                seen.add(tuple(g.shape))
+                return new
+
+            b = batch_to(pipe.batch(steps + 1), "cuda")
+            with recorded_encodes(first_of_shape) as out["kept"]:
+                params, state, _ = step_fn(params, state, steps + 1, b,
+                                           train_seeds(0, steps + 1, 0, n_leaves))
+        del params, state
+        torch.cuda.empty_cache()
+        return out
+
+    shape = InputShape("cli", seq, batch, "train")
+    runs["plain"] = run("plain", build_train_step_fn(cfg, mech, opt, lr_fn, ParallelCtx()),
+                        profiled=True)
+    t0 = time.perf_counter()
+    held = held_encodes(torch, runs["plain"].pop("kept"), f"{arch} full width")
+    held_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    plan_step, _ = make_train_step(cfg, make_plan((1, 1), "cuda"), mech, opt, lr_fn, shape,
+                                   packed=True)
+    runs["plan 1 packed"] = run("plan 1 packed", plan_step, profiled=False)
+    a, b = runs["plain"], runs["plan 1 packed"]
+    if a["digests"] != b["digests"] or not torch.equal(a["embed"], b["embed"]) \
+            or a["losses"] != b["losses"]:
+        bad = sum(x != y for x, y in zip(a["digests"], b["digests"]))
+        raise AssertionError(f"[5j] {arch}: the packed plan differs from the plain run "
+                             f"({bad} leaves' digests; losses {a['losses']} vs {b['losses']})")
+    n_params = a["params"]
+    matmul = n_params - cfg.padded_vocab(1) * cfg.d_model  # all but the embedding table
+    tokens = batch * seq
+    bound_ops = 6 * matmul * tokens / F32_FLOPS_PER_S * 1e3
+    bound_bytes = 2 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+    steady = a["step_ms"][1:]
+    median = statistics.median(steady)
+    report = {"arch": arch, "params": n_params, "leaves": a["leaves"], "batch": batch,
+              "seq": seq, "steps": steps, "losses": a["losses"],
+              "init_s": {k: r["init_s"] for k, r in runs.items()},
+              "step_ms": {k: r["step_ms"] for k, r in runs.items()},
+              "step_ms_median_after_first": median, "step_ms_range": [min(steady), max(steady)],
+              "tokens_per_s": tokens / median * 1e3,
+              "host_dispatch_ms": {k: r["host_ms"] for k, r in runs.items()},
+              "profiled_step": {k: a[k] for k in ("profiled_host_ms", "device_busy_ms",
+                                                  "device_launches", "quantize_ms",
+                                                  "quantize_share", "top_kernels_ms")},
+              "peak_bytes_above_start": {k: r["peak_bytes_above_start"]
+                                         for k, r in runs.items()},
+              "matmul_params": matmul, "bound_ms": max(bound_ops, bound_bytes),
+              "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+              "bound_ops_ms": bound_ops, "bound_bytes_ms": bound_bytes,
+              "packed_plan_equal": True, "held_leaf_sizes": held, "held_s": held_s,
+              "nvidia_smi": card}
+    log(f"[5j] {arch} full width: {n_params} parameters in {a['leaves']} leaves, batch {batch} "
+        f"x seq {seq}, {steps} steps: plain == one-rank packed plan bit for bit (digests, "
+        f"embedding, losses {a['losses']}); step ms {a['step_ms']} (plain), {b['step_ms']} "
+        f"(packed plan); {report['tokens_per_s']} tokens/s; host dispatch ms {a['host_ms']}; "
+        f"profiled step: busy {a['device_busy_ms']} ms, {a['device_launches']} launches, "
+        f"quantize {a['quantize_ms']} ms ({a['quantize_share']}); peak "
+        f"{report['peak_bytes_above_start']} B above the start; bound {report['bound_ms']} ms "
+        f"({report['bound_by']}); a step's rqm_quantize, pack_flat and unpack_flat on the first "
+        f"leaf of each shape (sizes {held}) == their plain versions, the encode in chunks of "
+        f"{TRAIN_PLAIN_CHUNK}, in {held_s} s; nvidia-smi: {card}")
+    return report
+
+
+def train_compare(torch, counted, card: str) -> dict:
+    """Phase 5j (d): examples/train_lm_rqm_torch.py's ``--compare`` on
+    reduced gemma3, TRAIN_COMPARE_STEPS steps (reported, not gated)."""
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_rqm_torch", os.path.join(ROOT, "examples", "train_lm_rqm_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    final = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        counted("[5j] the example's --compare", None, lambda: final.update(example.main(
+            ["--arch", "gemma3-4b", "--steps", str(TRAIN_COMPARE_STEPS), "--compare"])))
+    report = {"arch": "gemma3-4b (reduced)", "steps": TRAIN_COMPARE_STEPS, "final_ce": final,
+              "seconds": time.perf_counter() - t0, "nvidia_smi": card}
+    log(f"[5j] the example's --compare, reduced gemma3-4b, {TRAIN_COMPARE_STEPS} steps: final "
+        f"ce {final} in {report['seconds']} s")
+    return report
+
+
 def fill_sources(torch, tr, rounds: int) -> dict:
     """Device ms a round of the fill kernels of an eager round, by the ops
     above each aten::fill_ and its shape (torch.profiler)."""
@@ -2642,6 +3073,16 @@ def main() -> int:
                 torch, arch, batch, prompt, gen_len, n_params, card)}))
     log(json.dumps({"single_leaves": serve_single_leaves(torch, counted)}))
     log(json.dumps({"calibration": calibration_report(card)}))
+
+    # phase 5j: distributed LM training at tp = 1 (reduced configs through
+    # the launcher, resume, gemma3-4b at full width, the example's compare)
+    t5j = time.perf_counter()
+    log(json.dumps({"train_reduced": train_reduced(torch, counted)}))
+    log(json.dumps({"train_resume": train_resume(torch, counted)}))
+    log(json.dumps({"train_full_width": train_full_width(torch, counted, card)}))
+    log(json.dumps({"train_compare": train_compare(torch, counted, card)}))
+    log(f"[5j] phase 5j in {time.perf_counter() - t5j} s")
+    torch.cuda.empty_cache()
 
     # phase 6: where a warm round spends device time, FedConfig()'s round
     # for each mechanism (graphed), the graphed fused packed round, the

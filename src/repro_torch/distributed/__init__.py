@@ -1,0 +1,13 @@
+"""The distributed LM train step at tp = 1 (``distributed/step.py``)."""
+from repro_torch.distributed.step import (
+    MeshPlan,
+    build_train_step_fn,
+    encode_aggregate_decode,
+    make_plan,
+    make_train_step,
+    round_privacy,
+    train_seeds,
+)
+
+__all__ = ["MeshPlan", "make_plan", "make_train_step", "build_train_step_fn",
+           "encode_aggregate_decode", "round_privacy", "train_seeds"]

@@ -27,7 +27,7 @@ def _check_flat(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name} expects flat input, got {tuple(x.shape)}")
 
 
-def rqm_uniforms(n: int, seed, params: RQMParams, device="cpu"):
+def rqm_uniforms(n: int, seed, params: RQMParams, device="cuda"):
     """The kernel's uniforms for a flat input of n elements: (n, m) level
     keep draws (streams 1..m-2 for the interior; the endpoints' slots are
     ones, never below q, and unused) and (n,) rounding draws (stream m)."""

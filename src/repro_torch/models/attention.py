@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.models.common import (
     AttnSharding, ParallelCtx, apply_rope, dense_init, plan_attn_sharding, squeeze_tp,
 )
+from repro_torch.models.meta import Meta, check_tp
 
 NEG_INF = -1e30
 
@@ -72,6 +73,22 @@ def init_params(generator: torch.Generator, spec: AttentionSpec, device="cuda") 
         p["bq"] = torch.zeros((1, q_dim), device=device)
         p["bkv"] = torch.zeros((1, kv_dim * 2), device=device)
     return p
+
+
+def param_meta(spec: AttentionSpec, tp: int = 1) -> dict:
+    """Mirrors init_params: (global_shape, dtype, pspec, sync_group)."""
+    check_tp(tp)
+    sh = plan(spec, tp)
+    D, hd = spec.d_model, spec.head_dim
+    m = {
+        "wq": Meta((D, tp, sh.q_local * hd), torch.float32, (None, "model", None), sh.dup_attn),
+        "wkv": Meta((D, tp, sh.kv_local * hd * 2), torch.float32, (None, "model", None), sh.kv_group),
+        "wo": Meta((tp, sh.q_local * hd, D), torch.float32, ("model", None, None), sh.dup_attn),
+    }
+    if spec.qkv_bias:
+        m["bq"] = Meta((tp, sh.q_local * hd), torch.float32, ("model", None), sh.dup_attn)
+        m["bkv"] = Meta((tp, sh.kv_local * hd * 2), torch.float32, ("model", None), sh.kv_group)
+    return m
 
 
 def _project_qkv(params: dict, spec: AttentionSpec, sh: AttnSharding, x, positions):

@@ -3,10 +3,15 @@
 The reference runs its layers inside a manual ``shard_map`` over a
 (pod, data, model) mesh; on one device it passes a ``ParallelCtx`` with
 ``model_axis=None`` and every collective is the identity. The port runs
-that case only, tp = 1: the tensor-parallel mesh, with its psums and the
-compressed sequence-parallel all-gather, is ROADMAP.md queue A item 12.
-Parameter layouts keep the reference's leading ``tp`` axes (of size 1),
-so a parameter tree carries across unchanged.
+the model axis at tp = 1 only: the tensor-parallel mesh, with its psums
+and the compressed sequence-parallel all-gather, is ROADMAP.md queue A
+item 12. Parameter layouts keep the reference's leading ``tp`` axes (of
+size 1), so a parameter tree carries across unchanged.
+
+The client half is ported: the federated-client axes ('pod', 'data')
+are the ranks of a ``torch.distributed`` process group, one process a
+rank, linearized pod-major (``distributed/step.py:MeshPlan``), and
+``psum_clients``/``pmean_clients`` are all_reduces over it.
 """
 from __future__ import annotations
 
@@ -15,20 +20,47 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """The mesh seen from inside a layer, at tp = 1: every collective is
-    the identity and the model index is 0."""
+    """The mesh seen from inside the train step, at tp = 1: every
+    model-axis collective is the identity and the model index is 0.
+
+    client_axes: the names of the federated-client axes ('pod', 'data'),
+      empty for a plain run; n_clients: their product, the ranks of
+      ``group``; client_index: this rank's linear index among them.
+    """
 
     model_axis: Optional[str] = None
     tp: int = 1
+    client_axes: tuple = ()
+    n_clients: int = 1
+    client_index: int = 0
+    group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if self.model_axis is not None or self.tp != 1:
             raise NotImplementedError(
                 "a model axis (tp > 1) is not ported yet: ROADMAP.md queue A item 12")
+        if self.client_axes and self.group is None:
+            raise ValueError(f"client axes {self.client_axes} need the clients' process group")
+
+    def psum_clients(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the client ranks, in a new tensor."""
+        if not self.client_axes:
+            return x
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        return out
+
+    def pmean_clients(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the client ranks divided by their count, as
+        ``jax.lax.pmean`` computes it."""
+        if not self.client_axes:
+            return x
+        return self.psum_clients(x) / self.n_clients
 
     def psum_model(self, x):
         return x
@@ -72,6 +104,11 @@ class AttnSharding:
     dup_kv: int
     q_local: int
     kv_local: int
+
+    @property
+    def kv_group(self) -> int:
+        """Gradient-sync subgroup size for KV params."""
+        return self.dup_attn * self.dup_kv
 
 
 def plan_attn_sharding(num_heads: int, num_kv_heads: int, tp: int) -> AttnSharding:

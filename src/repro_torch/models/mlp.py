@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
+from repro_torch.models.meta import Meta, check_tp
 
 GATED = {"swiglu", "geglu"}
 
@@ -34,6 +35,18 @@ def init_params(generator: torch.Generator, kind: str, d_model: int, d_ff: int,
         p = {"w_in": init((d_model, 1, d_ff), 0)}
     p["w_down"] = init((1, d_ff, d_model), 1)
     return p
+
+
+def param_meta(kind: str, d_model: int, d_ff: int, tp: int = 1) -> dict:
+    check_tp(tp)
+    f_l = d_ff // tp
+    m = {"w_down": Meta((tp, f_l, d_model), torch.float32, ("model", None, None), 1)}
+    if kind in GATED:
+        m["w_gate"] = Meta((d_model, tp, f_l), torch.float32, (None, "model", None), 1)
+        m["w_up"] = Meta((d_model, tp, f_l), torch.float32, (None, "model", None), 1)
+    else:
+        m["w_in"] = Meta((d_model, tp, f_l), torch.float32, (None, "model", None), 1)
+    return m
 
 
 def forward(params: dict, kind: str, ctx: ParallelCtx, x: torch.Tensor) -> torch.Tensor:

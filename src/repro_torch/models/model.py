@@ -33,6 +33,7 @@ import torch
 from repro_torch.configs.base import InputShape, LayerSpec, ModelConfig
 from repro_torch.models import attention, mlp, moe, ssm
 from repro_torch.models.common import ParallelCtx, dense_init, rms_norm, squeeze_tp
+from repro_torch.models.meta import Meta, check_tp
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +56,23 @@ def _layer_init(generator, cfg: ModelConfig, layer: LayerSpec, device):
     elif cfg.mlp_kind is not None:
         p["mlp"] = mlp.init_params(generator, cfg.mlp_kind, D, cfg.d_ff, device)
     return p
+
+
+def _layer_meta(cfg: ModelConfig, layer: LayerSpec, tp: int) -> dict:
+    D = cfg.d_model
+    m = {"norm1": Meta((D,), torch.float32, (None,), tp)}
+    if layer.kind == "ssm":
+        m["ssm"] = ssm.param_meta(cfg.ssm, tp)
+        return m
+    if layer.kind == "shared_attn":
+        return {}
+    m["attn"] = attention.param_meta(cfg.attn_spec(layer), tp)
+    m["norm2"] = Meta((D,), torch.float32, (None,), tp)
+    if cfg.moe is not None:
+        m["moe"] = moe.param_meta(cfg.moe, tp)
+    elif cfg.mlp_kind is not None:
+        m["mlp"] = mlp.param_meta(cfg.mlp_kind, D, cfg.d_ff, tp)
+    return m
 
 
 def _shared_layerspec(cfg: ModelConfig) -> LayerSpec:
@@ -85,6 +103,28 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> 
         }
     params["lm_head"] = dense_init(generator, (D, 1, V), in_axis=0, device=device)
     return params
+
+
+def param_meta(cfg: ModelConfig, tp: int = 1) -> dict:
+    """The Meta tree of ``init_params``' parameters (``models/meta.py``)."""
+    check_tp(tp)
+    D = cfg.d_model
+    V = cfg.padded_vocab(tp)
+    m = {
+        "embed": Meta((tp, V // tp, D), torch.float32, ("model", None, None), 1),
+        "layers": tuple(_layer_meta(cfg, layer, tp) for layer in cfg.layers),
+        "final_norm": Meta((D,), torch.float32, (None,), tp),
+        "lm_head": Meta((D, tp, V // tp), torch.float32, (None, "model", None), 1),
+    }
+    if cfg.shared_attn:
+        spec = cfg.attn_spec(_shared_layerspec(cfg))
+        m["shared"] = {
+            "norm1": Meta((D,), torch.float32, (None,), tp),
+            "attn": attention.param_meta(spec, tp),
+            "norm2": Meta((D,), torch.float32, (None,), tp),
+            "mlp": mlp.param_meta(cfg.mlp_kind, D, cfg.shared_d_ff, tp),
+        }
+    return m
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
+from repro_torch.models.meta import Meta, check_tp
 from repro_torch.models.mlp import gelu
 
 
@@ -54,6 +55,18 @@ def init_params(generator: torch.Generator, spec: MoESpec, device="cuda") -> dic
         "w_gate": init((1, E, D, F_), 2),
         "w_up": init((1, E, D, F_), 2),
         "w_down": init((1, E, F_, D), 2),
+    }
+
+
+def param_meta(spec: MoESpec, tp: int = 1) -> dict:
+    check_tp(tp)
+    e_l = spec.experts_local(tp)
+    D, F_ = spec.d_model, spec.d_ff_expert
+    return {
+        "router": Meta((D, spec.num_experts), torch.float32, (None, None), tp),
+        "w_gate": Meta((tp, e_l, D, F_), torch.float32, ("model", None, None, None), 1),
+        "w_up": Meta((tp, e_l, D, F_), torch.float32, ("model", None, None, None), 1),
+        "w_down": Meta((tp, e_l, F_, D), torch.float32, ("model", None, None, None), 1),
     }
 
 

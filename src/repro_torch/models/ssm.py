@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
+from repro_torch.models.meta import Meta, check_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +45,11 @@ class SSMSpec:
     @property
     def num_heads(self) -> int:
         return self.d_inner // self.head_dim
+
+    def heads_local(self, tp: int) -> int:
+        if self.num_heads % tp != 0:
+            raise ValueError(f"ssm heads {self.num_heads} not divisible by tp={tp}")
+        return self.num_heads // tp
 
 
 def init_params(generator: torch.Generator, spec: SSMSpec, device="cuda") -> dict:
@@ -69,6 +75,25 @@ def init_params(generator: torch.Generator, spec: SSMSpec, device="cuda") -> dic
         "dt_bias": dt_bias.to(device),
         "norm": torch.zeros((1, di), device=device),
         "w_out": init((1, di, D), 1),
+    }
+
+
+def param_meta(spec: SSMSpec, tp: int = 1) -> dict:
+    check_tp(tp)
+    h_l = spec.heads_local(tp)
+    di_l = h_l * spec.head_dim
+    D, N, W = spec.d_model, spec.state_dim, spec.conv_width
+    return {
+        "w_zx": Meta((D, tp, 2 * di_l), torch.float32, (None, "model", None), 1),
+        "w_bc": Meta((D, 2 * N), torch.float32, (None, None), tp),
+        "w_dt": Meta((D, tp, h_l), torch.float32, (None, "model", None), 1),
+        "conv_x": Meta((tp, W, di_l), torch.float32, ("model", None, None), 1),
+        "conv_bc": Meta((W, 2 * N), torch.float32, (None, None), tp),
+        "A_log": Meta((tp, h_l), torch.float32, ("model", None), 1),
+        "D_skip": Meta((tp, h_l), torch.float32, ("model", None), 1),
+        "dt_bias": Meta((tp, h_l), torch.float32, ("model", None), 1),
+        "norm": Meta((tp, di_l), torch.float32, ("model", None), 1),
+        "w_out": Meta((tp, di_l, D), torch.float32, ("model", None, None), 1),
     }
 
 

@@ -105,7 +105,7 @@ def test_pbm_quantize_with_uniforms_matches_reference(m, theta):
 
 def test_rqm_uniforms_match_reference(kernel_seed):
     p, jp = PARAMS["rqm"]
-    u_levels, u_round = ref.rqm_uniforms(513, kernel_seed, p)
+    u_levels, u_round = ref.rqm_uniforms(513, kernel_seed, p, device="cpu")
     ju_levels, ju_round = jref.rqm_uniforms(513, jnp.uint32(kernel_seed), jp)
     np.testing.assert_array_equal(u_levels.numpy(), np.asarray(ju_levels))
     np.testing.assert_array_equal(u_round.numpy(), np.asarray(ju_round))
