@@ -199,6 +199,35 @@ which raises and exits non-zero:
      example's ``--compare`` (none, rqm, pbm) on reduced gemma3 for 30
      steps, each final ce; lines start with [5j], reports "train_reduced",
      "train_resume", "train_full_width", "train_compare";
+  5k. the model axis (tp > 1): three launches of ranks, subprocesses of
+     ``torch.distributed.run`` running this script with ``--tp-worker``,
+     all on the one card over gloo (CUDA tensors; NCCL refuses two ranks
+     on one device), each rank's runs counted and their counts added to
+     the kernels' line: (a) on 2 ranks mesh 1x2, on 4 ranks 2x2 and 1x4
+     (reduced chatglm3-6b, H=8 and kv=2: at tp 4 its KV heads on aligned
+     pairs, ``subgroup_psum``; reduced mamba2-370m at 1x2 and 2x2, its
+     B/C projection replicated), the launcher, rqm, 2 steps, plain and
+     packed: packed == plain bit for bit, every replicated or duplicated
+     leaf bit-equal across its group, every leaf's first-step levels on
+     every rank == rqm_quantize_plain and pack_flat/unpack_flat == their
+     plain versions; (b) the shard engine's 2-D lm round on
+     tests/fed_lm_2d_checks.py's problem at shards x model_shards 1x2,
+     2x1 (2 ranks) and 2x2 (4 ranks), materialized, fused packed and
+     fused dense (== bit for bit; each path's first round's kernels,
+     rows 1-5 and 8-9, held against their plain versions at its shapes),
+     2x2 == 1x2 bit for bit in every round's sum and the parameters, every
+     grid accounted at the full cohort, epsilon equal across tp, and on
+     each grid with a model axis the tensor-parallel client release at 1
+     and 2 local steps on the card == on CPU tensors within 1e-5 of the
+     largest (at 2, plus 2 spacings of the parameter); (c)
+     gemma3-4b at full width at 1x2 (4,550,996,480 parameters, each rank
+     drawing the global tree leaf by leaf and keeping its half), rqm,
+     sgd, batch 2 x seq 256, 3 steps: step ms (CUDA events), tokens/s,
+     host dispatch ms, one profiled step's device busy ms and launches,
+     the model-axis collectives clocked over one more step and an
+     all_reduce timed alone, each rank's peak, the first leaf of each
+     shape's levels == rqm_quantize_plain; lines start with [5k], report
+     "model_axis", files under build/phase5k;
   6. profile: device time by kernel over 3 more rounds of FedConfig()'s
      trainer for each mechanism (graphed; phase 5's, and phase 5c's for
      rqm), of phase 5e's graphed Poisson round, of the graphed fused packed
@@ -211,7 +240,7 @@ which raises and exits non-zero:
      ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
      (reported, not gated).
 
-Every run of phases 4 to 5j (but their reports) sets the kernels' launch counters to 0
+Every run of phases 4 to 5k (but their reports) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
@@ -341,6 +370,30 @@ TRAIN_COMPARE_STEPS = 30
 TRAIN_DIGEST_CHUNK = 1 << 26
 TRAIN_PLAIN_CHUNK = 1 << 24  # elements a chunk of the plain encode and codec at full width
 F32_FLOPS_PER_S = 67e12
+# phase 5k: the model axis, its ranks subprocesses of torch.distributed.run
+# on the one card (gloo over CUDA tensors). (a) the reduced configs, the
+# meshes of each launch (ranks: meshes, and the archs at each) and steps
+# a run; (b) the shard engine's 2-D lm round (tests/fed_lm_2d_checks.py's
+# problem), the grids of each launch; (c) full width at 1x2
+TP_STEPS = 2
+TP_TRAIN = {2: {"1x2": ("chatglm3-6b", "mamba2-370m")},
+            4: {"2x2": ("chatglm3-6b", "mamba2-370m"), "1x4": ("chatglm3-6b",)}}
+TP_FED = dict(num_clients=8, clients_per_round=4, rounds=2, lr=0.5, samples_per_client=8,
+              task="lm:model=mamba2-370m,seq_len=16,batch=1")
+TP_FED_SPEC = "rqm:c=0.05"
+# (b) the tensor-parallel client release on the card against the same
+# code on CPU tensors (tests/test_torch_tp_client.py holds that against
+# the reference): tests/test_torch_lm_round.py's GRAD_RTOL of a client's
+# largest coordinate, at each of these local steps; above one step the
+# release is the delta ``flat - cur``, and each step's ``cur`` rounds to
+# the parameter's spacing on either side, so the bound adds ``steps``
+# spacings of the parameter
+TP_RELEASE_STEPS = (1, 2)
+TP_GRAD_RTOL = 1e-5
+TP_FED_GRIDS = {2: ("1x2", "2x1"), 4: ("2x2",)}
+TP_FULL = ("gemma3-4b", 2, 256, 3, 4_550_996_480)
+TP_TIMEOUT = 900  # seconds a launch of ranks may take
+TP_PROBE_REPS = 20  # (c): all_reduces timed alone
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -2876,6 +2929,571 @@ def fig3_report(torch, FedConfig) -> dict:
                             and rqm["per_round_eps_alpha8"] < pbm["per_round_eps_alpha8"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 5k: the model axis (tp > 1). The ranks are subprocesses of
+# torch.distributed.run that run this script with ``--tp-worker <part>``
+# (tp_worker); each writes build/phase5k/<part>_rank<r>.json.
+# ---------------------------------------------------------------------------
+
+
+def tp_held_calls(torch):
+    """A context that keeps the first call of each round-path kernel
+    wrapper (the fused round sums, the decodes, the codec, the batch
+    quantize), its arguments and result copied, and returns a function
+    that holds each against its plain version on the same arguments on
+    the card, bit for bit (these plain calls launch no counted kernel).
+    Returns (context, check)."""
+    from repro_torch.core import secagg
+    from repro_torch.fed import rounds
+    from repro_torch.kernels import (decode_apply_kernel, fused_round_kernel, ops, pack_kernel,
+                                     rqm_kernel)
+
+    targets = [
+        (fused_round_kernel, "round_sum", fused_round_kernel.round_sum_plain),
+        (fused_round_kernel, "round_sum_packed", fused_round_kernel.round_sum_packed_plain),
+        (rounds, "decode_apply_sum", decode_apply_kernel.decode_apply_plain),
+        (rounds, "unpack_decode_apply", pack_kernel.unpack_decode_apply_plain),
+        (rounds, "unpack_flat", pack_kernel.unpack_flat_plain),
+        (secagg, "pack_flat", pack_kernel.pack_flat_plain),
+        (secagg, "unpack_flat", pack_kernel.unpack_flat_plain),
+        (ops, "rqm_batch", rqm_kernel.rqm_quantize_plain),
+    ]
+    kept = {}
+
+    def copy(v):
+        return v.detach().clone() if isinstance(v, torch.Tensor) else v
+
+    @contextlib.contextmanager
+    def recording():
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+        for (mod, name, fn), (_, _, plain) in zip(saved, targets):
+            def wrapped(*args, _fn=fn, _key=f"{mod.__name__}.{name}", _plain=plain, **kwargs):
+                out = _fn(*args, **kwargs)
+                if _key not in kept:
+                    kept[_key] = (_plain, [copy(a) for a in args],
+                                  {k: copy(v) for k, v in kwargs.items()}, out.clone())
+                return out
+            setattr(mod, name, wrapped)
+        try:
+            yield kept
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    def check(what: str) -> list:
+        held = []
+        for key, (plain, args, kwargs, out) in sorted(kept.items()):
+            want = plain(*args, **kwargs)
+            if not torch.equal(want, out):
+                raise AssertionError(f"[5k] {what}: {key} differs from its plain version at "
+                                     f"{int((want != out).sum())} of {out.numel()} entries")
+            held.append(f"{key.split('.')[-1]} {tuple(out.shape)}")
+        kept.clear()
+        return held
+
+    return recording, check
+
+
+def tp_digests(torch, params) -> list:
+    import hashlib
+
+    from repro_torch.convert import leaves
+
+    return [hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+            for t in leaves(params)]
+
+
+def tp_copies_equal(torch, dist, params, meta, groups, what: str) -> int:
+    """Every leaf duplicated over the model axis (sync > 1) bit-equal on
+    each aligned group of ``sync`` model ranks (digests gathered over the
+    model group). Returns the leaves held."""
+    from repro_torch.convert import leaves
+
+    tp, mi = dist.get_world_size(groups.model), groups.model_index
+    n = 0
+    for d, m in zip(tp_digests(torch, params), leaves(meta)):
+        if m.sync <= 1:
+            continue
+        every = [None] * tp
+        dist.all_gather_object(every, d, group=groups.model)
+        g = min(m.sync, tp)
+        if len(set(every[mi // g * g:(mi // g + 1) * g])) != 1:
+            raise AssertionError(f"[5k] {what}: a leaf of sync {m.sync} differs across its "
+                                 f"group: {every}")
+        n += 1
+    return n
+
+
+def tp_train_reduced(torch, dist, counted, world: int) -> dict:
+    """Phase 5k (a) on this rank: each mesh of TP_TRAIN[world] and its
+    reduced configs through the launcher, rqm, TP_STEPS steps, plain and
+    packed, each run counted: packed == plain bit for bit (parameters,
+    losses); every replicated or duplicated leaf bit-equal across its
+    group; the plain run's first step's levels of every leaf (this rank's
+    slices) == rqm_quantize_plain, pack_flat/unpack_flat of them == their
+    plain versions."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.launch.mesh import mesh_groups
+    from repro_torch.models import model
+
+    S, report = TP_STEPS, {}
+    for mesh, archs in TP_TRAIN[world].items():
+        D, M = (int(d) for d in mesh.split("x"))
+        groups = mesh_groups(D, M, "cuda")
+        for arch in archs:
+            meta = model.param_meta(get_config(arch, reduced=True), M)
+            n = len(leaves(meta))
+            quantize = {"rqm_quantize": S * n}
+            codec = {"pack_flat": S * n, "unpack_flat": S * n}
+            runs, held = {}, []
+            for tag, extra, expect in (("plain", [], quantize),
+                                       ("packed", ["--packed"], {**quantize, **codec})):
+                argv = ["--arch", arch, "--reduced", "--mechanism", "rqm", "--steps", str(S),
+                        "--batch", "2", "--seq", "64", "--log-every", str(S), "--mesh-shape",
+                        mesh] + extra
+                out, kept = {}, []
+
+                def launch():
+                    first = (lambda i, g: tag == "plain" and i < n)
+                    with recorded_encodes(first) as k:
+                        out.update(train_launch(torch, argv))
+                    kept.extend(k)
+
+                counted(f"{mesh} {arch} {tag}", expect, launch)
+                runs[tag] = out
+                if kept:
+                    held = held_encodes(torch, kept, f"{mesh} {arch} {tag}")
+            same_train_runs(torch, runs, f"{mesh} {arch}: plain, packed")
+            losses = runs["plain"]["losses"]
+            if not all(math.isfinite(v) for v in losses) or len(held) != n:
+                raise AssertionError(f"[5k] {mesh} {arch}: losses {losses}, {len(held)} of {n} "
+                                     "leaves held")
+            copies = tp_copies_equal(torch, dist, runs["plain"]["params"], meta, groups,
+                                     f"{mesh} {arch}")
+            report[f"{mesh} {arch}"] = {"leaves": n, "losses": losses, "held_leaves": len(held),
+                                        "copies_equal": copies}
+    return report
+
+
+def tp_release_cuda_vs_cpu(torch, tr) -> dict:
+    """The shard engine's tensor-parallel client release (``tr``'s task
+    bound to its model axis) of the first cohort's clients, unclipped, on
+    the card and on CPU tensors over the same gloo groups, at each of
+    TP_RELEASE_STEPS local steps: each coordinate within TP_GRAD_RTOL of
+    its client's largest, plus, above one step, ``steps`` spacings of its
+    parameter. Returns, a step, the worst error relative to the client's
+    largest coordinate and the worst share of the bound."""
+    import numpy as np
+
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.fed import rounds
+
+    none = make_mechanism("none:c=1e30")
+    batches = [tr.task.client_batch(c) for c in range(TP_FED["clients_per_round"])]
+    batch = {k: torch.from_numpy(np.stack([b[k] for b in batches])) for k in batches[0]}
+    out = {}
+    for steps in TP_RELEASE_STEPS:
+        grads = rounds.make_client_grad(none, tr.unravel, tr.task,
+                                        dataclasses.replace(tr.cfg, local_steps=steps),
+                                        ctx=tr.task_ctx)
+        got = grads(tr.flat, {k: v.cuda() for k, v in batch.items()}).cpu()
+        want = grads(tr.flat.cpu(), batch)
+        err, scale = (got - want).abs(), want.abs().amax(1, keepdim=True)
+        bound = TP_GRAD_RTOL * scale
+        if steps > 1:
+            bound = bound + steps * torch.from_numpy(np.spacing(tr.flat.abs().cpu().numpy()))
+        share = (err / bound).max().item()
+        if not (torch.isfinite(got).all() and share <= 1.0):
+            raise AssertionError(f"[5k] tp release at {steps} local steps: cuda vs cpu "
+                                 f"at {share} of the bound")
+        out[steps] = {"rel_err": (err / scale).max().item(), "share_of_bound": share}
+    return out
+
+
+def tp_fed_grid(torch, dist, counted, grid: str) -> dict:
+    """Phase 5k (b) on this rank: TP_FED on the shard engine at ``grid``
+    (shards x model shards), materialized, fused packed and fused dense,
+    each run counted, their sums and parameters bit for bit; each path's
+    first round's kernels held against their plain versions; rank 0
+    saves the materialized run's sums and parameters for the parent to
+    hold across grids."""
+    from repro_torch.fed.config import FedConfig
+    from repro_torch.fed.trainer import FedTrainer
+
+    S, M = (int(d) for d in grid.split("x"))
+    R = TP_FED["rounds"]
+    base = FedConfig(engine="shard", shards=S, model_shards=M, collect_sums=True, **TP_FED)
+    recording, check = tp_held_calls(torch)
+    paths = {
+        "materialized": (base, {"rqm_quantize": R, "pack_flat": R, "unpack_flat": R}),
+        "fused packed": (dataclasses.replace(base, fused_rounds=True),
+                         {"rqm_round_sum_packed": R, "unpack_decode_apply": R,
+                          "unpack_flat": R}),
+        "fused dense": (dataclasses.replace(base, fused_rounds=True, wire_packed=False),
+                        {"rqm_round_sum_dense": R, "pack_flat": R, "unpack_flat": R,
+                         "decode_apply_sum": R}),
+    }
+    trainers, report = {}, {}
+    for path, (cfg, expect) in paths.items():
+        box = {}
+
+        def go():
+            tr = FedTrainer(TP_FED_SPEC, cfg, device="cuda")
+            with recording():
+                tr.run_block(R)
+            box["tr"] = tr
+
+        counted(f"fed {grid} {path}", expect, go)
+        tr = trainers[path] = box["tr"]
+        report[path] = {"held": check(f"fed {grid} {path}")}
+        if tr.shards != S or tr.task.tp != M or tr.realized_n != [TP_FED["clients_per_round"]] * R:
+            raise AssertionError(f"[5k] fed {grid} {path}: shards {tr.shards}, tp {tr.task.tp}, "
+                                 f"realized {tr.realized_n}")
+    ref = trainers["materialized"]
+    for path, tr in trainers.items():
+        if not (torch.equal(tr.flat, ref.flat) and all(
+                (a == b).all() for a, b in zip(tr.round_sums, ref.round_sums))):
+            raise AssertionError(f"[5k] fed {grid}: {path} differs from materialized")
+    digest = tp_digests(torch, ref.flat)[0]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, digest)
+    if len(set(every)) != 1:
+        raise AssertionError(f"[5k] fed {grid}: parameters differ across the ranks")
+    ev = ref.evaluate()
+    if not (math.isfinite(ev["loss"]) and ev["ppl"] > 1.0):
+        raise AssertionError(f"[5k] fed {grid}: held-out loss {ev['loss']}")
+    if dist.get_rank() == 0:
+        torch.save({"flat": ref.flat.cpu(), "sums": [torch.from_numpy(z) for z in ref.round_sums],
+                    "realized_n": [int(n) for n in ref.realized_n],
+                    "per_round_eps": [float(e) for e in ref.per_round_eps],
+                    "rdp8": float(ref.accountant.rdp_epsilon(8.0))},
+                   os.path.join(ROOT, "build", "phase5k", f"fed_{grid}.pt"))
+    report.update(dim=int(ref.flat.numel()), eval_loss=ev["loss"], eval_ppl=ev["ppl"],
+                  realized_n=[int(n) for n in ref.realized_n])
+    if M > 1:
+        report["release_rel_err"] = tp_release_cuda_vs_cpu(torch, ref)
+    return report
+
+
+def tp_full_width(torch, dist, counted, card: str) -> dict:
+    """Phase 5k (c) on this rank: TP_FULL's arch at full width at mesh
+    1x2, each rank drawing the global tree leaf by leaf from a CUDA
+    generator and keeping its slices, rqm and sgd at the launcher's
+    warmup-cosine rate, TP_FULL's steps counted: step ms by CUDA events,
+    host dispatch ms a step, peak memory above the start; one more step
+    under torch.profiler (device busy ms, launches, host ms); one more
+    with every model-axis collective clocked (a synchronisation around
+    each); one more whose encodes of the first leaf of each shape are
+    held against their plain versions (``held_encodes``); and the
+    model-axis all_reduce alone, on the card and on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.distributed.step import make_plan, make_train_step, train_seeds
+    from repro_torch.eval.lm_eval import batch_to
+    from repro_torch.models import common, meta as meta_lib, model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import warmup_cosine
+
+    arch, batch, seq, steps, want_params = TP_FULL
+    cfg = get_config(arch)
+    mech, opt = make_mechanism(SPECS["rqm"]), make_optimizer("sgd")
+    lr_fn = warmup_cosine(0.2, warmup=steps // 10 + 1, total_steps=steps, device="cuda")
+    pipe = TokenPipeline(cfg, seq, batch, seed=0)
+    plan = make_plan((1, 2), "cuda")
+    step_fn, specs = make_train_step(cfg, plan, mech, opt, lr_fn,
+                                     InputShape("cli", seq, batch, "train"))
+    meta, ctx, shards = specs["param_meta"], specs["ctx"], specs["shard_seeds"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator("cuda").manual_seed(1), cfg, device="cuda", tp=2,
+                               keep=meta_lib.slicer(2, ctx.model_index()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if meta_lib.param_count(meta) != want_params:
+        raise AssertionError(f"[5k] {arch}: {meta_lib.param_count(meta)} parameters")
+    n_leaves, n_local = len(leaves(params)), sum(t.numel() for t in leaves(params))
+    state, losses, host_ms = opt.init(params), [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+
+    def seeds(step):
+        return train_seeds(0, step, ctx.client_index, n_leaves, shards)
+
+    def go():
+        nonlocal params, state
+        ev[0].record()
+        for step in range(steps):
+            b = batch_to(pipe.batch(step), "cuda")
+            s = seeds(step)
+            h0 = time.perf_counter()
+            params, state, metrics = step_fn(params, state, step, b, s)
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            ev[step + 1].record()
+            losses.append(metrics["loss"])
+
+    counted(f"{arch} full width 1x2", {"rqm_quantize": steps * n_leaves}, go)
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[5k] {arch}: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() - start_bytes
+    # one profiled step
+    b = batch_to(pipe.batch(steps), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, steps, b, seeds(steps))
+        profiled_host_ms = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - h0) * 1e3
+    by_kernel = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in by_kernel) / 1e3
+    launches = sum(str(e.device_type).endswith("CUDA") for e in prof.events())
+    memcpy_ms = sum(e.device_time_total for e in by_kernel if "Memcpy" in e.key) / 1e3
+    # one step with the model-axis collectives clocked
+    clocked = {"calls": 0, "ms": 0.0, "bytes": 0}
+    saved = (common._all_reduce, common._gather, common._reduce_scatter)
+
+    def clock(fn):
+        def timed(x, *args, **kwargs):
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            out = fn(x, *args, **kwargs)
+            torch.cuda.synchronize()
+            clocked["calls"] += 1
+            clocked["ms"] += (time.perf_counter() - c0) * 1e3
+            clocked["bytes"] += x.numel() * x.element_size()
+            return out
+        return timed
+
+    common._all_reduce, common._gather, common._reduce_scatter = map(clock, saved)
+    try:
+        b = batch_to(pipe.batch(steps + 1), "cuda")
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, steps + 1, b, seeds(steps + 1))
+        torch.cuda.synchronize()
+        clocked_step_ms = (time.perf_counter() - c0) * 1e3
+    finally:
+        common._all_reduce, common._gather, common._reduce_scatter = saved
+
+    def per_call_ms(x, reps=TP_PROBE_REPS):
+        """ms a model-axis all_reduce of ``x`` (mean of ``reps``)."""
+        common._all_reduce(x, ctx.model_group)
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        for _ in range(reps):
+            common._all_reduce(x, ctx.model_group)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - c0) / reps * 1e3
+
+    # the collective alone: an activation's all_reduce and a 1-element
+    # one, on the card and on the host
+    act = (batch, seq, cfg.d_model)
+    probe = {"activation_shape": list(act),
+             "cuda_activation_ms": per_call_ms(torch.ones(act, device="cuda")),
+             "cpu_activation_ms": per_call_ms(torch.ones(act)),
+             "cuda_one_ms": per_call_ms(torch.ones(1, device="cuda")),
+             "cpu_one_ms": per_call_ms(torch.ones(1))}
+    # one more step keeps the first leaf of each shape's encode
+    seen = set()
+
+    def first_of_shape(i, g):
+        new = tuple(g.shape) not in seen
+        seen.add(tuple(g.shape))
+        return new
+
+    b = batch_to(pipe.batch(steps + 2), "cuda")
+    with recorded_encodes(first_of_shape) as kept:
+        params, state, _ = step_fn(params, state, steps + 2, b, seeds(steps + 2))
+    del params, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    held = held_encodes(torch, kept, f"{arch} full width 1x2")
+    steady = step_ms[1:]
+    median = statistics.median(steady)
+    return {"arch": arch, "mesh": "1x2", "params": want_params, "local_params": n_local,
+            "leaves": n_leaves, "batch": batch, "seq": seq, "steps": steps, "losses": losses,
+            "init_s": init_s, "step_ms": step_ms, "step_ms_median_after_first": median,
+            "tokens_per_s": batch * seq / median * 1e3, "host_dispatch_ms": host_ms,
+            "profiled_step": {"host_ms": profiled_host_ms, "wall_ms": profiled_wall_ms,
+                              "device_busy_ms": busy, "device_launches": launches,
+                              "memcpy_ms": memcpy_ms,
+                              "top_kernels_ms": {demangle(e.key)[:80]: e.device_time_total / 1e3
+                                                 for e in by_kernel[:8]}},
+            "collectives": {**clocked, "clocked_step_ms": clocked_step_ms,
+                            "share_of_clocked_step": clocked["ms"] / clocked_step_ms,
+                            "all_reduce_alone": probe},
+            "peak_bytes_above_start": peak, "held_leaf_sizes": held,
+            "held_s": time.perf_counter() - t0, "backend": dist.get_backend(),
+            "nvidia_smi": card}
+
+
+def tp_worker(part: str) -> int:
+    """One rank of a phase 5k launch (``--tp-worker two|four|full``):
+    joins the default group that torch.distributed.run describes (gloo:
+    the ranks share the card), runs its part, each run counted (its
+    launches reset just before it and read just after, and held to what
+    the run must launch), and writes its report to
+    build/phase5k/<part>_rank<r>.json. Any failed hold raises: the rank
+    exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    device = train._device("cuda")
+    train._init_from_env(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    runs = {}
+
+    def counted(tag, expect, fn):
+        ops.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        got = dict(ops.launches)
+        if expect is not None and got != expect:
+            raise AssertionError(f"[5k] {tag} (rank {rank}): launch counts {got}, "
+                                 f"expected {expect}")
+        runs[tag] = got
+
+    report = {"rank": rank, "world": world, "backend": dist.get_backend(),
+              "device": str(device)}
+    if part == "full":
+        report["full_width"] = tp_full_width(torch, dist, counted, nvidia_smi())
+    else:
+        report["train"] = tp_train_reduced(torch, dist, counted, world)
+        report["fed"] = {grid: None for grid in TP_FED_GRIDS[world]}
+        for grid in TP_FED_GRIDS[world]:
+            S, M = (int(d) for d in grid.split("x"))
+            if S * M != world:
+                raise AssertionError(f"[5k] grid {grid} on {world} ranks")
+            report["fed"][grid] = tp_fed_grid(torch, dist, counted, grid)
+    report["runs"] = runs
+    with open(os.path.join(ROOT, "build", "phase5k", f"{part}_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_launch(part: str, ranks: int) -> list:
+    """``ranks`` processes of this script's ``--tp-worker part`` under
+    torch.distributed.run on the one card; returns their reports (any
+    failed rank fails the launch, its output's end printed)."""
+    out_dir = os.path.join(ROOT, "build", "phase5k")
+    logf = os.path.join(out_dir, f"{part}.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={ranks}", os.path.abspath(__file__), "--tp-worker", part]
+    t0 = time.perf_counter()
+    with open(logf, "w") as f:
+        proc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
+                              timeout=TP_TIMEOUT)
+    took = time.perf_counter() - t0
+    if proc.returncode:
+        with open(logf) as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"[5k] {part}: {ranks} ranks exited {proc.returncode}:\n{tail}")
+    reports = []
+    for r in range(ranks):
+        with open(os.path.join(out_dir, f"{part}_rank{r}.json")) as f:
+            reports.append(json.load(f))
+    log(f"[5k] {part}: {ranks} ranks on {reports[0]['device']}, backend {reports[0]['backend']}, "
+        f"in {took} s")
+    return reports
+
+
+def tp_phase(torch, counts: dict, paths: dict, card: str) -> dict:
+    """Phase 5k: the model axis on the one card, three launches of ranks
+    (tp_worker): (a) and (b) on 2 and on 4 ranks, (c) on 2. Adds every
+    rank's launches to ``counts``; holds (b)'s sums and parameters across
+    grids and its epsilon across tp; returns the report."""
+    import shutil
+
+    out_dir = os.path.join(ROOT, "build", "phase5k")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()
+    report = {}
+    for part, ranks in (("two", 2), ("four", 4), ("full", 2)):
+        reports = tp_launch(part, ranks)
+        for rep in reports:
+            for tag, got in rep["runs"].items():
+                for k, v in got.items():
+                    counts[k] = counts.get(k, 0) + v
+                    paths.setdefault(k, []).append(f"[5k] {tag} rank {rep['rank']}")
+        report[part] = [{k: v for k, v in rep.items() if k != "runs"} for rep in reports]
+        if part != "full":
+            for key, r in reports[0]["train"].items():
+                log(f"[5k] (a) {key}: plain == packed bit for bit over {TP_STEPS} steps, losses "
+                    f"{r['losses']}; {r['copies_equal']} replicated or duplicated leaves "
+                    f"bit-equal across their groups; the first step's levels of all "
+                    f"{r['held_leaves']} leaves of every rank == rqm_quantize_plain, "
+                    "pack_flat/unpack_flat == their plain versions")
+            for grid, r in reports[0]["fed"].items():
+                log(f"[5k] (b) shard engine {grid}: materialized == fused packed == fused dense "
+                    f"bit for bit, {TP_FED['rounds']} rounds, held-out loss {r['eval_loss']}, "
+                    f"realized {r['realized_n']}; held against their plain versions: "
+                    + "; ".join(f"{p}: {', '.join(r[p]['held'])}" for p in
+                                ("materialized", "fused packed", "fused dense"))
+                    + ("" if "release_rel_err" not in r else
+                       f"; the tensor-parallel client release on cuda == on cpu within "
+                       f"{TP_GRAD_RTOL} of the largest (+ steps spacings of the parameter "
+                       f"above one step), by local steps {r['release_rel_err']}"))
+    fed = {g: torch.load(os.path.join(out_dir, f"fed_{g}.pt"))
+           for ranks in TP_FED_GRIDS.values() for g in ranks}
+    a, b = fed["2x2"], fed["1x2"]
+    if not (torch.equal(a["flat"], b["flat"]) and len(a["sums"]) == len(b["sums"])
+            and all(torch.equal(x, y) for x, y in zip(a["sums"], b["sums"]))):
+        raise AssertionError("[5k] (b) shards=2 x model_shards=2 differs from 1 x 2")
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.fed.config import FedConfig
+
+    mech, n = make_mechanism(TP_FED_SPEC), TP_FED["clients_per_round"]
+    full = [mech.per_round_epsilon(n, al) for al in FedConfig().accountant_alphas]
+    for g, r in fed.items():
+        if r["per_round_eps"] != full or r["realized_n"] != [n] * TP_FED["rounds"]:
+            raise AssertionError(f"[5k] (b) {g}: eps {r['per_round_eps']} != {full} or "
+                                 f"realized {r['realized_n']}")
+    if not math.isclose(a["rdp8"], TP_FED["rounds"] * mech.per_round_epsilon(n, 8.0),
+                        rel_tol=1e-12):
+        raise AssertionError(f"[5k] (b) 2x2: eps(8) {a['rdp8']}")
+    log(f"[5k] (b) shards=2 x model_shards=2 == shards=1 x model_shards=2 bit for bit in every "
+        f"round's sum and the parameters; each grid (2x2, 1x2, 2x1) accounted at the full "
+        f"cohort of {n}, eps equal across tp: {full}")
+    report["fed_equal_across_grids"] = True
+    full_width = [r["full_width"] for r in report["full"]]
+    f0 = full_width[0]
+    log(f"[5k] (c) {f0['arch']} full width at 1x2 ({f0['params']} parameters, "
+        f"{[r['local_params'] for r in full_width]} a rank), batch {f0['batch']} x seq "
+        f"{f0['seq']}, {f0['steps']} steps, backend {f0['backend']}: losses {f0['losses']}; step "
+        f"ms {[r['step_ms'] for r in full_width]} (median after the first "
+        f"{[r['step_ms_median_after_first'] for r in full_width]}), tokens/s "
+        f"{[r['tokens_per_s'] for r in full_width]}; host dispatch ms "
+        f"{[r['host_dispatch_ms'] for r in full_width]}; profiled step busy ms "
+        f"{[r['profiled_step']['device_busy_ms'] for r in full_width]}, host ms "
+        f"{[r['profiled_step']['host_ms'] for r in full_width]}, device launches "
+        f"{[r['profiled_step']['device_launches'] for r in full_width]}; collectives "
+        f"{[r['collectives'] for r in full_width]}; peak bytes above the start "
+        f"{[r['peak_bytes_above_start'] for r in full_width]}; the first leaf of each shape "
+        f"(sizes {f0['held_leaf_sizes']}) == rqm_quantize_plain, pack_flat/unpack_flat == "
+        f"their plain versions; nvidia-smi: {card}")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -3084,6 +3702,11 @@ def main() -> int:
     log(f"[5j] phase 5j in {time.perf_counter() - t5j} s")
     torch.cuda.empty_cache()
 
+    # phase 5k: the model axis (tp > 1), its ranks on the one card over gloo
+    t5k = time.perf_counter()
+    log(json.dumps({"model_axis": tp_phase(torch, counts, paths, card)}))
+    log(f"[5k] phase 5k in {time.perf_counter() - t5k} s")
+
     # phase 6: where a warm round spends device time, FedConfig()'s round
     # for each mechanism (graphed), the graphed fused packed round, the
     # shard round and, eager, the perround engine's
@@ -3137,4 +3760,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2]))
     sys.exit(main())

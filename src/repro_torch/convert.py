@@ -32,6 +32,18 @@ def tree_from_numpy(tree, device="cuda"):
     return torch.tensor(a, device=device)
 
 
+def shard_from_numpy(tree, meta_tree, tp: int, index: int, device="cuda"):
+    """The reference's GLOBAL tree at ``tp`` (numpy, as its
+    ``init_params(key, cfg, tp)`` draws it, duplicated slices repeated)
+    -> model rank ``index``'s slices as tensors on ``device``, each
+    through ``models/meta.py:shard_leaf``."""
+    from repro_torch.models import meta as meta_lib
+
+    return meta_lib.tree_map(
+        lambda m, a: meta_lib.shard_leaf(tree_from_numpy(a, "cpu"), m, tp, index)
+        .clone().to(device), meta_tree, tree)
+
+
 class _Leaf:
     __slots__ = ("shape",)
 

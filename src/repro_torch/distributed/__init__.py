@@ -1,4 +1,4 @@
-"""The distributed LM train step at tp = 1 (``distributed/step.py``)."""
+"""The distributed LM train step (``distributed/step.py``)."""
 from repro_torch.distributed.step import (
     MeshPlan,
     build_train_step_fn,
@@ -6,8 +6,9 @@ from repro_torch.distributed.step import (
     make_plan,
     make_train_step,
     round_privacy,
+    shard_seed_indices,
     train_seeds,
 )
 
 __all__ = ["MeshPlan", "make_plan", "make_train_step", "build_train_step_fn",
-           "encode_aggregate_decode", "round_privacy", "train_seeds"]
+           "encode_aggregate_decode", "round_privacy", "shard_seed_indices", "train_seeds"]

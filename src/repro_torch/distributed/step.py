@@ -1,6 +1,7 @@
 """The distributed LM train step (counterpart of
-``repro/distributed/step.py``), its train half at tp = 1: the paper's
-Algorithm 1 over client-parallel ranks.
+``repro/distributed/step.py``), its train half: the paper's Algorithm 1
+over client-parallel ranks, each client tensor-parallel over a model
+axis.
 
   * the ('pod', 'data') axes are the FEDERATED CLIENTS: one process a
     client, each computing its gradient on its rows of the global batch;
@@ -11,7 +12,12 @@ Algorithm 1 over client-parallel ranks.
     -> ``mech.quantize`` leaf by leaf (the rqm/pbm/qmgeo quantize
     kernels) -> an all_reduce of the levels over the client group ->
     ``mech.decode_sum``. The sum of integer levels IS the SecAgg
-    aggregation, the only cross-client collective of the step.
+    aggregation, the only cross-client collective of the step;
+  * the 'model' axis is Megatron-style tensor parallelism inside each
+    client: one process a model rank, explicit collectives in the layers
+    over the client's model group (``models/common.py``), the gradient
+    synced per ``Meta.sync`` (``models/meta.py``). Global rank = client
+    * tp + model index (``launch/mesh.py``).
 
 Beyond-paper option (``packed=True``): each leaf's levels cross the
 collective packed at the least safe field width (``core/secagg.py``, the
@@ -22,10 +28,11 @@ step's key, then the leaf index and the model-shard index, and draws
 each leaf's kernel seed from that key. The port's step takes this rank's
 per-leaf uint32 seeds instead, in the reference's leaf order
 (``convert.leaves``: sorted dict keys); ``train_seeds`` derives them as
-a pure function of (seed, step, client, leaf), so a resumed run needs no
-stored stream. The model axis (tp > 1), ZeRO-1, int16 aggregation,
-sequence parallelism and the serve steps are not ported (ROADMAP.md
-queue A items 12-14).
+a pure function of (seed, step, client, leaf, shard index), so a resumed
+run needs no stored stream. A leaf's shard index (``shard_seed_indices``)
+is shared by the ranks that hold the same copy of it, so that copies
+draw identical levels. ZeRO-1, int16 aggregation and the serve steps are
+not ported (ROADMAP.md queue A items 13-14).
 """
 from __future__ import annotations
 
@@ -50,24 +57,22 @@ from repro_torch.optim.optimizers import Optimizer
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
     """Binding of mesh axes to roles: ``dims`` over ``names`` (e.g.
-    ``(4, 1)`` over ``('data', 'model')``, ``(2, 2, 1)`` over ``('pod',
+    ``(4, 1)`` over ``('data', 'model')``, ``(2, 2, 2)`` over ``('pod',
     'data', 'model')``), the client axes spanned by the ranks of
-    ``group``. A model axis of size 1 (or none) is the pure
-    client-parallel plan; above 1 it is refused."""
+    ``group``, the model axis by those of ``model_groups.model``
+    (``launch/mesh.py:MeshGroups``). A model axis of size 1 (or none) is
+    the pure client-parallel plan."""
 
     dims: tuple
     names: tuple
     client_axes: tuple
     model_axis: Optional[str] = "model"
     group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
+    model_groups: Optional[object] = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if len(self.dims) != len(self.names):
             raise ValueError(f"mesh dims {self.dims} do not match axes {self.names}")
-        if self.tp != 1:
-            raise NotImplementedError(
-                f"a model axis of {self.tp} (tp > 1) is not ported yet: "
-                f"ROADMAP.md queue A item 12")
 
     @property
     def shape(self) -> dict:
@@ -83,21 +88,31 @@ class MeshPlan:
     def n_clients(self) -> int:
         return math.prod(self.shape[a] for a in self.client_axes)
 
-    def ctx(self) -> ParallelCtx:
-        return ParallelCtx(client_axes=self.client_axes, n_clients=self.n_clients,
-                           client_index=dist.get_rank(self.group), group=self.group)
+    def ctx(self, *, seq_parallel: bool = False) -> ParallelCtx:
+        if self.tp == 1:
+            return ParallelCtx(client_axes=self.client_axes, n_clients=self.n_clients,
+                               client_index=dist.get_rank(self.group), group=self.group)
+        g = self.model_groups
+        return ParallelCtx(model_axis=self.model_axis, tp=self.tp,
+                           client_axes=self.client_axes, n_clients=self.n_clients,
+                           client_index=g.client_index, group=self.group,
+                           model_group=g.model, model_rank=g.model_index,
+                           subgroups=g.subgroups, seq_parallel=seq_parallel)
 
 
 def make_plan(dims, device) -> MeshPlan:
     """The plan of a mesh of ``dims`` (named ``('pod', 'data', 'model')``
-    from the right), its client group made by
-    ``launch/mesh.py:client_group`` on ``device``."""
-    from repro_torch.launch.mesh import client_group
+    from the right), its groups made by ``launch/mesh.py`` on
+    ``device``: ``client_group`` at tp = 1, ``mesh_groups`` above."""
+    from repro_torch.launch.mesh import client_group, mesh_groups
 
     dims = tuple(int(d) for d in dims)
     names = ("pod", "data", "model")[-len(dims):]
     plan = MeshPlan(dims, names, tuple(a for a in names if a != "model"))
-    return dataclasses.replace(plan, group=client_group(plan.n_clients, device))
+    if plan.tp == 1:
+        return dataclasses.replace(plan, group=client_group(plan.n_clients, device))
+    groups = mesh_groups(plan.n_clients, plan.tp, device)
+    return dataclasses.replace(plan, group=groups.client, model_groups=groups)
 
 
 def round_privacy(mech: Mechanism, n_clients: int,
@@ -108,12 +123,31 @@ def round_privacy(mech: Mechanism, n_clients: int,
     return {float(a): float(mech.per_round_epsilon(n_clients, a)) for a in alphas}
 
 
-def train_seeds(seed: int, step: int, client: int, n_leaves: int) -> list:
+def train_seeds(seed: int, step: int, client: int, n_leaves: int, shards=None) -> list:
     """The uint32 kernel seeds of ``n_leaves`` leaves for one client at
     one step: word ``i`` of ``numpy.random.SeedSequence((seed, step,
-    client))``'s state, which depends on (seed, step, client, i) alone."""
-    words = np.random.SeedSequence((seed, step, client)).generate_state(n_leaves, np.uint32)
-    return [int(w) for w in words]
+    client))``'s state for a leaf of shard index 0, of ``SeedSequence((seed,
+    step, client, s))``'s for shard index ``s > 0`` (``shards``, one a
+    leaf, ``shard_seed_indices``; all 0 when None). A word depends on
+    (seed, step, client, i, s) alone; at shard index 0 it is the one a
+    plan without a model axis draws."""
+    shards = [0] * n_leaves if shards is None else [int(s) for s in shards]
+    if len(shards) != n_leaves:
+        raise ValueError(f"{len(shards)} shard indices for {n_leaves} leaves")
+    words = {s: np.random.SeedSequence((seed, step, client) + ((s,) if s else ()))
+             .generate_state(n_leaves, np.uint32) for s in set(shards)}
+    return [int(words[s][i]) for i, s in enumerate(shards)]
+
+
+def shard_seed_indices(meta_tree, ctx: ParallelCtx) -> list:
+    """Each leaf's seed-folding index on the model axis (the reference's
+    ``_shard_seed_index``): the model index for a sharded leaf (distinct
+    randomness a shard), ``model_index // sync`` for one duplicated over
+    aligned subgroups of ``sync``, 0 for a replicated one (identical
+    levels, so that the copies stay in sync); all 0 without a model
+    axis."""
+    mi = ctx.model_index()
+    return [mi // max(1, min(m.sync, ctx.tp)) for m in leaves(meta_tree)]
 
 
 def encode_aggregate_decode(grads: list, meta_tree, mech: Mechanism, ctx: ParallelCtx, seeds, *,
@@ -156,21 +190,28 @@ def build_train_step_fn(cfg: ModelConfig, mech: Mechanism, opt: Optimizer, lr_fn
                         ctx: ParallelCtx, *, packed: bool = False):
     """The per-rank train step ``train_step(params, opt_state, step,
     batch, seeds) -> (params, opt_state, metrics)``: float32 throughout,
-    no remat; ``batch`` is this rank's rows, ``seeds`` its per-leaf
-    kernel seeds, ``step`` an int. The metrics are 0-d tensors on the
-    device, read back by no one here."""
+    no remat; ``params`` are this rank's (its model slices), ``batch`` its
+    client's rows, ``seeds`` its per-leaf kernel seeds, ``step`` an int.
+    The metrics are 0-d tensors on the device, read back by no one here.
+
+    Over a model axis, as the reference: the gradient of ``loss / tp``
+    (psum's backward is psum, so every cotangent path that crosses a
+    model-axis psum carries one factor of tp, which the division cancels;
+    a replicated leaf whose paths cross none comes out at its true
+    gradient / tp, which its ``sync = tp`` psum in ``sync_grads``
+    restores), then ``sync_grads``, then the encode and the SecAgg sum
+    over the client group only."""
     meta_tree = model_lib.param_meta(cfg, tp=ctx.tp)
 
     def train_step(params, opt_state, step, batch, seeds):
         p_leaves = [p.detach().requires_grad_() for p in leaves(params)]
         with torch.enable_grad():
-            # the reference differentiates total / tp, a psum
-            # self-transpose correction under its manual shard_map: the
-            # identity at tp = 1
             total, aux = model_lib.loss_fn(map_leaves(lambda i, _: p_leaves[i], params),
                                            cfg, ctx, batch)
-            grads = list(torch.autograd.grad(total, p_leaves))
-        del p_leaves
+            loss = total / ctx.tp  # the psum self-transpose correction
+            grads = list(torch.autograd.grad(loss, p_leaves))
+        total = loss.detach() * ctx.tp
+        del p_leaves, loss
         grads = meta_lib.sync_grads(grads, meta_tree, ctx)  # TP corrections
         ghat = encode_aggregate_decode(grads, meta_tree, mech, ctx, seeds, packed=packed)
         ghat = map_leaves(lambda i, _: ghat[i], params)
@@ -178,7 +219,7 @@ def build_train_step_fn(cfg: ModelConfig, mech: Mechanism, opt: Optimizer, lr_fn
         del ghat
         # the three means in one collective
         means = ctx.pmean_clients(torch.stack(
-            [total.detach(), aux["ce_loss"].detach(), aux["moe_aux_loss"].detach()]))
+            [total, aux["ce_loss"].detach(), aux["moe_aux_loss"].detach()]))
         metrics = {"loss": means[0], "ce_loss": means[1], "moe_aux_loss": means[2]}
         return params, opt_state, metrics
 
@@ -188,12 +229,15 @@ def build_train_step_fn(cfg: ModelConfig, mech: Mechanism, opt: Optimizer, lr_fn
 def make_train_step(cfg: ModelConfig, plan: MeshPlan, mech: Mechanism, opt: Optimizer,
                     lr_fn, shape: InputShape, *, packed: bool = False):
     """The train step of this rank of ``plan``, called with the GLOBAL
-    batch of ``shape``: the rank takes its rows ``[r B/N, (r+1) B/N)``
-    (the reference's ``shard_map`` in_spec ``P(client_axes, None)``), and
-    a batch that does not divide over the N client ranks is refused.
-    Returns ``(step_fn, specs)``; ``specs`` holds the parameters' Meta
-    tree."""
-    ctx = plan.ctx()
+    batch of ``shape``: the rank takes its client's rows ``[c B/N, (c+1)
+    B/N)`` (the reference's ``shard_map`` in_spec ``P(client_axes,
+    None)``; every model rank of a client the same rows), and a batch
+    that does not divide over the N clients is refused. Sequence
+    parallelism is on whenever the model axis divides the sequence.
+    Returns ``(step_fn, specs)``; ``specs`` holds the
+    parameters' Meta tree (global shapes) and ``shard_seeds``, the
+    rank's per-leaf seed-folding indices (``train_seeds``' ``shards``)."""
+    ctx = plan.ctx(seq_parallel=plan.tp > 1 and shape.seq_len % plan.tp == 0)
     B, N = shape.global_batch, plan.n_clients
     if B % N:
         raise ValueError(f"global batch {B} does not divide over {N} client ranks "
@@ -204,4 +248,6 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan, mech: Mechanism, opt: Opti
     def step_fn(params, opt_state, step, batch, seeds):
         return body(params, opt_state, step, {k: v[lo:hi] for k, v in batch.items()}, seeds)
 
-    return step_fn, {"param_meta": model_lib.param_meta(cfg, tp=plan.tp)}
+    meta_tree = model_lib.param_meta(cfg, tp=plan.tp)
+    return step_fn, {"param_meta": meta_tree, "ctx": ctx,
+                     "shard_seeds": shard_seed_indices(meta_tree, ctx)}

@@ -24,12 +24,13 @@ def batch_to(batch: dict, device) -> dict:
 
 @torch.no_grad()
 def stream_ce(params: dict, cfg: ModelConfig, pipe: TokenPipeline, batches: int,
-              device) -> tuple[float, float]:
+              device, ctx: ParallelCtx = ParallelCtx()) -> tuple[float, float]:
     """Token-weighted mean CE over the pipeline's first ``batches``
-    batches, and the tokens it counted."""
+    batches, and the tokens it counted (over a model axis: ``params``
+    this rank's slices, every rank of ``ctx``'s model group calling)."""
     tot_ce, tot_tok = 0.0, 0.0
     for i in range(batches):
-        _, aux = model_lib.loss_fn(params, cfg, ParallelCtx(), batch_to(pipe.batch(i), device))
+        _, aux = model_lib.loss_fn(params, cfg, ctx, batch_to(pipe.batch(i), device))
         tot_ce += float(aux["ce_loss"]) * float(aux["n_tokens"])
         tot_tok += float(aux["n_tokens"])
     return tot_ce / max(tot_tok, 1.0), tot_tok

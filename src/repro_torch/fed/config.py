@@ -3,9 +3,7 @@
 Defaults follow the reference: ``FedConfig()`` is its default round, the
 materialized ``scan`` engine. ``validate_config`` makes the
 engine-independent checks (each engine's ``Engine.validate`` adds its
-own); settings of the reference that the port does not run yet are
-refused with NotImplementedError naming the ROADMAP.md item that carries
-them.
+own).
 """
 from __future__ import annotations
 
@@ -91,8 +89,11 @@ class FedConfig:
     shards: Optional[int] = None
     staging: str = "full"
     shard_packed: Optional[bool] = None
-    # > 1: the reference's 2-D client x model mesh for the lm task (not
-    # ported)
+    # > 1 extends the shard engine to a 2-D ("shard", "model") grid of
+    # shards * model_shards ranks: each client's gradient runs
+    # tensor-parallel over its shard's model_shards ranks, while the
+    # SecAgg sum still crosses only the shards (one client group a model
+    # index). Requires a task with supports_model_axis (the "lm" task).
     model_shards: int = 1
     # async engine (engine="async"; fed/async_engine.py): buffered
     # aggregation under a seeded arrival process. async_cadence updates
@@ -125,10 +126,6 @@ STAGINGS = ("full", "stream")
 SUBSAMPLINGS = ("fixed", "poisson")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
-
-
 def validate_config(cfg: FedConfig) -> None:
     """Engine-independent checks (``Engine.validate`` adds each engine's)."""
     if cfg.staging not in STAGINGS:
@@ -144,9 +141,6 @@ def validate_config(cfg: FedConfig) -> None:
         raise ValueError(
             "model_shards > 1 (the 2-D client x model mesh) requires "
             f"engine='shard', got engine={cfg.engine!r}")
-    if cfg.model_shards > 1:
-        raise _not_ported("model_shards > 1 (the lm task's 2-D client x model mesh)",
-                          "queue A item 12")
     if cfg.max_cohort is not None and cfg.subsampling != "poisson":
         raise ValueError("max_cohort only applies to subsampling='poisson'")
     if cfg.ckpt_every < 0:

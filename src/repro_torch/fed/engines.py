@@ -25,7 +25,9 @@ seed gives bit-identical parameters under any of them:
     slice of the cohort, and the integer level sums cross the ranks in
     one all_reduce, packed when the bound allows (``core/secagg.py``).
     Every round is accounted at the full cross-shard cohort. At one rank
-    it equals ``scan`` bit for bit.
+    it equals ``scan`` bit for bit. With ``model_shards > 1`` its ranks
+    form a 2-D grid and each shard's client gradients run
+    tensor-parallel over the shard's model ranks.
 
 Every engine carries the server optimizer's state beside the parameters.
 The fifth, ``async``, is ``fed/async_engine.py``.
@@ -368,7 +370,10 @@ class ShardEngine(_RoundEngine):
     chunks of ``cfg.scan_block`` rounds; with ``staging="stream"`` each
     chunk first stages this rank's slices of its cohorts. A Poisson slate
     is rounded up to a multiple of the ranks. Not captured: its round
-    crosses the ranks in a collective (ROADMAP.md queue A item 9)."""
+    crosses the ranks in a collective (ROADMAP.md queue A item 9). With
+    ``model_shards > 1`` the ranks form a 2-D grid of shards x model
+    shards, each shard's client gradients tensor-parallel over its model
+    ranks (``_bind_model_axis``)."""
 
     blocked = True
     supports_streaming = True
@@ -378,9 +383,13 @@ class ShardEngine(_RoundEngine):
     def __init__(self, trainer):
         super().__init__(trainer)
         tr, cfg = trainer, trainer.cfg
-        self.group = shard_group(cfg.shards, tr.device)
-        self.shards = dist.get_world_size(self.group)
-        self.rank = dist.get_rank(self.group)
+        self.model_shards = int(cfg.model_shards or 1)
+        if self.model_shards > 1:
+            self._bind_model_axis()
+        else:
+            self.group = shard_group(cfg.shards, tr.device)
+            self.shards = dist.get_world_size(self.group)
+            self.rank = dist.get_rank(self.group)
         tr.shards = self.shards
         if cfg.subsampling == "poisson":
             # round the slate up so that it splits evenly across the ranks
@@ -396,6 +405,28 @@ class ShardEngine(_RoundEngine):
         # the packing bound covers the worst case, the full slate
         if cfg.shard_packed:
             wire.check_packable(tr.mech.sum_bound(tr.slate), where="shard_packed=True: ")
+
+    def _bind_model_axis(self) -> None:
+        """The 2-D ("shard", "model") grid over the default group of shards
+        x model_shards ranks (``launch/mesh.py:mesh_groups``, model-minor):
+        the SecAgg sum crosses this rank's shard group (the ranks of its
+        model index) and carries only integer levels; the model axis runs
+        inside each client's gradient, over the task's ctx, which has no
+        client axes (a client's loss stays on its own shard)."""
+        from repro_torch.launch.mesh import mesh_groups
+        from repro_torch.models.common import ParallelCtx
+
+        tr, cfg, tp = self.tr, self.tr.cfg, self.model_shards
+        if not tr.task.supports_model_axis:
+            raise ValueError(f"model_shards={tp} needs a task with supports_model_axis; "
+                             f"task {tr.task.name!r} is single-shard only")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        shards = cfg.shards or max(1, world // tp)
+        groups = mesh_groups(shards, tp, tr.device)
+        self.group, self.shards, self.rank = groups.client, shards, groups.client_index
+        tr.task_ctx = ParallelCtx(model_axis="model", tp=tp, model_group=groups.model,
+                                  model_rank=groups.model_index, subgroups=groups.subgroups)
+        tr.task.bind_model_axis(tr.task_ctx)
 
     def build(self) -> None:
         tr = self.tr

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 from torch.func import grad, vmap
 
+from repro_torch.convert import leaves, map_leaves, ravel
 from repro_torch.core import secagg, wire
 from repro_torch.core.grid import GridGeometry
 from repro_torch.fed import cohort
@@ -81,7 +82,7 @@ def hot_path_pack_bits(mech, cfg, slate: int) -> int | None:
     return wire.sum_bits(bound) if wire.packable(bound) else None
 
 
-def make_client_grad(mech, unravel, task, cfg=None, *, per_row: bool = False):
+def make_client_grad(mech, unravel, task, cfg=None, *, per_row: bool = False, ctx=None):
     """Per-client releases of a cohort batch, ``client_grads(flat, batch)
     -> (clients, dim)``, ``vmap`` over the clients axis of every batch
     leaf: the clipped gradient (``local_steps`` 1, Algorithm 1), or the
@@ -90,14 +91,33 @@ def make_client_grad(mech, unravel, task, cfg=None, *, per_row: bool = False):
     vector a client a round, accounted the same. ``per_row``: ``flat`` is
     (clients, dim), row i the parameters client i computes at (the async
     engine's stale versions), mapped with the batch (``in_dims=(0, 0)``;
-    ``unravel`` slices each row into views, so no row is copied)."""
+    ``unravel`` slices each row into views, so no row is copied).
+
+    When ``ctx`` carries a model axis (the shard engine's 2-D grid, tp >
+    1; ``per_row`` is the async engine's, which has none) the gradient
+    runs tensor-parallel, client by client (the model axis's collectives
+    do not ``vmap``): the task shards the global
+    parameters, takes the gradient of its ``local_loss`` (``loss / tp``)
+    over its slices, then syncs and all-gathers it back to the global
+    layout (``gather_grads``), so that every model rank holds the same
+    global clipped vector and encodes it identically."""
     local_steps = cfg.local_steps if cfg is not None else 1
     local_lr = cfg.local_lr if cfg is not None else 0.0
+    tp = ctx is not None and ctx.model
 
-    def flat_loss(flat, batch):
-        return task.loss(unravel(flat), batch)
+    if tp:
+        def flat_grad(flat, batch):
+            tree = task.shard_params(unravel(flat), ctx)
+            local = [t.detach().requires_grad_() for t in leaves(tree)]
+            with torch.enable_grad():
+                loss = task.local_loss(map_leaves(lambda i, _: local[i], tree), batch, ctx)
+                g_local = list(torch.autograd.grad(loss, local))
+            return ravel(task.gather_grads(g_local, ctx))[0]
+    else:
+        def flat_loss(flat, batch):
+            return task.loss(unravel(flat), batch)
 
-    flat_grad = grad(flat_loss)
+        flat_grad = grad(flat_loss)
 
     def client_delta(flat, batch):
         cur = flat
@@ -105,8 +125,14 @@ def make_client_grad(mech, unravel, task, cfg=None, *, per_row: bool = False):
             cur = cur - local_lr * flat_grad(cur, batch)
         return flat - cur
 
-    per_client = vmap(flat_grad if local_steps <= 1 else client_delta,
-                      in_dims=(0 if per_row else None, 0))
+    one_client = flat_grad if local_steps <= 1 else client_delta
+    if tp:
+        def per_client(flat, batch):
+            n = next(iter(batch.values())).shape[0]
+            return torch.stack([one_client(flat, {k: v[i] for k, v in batch.items()})
+                                for i in range(n)])
+    else:
+        per_client = vmap(one_client, in_dims=(0 if per_row else None, 0))
 
     def client_grads(flat: torch.Tensor, batch: dict) -> torch.Tensor:
         return per_client(flat, batch).clamp(-mech.clip, mech.clip)

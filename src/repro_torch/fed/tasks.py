@@ -17,9 +17,9 @@ Two registered tasks, in the reference's order:
 
   * ``"emnist_cnn"`` (default): the paper's EMNIST setup;
   * ``"lm"``: federated private LM fine-tuning, per-client token batches
-    from ``data/lm.py`` through a reduced model-zoo config, at tp = 1.
-    Its model-axis hooks (the reference's 2-D client x model mesh,
-    ``model_shards > 1``) are ROADMAP.md queue A item 12.
+    from ``data/lm.py`` through a reduced model-zoo config; with
+    ``model_shards > 1`` each client's gradient runs tensor-parallel
+    (the model-axis hooks below, bound by the shard engine).
 """
 from __future__ import annotations
 
@@ -118,6 +118,12 @@ class ClientTask:
         raise NotImplementedError
 
     # -- model-axis hooks (2-D mesh; tp > 1) ---------------------------------
+    # bind_model_axis(ctx): the model axis (a ParallelCtx without client
+    # axes) the task's gradient runs over; shard_params(params, ctx): a
+    # global params tree -> this rank's slices; local_loss(local, batch,
+    # ctx): the loss over them, divided by tp; gather_grads(local_grads,
+    # ctx): the synced local gradient leaves -> the global tree, the same
+    # on every model rank
     def bind_model_axis(self, ctx) -> None:
         raise ValueError(
             f"task {self.name!r} does not support a model axis "
@@ -177,12 +183,6 @@ class EmnistCnnTask(ClientTask):
         return {"accuracy": float(acc), "loss": float(loss)}
 
 
-def _model_axis_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "the lm task's model axis (model_shards > 1, the 2-D client x model mesh) "
-        "is not ported yet: ROADMAP.md queue A item 12")
-
-
 @register_task("lm")
 class LmTask(ClientTask):
     """Federated private LM fine-tuning over the model zoo.
@@ -215,11 +215,15 @@ class LmTask(ClientTask):
                                    seed=cfg.seed, branch=int(branch))
         self._eval_pipe = TokenPipeline(self.model_cfg, self.seq_len, self.eval_batch,
                                         seed=int(eval_seed), branch=int(branch))
+        self.tp = 1
+        self._ctx = None
+        self._meta = None
 
     def init_params(self, generator: torch.Generator) -> dict:
+        """The global tree at the bound tp (``bind_model_axis``)."""
         from repro_torch.models import model as model_lib
 
-        return model_lib.init_params(generator, self.model_cfg, device=self.device)
+        return model_lib.init_params(generator, self.model_cfg, device=self.device, tp=self.tp)
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         from repro_torch.models import model as model_lib
@@ -231,11 +235,49 @@ class LmTask(ClientTask):
         return self._pipe.batch(int(cid))
 
     def evaluate(self, flat: torch.Tensor, unravel) -> dict:
+        """Over a model axis every model rank evaluates its slices
+        together."""
         from repro_torch.eval.lm_eval import perplexity, stream_ce
+        from repro_torch.models.common import ParallelCtx
 
-        ce, tokens = stream_ce(unravel(flat), self.model_cfg, self._eval_pipe,
-                               self.eval_batches, self.device)
+        params, ctx = unravel(flat), ParallelCtx()
+        if self.tp > 1:
+            params, ctx = self.shard_params(params, self._ctx), self._ctx
+        ce, tokens = stream_ce(params, self.model_cfg, self._eval_pipe, self.eval_batches,
+                               self.device, ctx)
         return {"loss": ce, "ppl": perplexity(ce), "eval_tokens": tokens}
 
-    # the 2-D ("shard", "model") mesh's hooks
-    bind_model_axis = shard_params = local_loss = gather_grads = _model_axis_not_ported
+    # -- model-axis hooks (the shard engine's 2-D ("shard", "model") grid) ---
+    def bind_model_axis(self, ctx) -> None:
+        from repro_torch.models import model as model_lib
+
+        self._ctx = ctx
+        self.tp = int(ctx.tp)
+        self._meta = model_lib.param_meta(self.model_cfg, tp=self.tp)
+
+    def shard_params(self, params, ctx):
+        """GLOBAL param tree -> this model rank's LOCAL slices (views),
+        the layout the train step's ranks hold (``meta.shard_leaf``)."""
+        from repro_torch.models import meta as meta_lib
+
+        return meta_lib.shard_tree(params, self._meta, ctx.tp, ctx.model_index())
+
+    def local_loss(self, local_params, batch, ctx):
+        """Tensor-parallel loss over LOCAL params, divided by tp (the train
+        step's psum self-transpose correction, so that ``gather_grads``'s
+        sync sums the replicated leaves' partials to their gradient)."""
+        from repro_torch.models import model as model_lib
+
+        return model_lib.loss_fn(local_params, self.model_cfg, ctx, batch)[0] / ctx.tp
+
+    def gather_grads(self, local_grads: list, ctx):
+        """LOCAL gradient leaves (``convert.leaves`` order) -> the GLOBAL
+        tree, identical on every model rank: ``sync_grads`` (psum for a
+        replicated leaf, the subgroup sum for a duplicated one), then a
+        tiled all_gather along each leaf's model dim."""
+        from repro_torch.convert import map_leaves
+        from repro_torch.models import meta as meta_lib
+
+        grads = meta_lib.sync_grads(local_grads, self._meta, ctx)
+        return meta_lib.gather_tree(map_leaves(lambda i, _: grads[i], self._meta),
+                                    self._meta, ctx)

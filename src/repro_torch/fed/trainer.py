@@ -63,6 +63,14 @@ class FedTrainer:
         self.tracker = make_tracker(tracker if tracker is not None else fed_cfg.track)
         self.timings = Timings()
         self.task = make_task(fed_cfg.task, fed_cfg, self.device)
+        # the engine may claim process groups, bind a model axis onto the
+        # task (the shard engine's 2-D grid: task_ctx) and set the slate
+        # (the shard engine rounds it to its ranks, the async engine makes
+        # it its cadence) before the parameters are drawn and anything is
+        # staged or built
+        self.shards = 1  # the shard engine sets its rank count
+        self.task_ctx = None
+        self.engine = engine_cls(self)
         self.flat, self.unravel = ravel(
             self.task.init_params(torch.Generator().manual_seed(fed_cfg.seed)))
         # the round stream: each round's cohort, its kernel seed, its mask
@@ -85,13 +93,8 @@ class FedTrainer:
         self.realized_n: list = []
         self.round_extras: list = []
         self._last_ckpt: Optional[int] = None
-        self.shards = 1  # the shard engine sets its rank count
         self.staged_bytes_total = 0
         self.staged_bytes_last_block = 0
-        # the engine may claim a process group and set the slate (the
-        # shard engine rounds it to its ranks, the async engine makes it
-        # its cadence) before anything is staged or built
-        self.engine = engine_cls(self)
         self.pack_bits = rounds.hot_path_pack_bits(self.mech, fed_cfg, self.slate)
         self.client_data = None  # streamed staging stages each block's cohorts
         if self.engine.stages_population and fed_cfg.staging != "stream":
@@ -99,7 +102,7 @@ class FedTrainer:
                 self.client_data, self.staged_bytes_total = staging.stage_full(
                     self.task, fed_cfg, self.device)
         self.client_grads = rounds.make_client_grad(self.mech, self.unravel, self.task,
-                                                    fed_cfg)
+                                                    fed_cfg, ctx=self.task_ctx)
         self.engine.build()
         self._emitter = RoundEmitter(
             self.tracker, engine=fed_cfg.engine, mechanism=self.mech,

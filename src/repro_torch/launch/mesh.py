@@ -1,6 +1,6 @@
-"""The client process groups of the shard engine and of the LM train
-step's client-parallel plans (counterpart of ``repro/launch/mesh.py``'s
-``make_shard_mesh`` and ``compat_make_mesh`` at tp = 1).
+"""The process groups of the shard engine and of the LM train step's
+plans (counterpart of ``repro/launch/mesh.py``'s ``make_shard_mesh``,
+``make_fed_mesh`` and ``compat_make_mesh``).
 
 The reference spans a device mesh inside one program. The port runs one
 process per rank, as ``torch.distributed`` does: the caller starts the
@@ -10,6 +10,19 @@ and each client rank of a plan its levels, over that group. A single
 rank needs no launcher: with no default group, ``shard_group`` and
 ``client_group`` create a one-rank group on an in-memory ``HashStore``
 (no sockets), once, and reuse it.
+
+A plan with a model axis (``mesh_groups``) splits the default group of
+``n_clients * tp`` ranks into a 2-D grid ordered model-minor, as the
+reference orders a mesh's devices: global rank = client_linear * tp +
+model_index. Every rank creates, in the same order, one model group per
+client, one client group per model index, and the aligned model-axis
+subgroups of each power-of-two size between 1 and tp
+(``ParallelCtx.subgroup_psum``).
+
+Backend: ``backend(device, world)``. On the CPU gloo; on CUDA NCCL when
+every rank has a card of its own, and gloo when the ranks outnumber the
+visible cards (NCCL refuses two ranks on one device). Gloo then works on
+the CUDA tensors themselves: no collective moves them to the CPU.
 """
 from __future__ import annotations
 
@@ -20,8 +33,62 @@ import torch.distributed as dist
 _created: str | None = None
 
 
-def _backend(device: torch.device) -> str:
-    return "cpu:gloo,cuda:nccl" if device.type == "cuda" else "gloo"
+def backend(device, world: int) -> str:
+    """The backend of a default group of ``world`` ranks on ``device``:
+    gloo on the CPU or when the ranks outnumber the visible cards (they
+    share one), else NCCL for CUDA tensors and gloo for CPU ones."""
+    device = torch.device(device)
+    if device.type != "cuda" or world > torch.cuda.device_count():
+        return "gloo"
+    return "cpu:gloo,cuda:nccl"
+
+
+class MeshGroups:
+    """The groups of a 2-D plan on this rank: ``client`` (the ranks of its
+    model index), ``model`` (its client's ranks), ``subgroups`` (``((size,
+    group), ...)``, its aligned model-axis subgroups), and its
+    ``client_index`` and ``model_index``."""
+
+    def __init__(self, client, model, subgroups, client_index: int, model_index: int):
+        self.client, self.model, self.subgroups = client, model, subgroups
+        self.client_index, self.model_index = client_index, model_index
+
+
+def mesh_groups(n_clients: int, tp: int, device) -> MeshGroups:
+    """The groups of a plan of ``n_clients`` clients of ``tp`` model
+    ranks each over the default group, whose world size must be
+    ``n_clients * tp`` (see the module docstring)."""
+    world = n_clients * tp
+    if not dist.is_initialized() or dist.get_world_size() != world:
+        have = (f"the default process group has {dist.get_world_size()}"
+                if dist.is_initialized() else "no default process group exists")
+        raise ValueError(
+            f"a plan of {n_clients} clients x {tp} model ranks wants {world} ranks, but "
+            f"{have}: launch {world} processes, e.g. torchrun --nproc-per-node {world} -m "
+            f"repro_torch.launch.train --mesh-shape {n_clients}x{tp} ..., or call "
+            f"torch.distributed.init_process_group(...) in each")
+    rank = dist.get_rank()
+    client_index, model_index = divmod(rank, tp)
+    mine = {}
+    for c in range(n_clients):  # one model group a client
+        g = dist.new_group([c * tp + j for j in range(tp)])
+        if c == client_index:
+            mine["model"] = g
+    for j in range(tp):  # one client group a model index
+        g = dist.new_group([c * tp + j for c in range(n_clients)])
+        if j == model_index:
+            mine["client"] = g
+    subgroups = []
+    size = 2
+    while size < tp:  # aligned blocks of each power-of-two size
+        for c in range(n_clients):
+            for b in range(tp // size):
+                g = dist.new_group([c * tp + b * size + k for k in range(size)])
+                if c == client_index and b == model_index // size:
+                    subgroups.append((size, g))
+        size *= 2
+    return MeshGroups(mine["client"], mine["model"], tuple(subgroups), client_index,
+                      model_index)
 
 
 def _group(ranks: int | None, device, who: str, start: str) -> dist.ProcessGroup:
@@ -50,9 +117,10 @@ def _group(ranks: int | None, device, who: str, start: str) -> dist.ProcessGroup
         device_id = torch.device("cuda", index)
     else:
         device_id = None
-    dist.init_process_group(_backend(device), store=dist.HashStore(), rank=0,
+    name = backend(device, 1)
+    dist.init_process_group(name, store=dist.HashStore(), rank=0,
                             world_size=1, device_id=device_id)
-    _created = _backend(device)
+    _created = name
     return dist.group.WORLD
 
 

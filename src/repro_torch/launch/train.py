@@ -8,23 +8,33 @@ Three modes:
     rate, at full width on the card:
       PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \\
           --steps 3 --batch 2 --seq 256
-  * client-parallel run: ``--mesh-shape N`` (sugar for ``Nx1``, data x
-    model) or ``PxDx1`` (pod x data x model; a model axis above 1 is
-    ROADMAP.md queue A item 12) makes each of the client processes one
-    rank of a ``torch.distributed`` group, summing its levels over it:
+  * mesh run: ``--mesh-shape N`` (sugar for ``Nx1``, data x model),
+    ``DxM`` or ``PxDxM`` (pod x data x model) makes each process one rank
+    of a ``torch.distributed`` group of D (P x D) clients of M model
+    ranks, rank = client * M + model index: a client's M ranks run its
+    gradient tensor-parallel, and the clients sum their levels over the
+    ranks of one model index:
       torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
-          --mesh-shape 4 --arch mamba2-370m --reduced --steps 4 --batch 4 --seq 32
+          --mesh-shape 2x2 --arch mamba2-370m --reduced --steps 4 --batch 4 --seq 32
+    On the card each rank takes ``cuda:(LOCAL_RANK mod the visible
+    cards)``; ranks that outnumber the cards share them over gloo, on the
+    CUDA tensors (``launch/mesh.py:backend``; NCCL refuses two ranks on
+    one device), and the run's header names the backend:
+      torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh-shape 1x2 \\
+          --arch gemma3-4b --steps 3 --batch 2 --seq 256
     One rank (``--mesh-shape 1``) needs no launcher: the group is made in
     process (NCCL on the card).
   * federated run: ``--fed-lm`` trains the same reduced config as the
     'lm' client task through a ``FedTrainer`` (docs/lm_federated.md).
 
 Seeds, not keys: each step's per-leaf kernel seeds are a pure function
-of (``--seed``, step, client rank, leaf), so ``--resume`` restores
+of (``--seed``, step, client rank, leaf, shard index), so ``--resume`` restores
 {params, opt, server_opt_fp} from ``--ckpt-dir`` and needs no stored
 stream. A checkpoint of the reference's launcher does not resume here:
-its key stream differs from these seeds by design. Only rank 0 prints,
-tracks and saves; every rank restores. Compute is float32 without TF32
+its key stream differs from these seeds by design. A checkpoint holds
+the global parameters and optimizer state, gathered over the model axis:
+it resumes at any tp whose layouts are the same. Only rank 0 prints,
+tracks and saves; every rank restores (its slices). Compute is float32 without TF32
 or remat.
 """
 from __future__ import annotations
@@ -52,6 +62,8 @@ from repro_torch.distributed.step import (
     train_seeds,
 )
 from repro_torch.eval.lm_eval import batch_to
+from repro_torch.launch.mesh import backend
+from repro_torch.models import meta as meta_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import ParallelCtx
 from repro_torch.optim import make_optimizer
@@ -95,8 +107,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh-shape", default=None,
                     help="e.g. 2x1 => (data,model); 2x2x1 => (pod,data,model); "
                          "a single number N is sugar for Nx1: pure client "
-                         "parallelism over (data,) with a trivial model axis "
-                         "(a model axis above 1 is not ported)")
+                         "parallelism over (data,) with a trivial model axis; "
+                         "1x2: one client tensor-parallel over 2 ranks")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true",
@@ -126,21 +138,23 @@ def _parser() -> argparse.ArgumentParser:
                     help="--fed-lm shard-engine client shards")
     ap.add_argument("--model-shards", type=int, default=1,
                     help="--fed-lm tensor-parallel model shards (above 1: "
-                         "not ported)")
+                         "--fed-engine shard over shards x model-shards ranks)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
 
 def _device(name: str) -> torch.device:
-    """``--device``; under torchrun, a cuda rank takes its local card."""
+    """``--device``; under torchrun, a cuda rank takes its local card
+    (its local rank modulo the visible cards: ranks share cards when they
+    outnumber them)."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("--device cuda but torch.cuda.is_available() is False; "
                                "pass --device cpu to run the plain PyTorch versions")
         if device.index is None:
-            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
-                                                              torch.cuda.current_device())))
+            local = int(os.environ.get("LOCAL_RANK", torch.cuda.current_device()))
+            device = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(device)
     return device
 
@@ -148,11 +162,12 @@ def _device(name: str) -> torch.device:
 def _init_from_env(device: torch.device) -> None:
     """Join the default process group that torchrun's environment
     describes (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), if any."""
-    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dist.is_initialized() or world <= 1:
         return
-    backend = "cpu:gloo,cuda:nccl" if device.type == "cuda" else "gloo"
-    dist.init_process_group(backend, init_method="env://",
-                            device_id=device if device.type == "cuda" else None)
+    name = backend(device, world)
+    dist.init_process_group(name, init_method="env://",
+                            device_id=device if "nccl" in name else None)
 
 
 def main(argv=None) -> dict:
@@ -173,9 +188,13 @@ def main(argv=None) -> dict:
         _init_from_env(device)
         plan = make_plan(dims, device)
     n_clients = plan.n_clients if plan else 1
-    client = plan.ctx().client_index if plan else 0
-    lead = client == 0
+    ctx = plan.ctx() if plan else ParallelCtx()
+    client = ctx.client_index
+    lead = client == 0 and ctx.model_index() == 0
     say = print if lead else (lambda *a, **k: None)
+    if plan is not None:
+        say(f"[mesh] {dict(plan.shape)}: {n_clients} client(s) x tp {plan.tp} on "
+            f"{device.type}, backend {dist.get_backend()}")
     if args.target_eps is not None:
         # Backwards mode: solve for the mechanism from the privacy budget
         # (privacy/calibrate.py) instead of specifying the knob by hand.
@@ -224,17 +243,23 @@ def main(argv=None) -> dict:
         "server_opt": args.server_opt, "mesh": args.mesh_shape,
         "per_step_eps_alpha8": eps, "backend": device.type,
     })
+    shards = None  # the per-leaf seed-folding indices
     if plan is not None:
-        step_fn, _ = make_train_step(cfg, plan, mech, opt, lr_fn, shape, packed=args.packed)
+        step_fn, specs = make_train_step(cfg, plan, mech, opt, lr_fn, shape,
+                                         packed=args.packed)
+        ctx, shards = specs["ctx"], specs["shard_seeds"]
     else:
-        step_fn = build_train_step_fn(cfg, mech, opt, lr_fn, ParallelCtx(),
-                                      packed=args.packed)
+        step_fn = build_train_step_fn(cfg, mech, opt, lr_fn, ctx, packed=args.packed)
+    # every rank draws the global tree leaf by leaf and keeps its slices
     params = model_lib.init_params(torch.Generator(device).manual_seed(args.seed + 1), cfg,
-                                   device=device)
+                                   device=device, tp=ctx.tp,
+                                   keep=meta_lib.slicer(ctx.tp, ctx.model_index()))
     opt_state = opt.init(params)
-    params, opt_state, start = _maybe_resume(args, params, opt_state, say)
+    meta = model_lib.param_meta(cfg, tp=ctx.tp)
+    params, opt_state, start = _maybe_resume(args, params, opt_state, say, meta, ctx)
     out = _loop(args, pipe, step_fn, params, opt_state, start, device=device,
-                client=client, lead=lead, tracker=tracker, mech_desc=mech.describe())
+                client=client, lead=lead, tracker=tracker, mech_desc=mech.describe(),
+                shards=shards, meta=meta, ctx=ctx)
     return {**out, "mechanism": mech}
 
 
@@ -261,6 +286,9 @@ def _fed_lm(args, ap):
         args.mechanism, c=args.clip, m=args.m, q=args.q,
         delta_ratio=args.delta_ratio,
     )
+    # the shard engine's ranks (shards x model shards) under torchrun
+    device = _device(args.device)
+    _init_from_env(device)
     task = (f"lm:model={args.arch},seq_len={args.seq},"
             f"batch={args.batch}")
     cfg = FedConfig(
@@ -270,9 +298,11 @@ def _fed_lm(args, ap):
         shards=args.fed_shards, model_shards=args.model_shards,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
     )
-    tr = FedTrainer(mech, cfg, device=args.device, tracker=make_tracker(args.track))
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    tr = FedTrainer(mech, cfg, device=device, tracker=make_tracker(args.track if lead else None))
     eps = tr.per_round_eps[0] if len(tr.per_round_eps) else float("nan")
-    print(f"[fed-lm] task={tr.task.spec()} engine={cfg.engine} "
+    say = print if lead else (lambda *a, **k: None)
+    say(f"[fed-lm] task={tr.task.spec()} engine={cfg.engine} "
           f"dim={int(tr.flat.numel())} cohort={args.cohort}/{args.clients} "
           f"per-round eps(alpha={cfg.accountant_alphas[0]:g})={eps:.4f}")
     start = 0
@@ -280,8 +310,8 @@ def _fed_lm(args, ap):
         if not args.ckpt_dir:
             raise SystemExit("--resume requires --ckpt-dir")
         start = tr.restore_checkpoint()
-        print(f"[resume] restored round {start} from {args.ckpt_dir}")
-    records = tr.train(rounds=args.steps - start, eval_every=max(args.log_every, 1))
+        say(f"[resume] restored round {start} from {args.ckpt_dir}")
+    records = tr.train(rounds=args.steps - start, eval_every=max(args.log_every, 1), log=say)
     return {"trainer": tr, "records": records}
 
 
@@ -293,12 +323,33 @@ def _opt_fingerprint(server_opt: str) -> np.ndarray:
                          np.uint8)
 
 
-def _maybe_resume(args, params, opt_state, say):
+def _global_state(tree, meta, ctx, fn):
+    """``fn(params_tree, meta, ctx)`` applied to the params tree and to
+    each of the optimizer state's params-shaped entries (adam's and
+    momentum's ``m``, ``v``; sgd's ``()`` and adam's ``t`` as they are)."""
+    if isinstance(tree, dict) and set(tree) == set(meta):
+        return fn(tree, meta, ctx)
+    if isinstance(tree, dict):
+        return {k: _global_state(v, meta, ctx, fn) for k, v in tree.items()}
+    return tree
+
+
+def _shard_to(device):
+    def shard(tree, meta, ctx):
+        return meta_lib.tree_map(
+            lambda m, t: meta_lib.shard_leaf(t, m, ctx.tp, ctx.model_index()).to(
+                device, copy=True),
+            meta, tree)
+    return shard
+
+
+def _maybe_resume(args, params, opt_state, say, meta, ctx):
     """--resume: restore {params, opt} from the latest checkpoint in
     --ckpt-dir; the kernel seeds derive from the step and the data
     pipeline is stateless per step, so the continuation matches the
-    uninterrupted run exactly. Every rank restores. Returns the (possibly
-    restored) state and the start step."""
+    uninterrupted run exactly. Every rank restores: over a model axis the
+    global trees, on the host, of which it keeps its slices. Returns the
+    (possibly restored) state and the start step."""
     if not args.resume:
         return params, opt_state, 0
     if not args.ckpt_dir:
@@ -328,13 +379,22 @@ def _maybe_resume(args, params, opt_state, say):
             f"pass the original optimizer (continuing with another would "
             f"silently diverge from the uninterrupted run)"
         )
-    tree = restore(args.ckpt_dir, step0, {"params": params, "opt": opt_state})
+    like = {"params": params, "opt": opt_state}
+    if ctx.model:
+        # the checkpoint's global shapes, on the host (adam's step count
+        # stays as it is, on the device)
+        like = _global_state(like, meta, ctx, lambda t, m, _: meta_lib.tree_map(
+            lambda mm, leaf: torch.empty(mm.shape, dtype=leaf.dtype), m, t))
+    tree = restore(args.ckpt_dir, step0, like)
+    if ctx.model:
+        device = leaves(params)[0].device
+        tree = _global_state(tree, meta, ctx, _shard_to(device))
     say(f"[resume] restored step {step0} from {args.ckpt_dir}")
     return tree["params"], tree["opt"], step0
 
 
 def _loop(args, pipe, step_fn, params, opt_state, start=0, *, device, client, lead,
-          tracker=None, mech_desc="") -> dict:
+          tracker=None, mech_desc="", shards=None, meta=None, ctx=None) -> dict:
     """Steps ``start`` to ``--steps``; returns the final ``params``,
     ``opt_state`` and ``metrics`` (floats) and the per-step ``losses``
     (read back once, at the end, unless a tracker or a log line reads
@@ -349,7 +409,7 @@ def _loop(args, pipe, step_fn, params, opt_state, start=0, *, device, client, le
         ts = time.perf_counter()
         with timings.scope("step"):
             batch = batch_to(pipe.batch(step), device)
-            seeds = train_seeds(args.seed, step, client, n_leaves)
+            seeds = train_seeds(args.seed, step, client, n_leaves, shards)
             params, opt_state, metrics = step_fn(params, opt_state, step, batch, seeds)
             if tracked:
                 # reading metrics blocks on the step: the tracked rate is
@@ -372,10 +432,14 @@ def _loop(args, pipe, step_fn, params, opt_state, start=0, *, device, client, le
             rate = (step + 1 - start) * args.batch * args.seq / (time.time() - t0)
             print(f"step {step+1:5d} loss={m['loss']:.4f} ce={m['ce_loss']:.4f} "
                   f"tok/s={rate:,.0f}", flush=True)
-        if lead and args.ckpt_dir and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-            save(args.ckpt_dir, step + 1,
-                 {"params": params, "opt": opt_state,
-                  "server_opt_fp": _opt_fingerprint(args.server_opt)})
+        if args.ckpt_dir and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            tree = {"params": params, "opt": opt_state}
+            if ctx is not None and ctx.model and client == 0:
+                # the global trees: every model rank of client 0 gathers
+                tree = _global_state(tree, meta, ctx, meta_lib.gather_tree)
+            if lead:
+                save(args.ckpt_dir, step + 1,
+                     {**tree, "server_opt_fp": _opt_fingerprint(args.server_opt)})
     if tracked:
         tracker.log_timings(timings.summary())
     tracker.close()

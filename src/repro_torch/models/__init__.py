@@ -1,2 +1,3 @@
-"""The model zoo's layers and assembly at tp = 1 (counterpart of
-``repro/models/``): the training forward and loss only."""
+"""The model zoo's layers and assembly (counterpart of ``repro/models/``):
+the training forward and loss, tensor-parallel over a model axis, and
+greedy serving at tp = 1."""

@@ -1,5 +1,6 @@
-"""GQA attention (counterpart of ``repro/models/attention.py``), at tp = 1:
-the chunked causal forward (training and prefill) and the KV-cache decode.
+"""GQA attention (counterpart of ``repro/models/attention.py``): the
+chunked causal forward (training and prefill), tensor-parallel over the
+model axis, and the KV-cache decode.
 
 Plain PyTorch ops mirroring the reference's einsums, with its masking as
 written: scores masked to ``NEG_INF = -1e30`` (not -inf, so that a fully
@@ -15,8 +16,12 @@ Where the reference's ``dynamic_update_slice`` returns new caches,
 ``decode`` writes the new token into the cache's buffers IN PLACE (a
 step at full width would otherwise copy every cache) and returns the
 same dict: a cache is not to be reused after the step that wrote it.
-Flash-decoding over a sequence-sharded cache (``seq_sharded=True``) is
-ROADMAP.md queue A item 13.
+Over a model axis of tp, a rank holds ``q_local`` query heads and
+``kv_local`` KV heads (``plan_attn_sharding``); where the heads do not
+cover the axis, the global parameters hold each slice ``dup_attn``
+(``dup_kv``) times, and the out-projection's psum is divided by
+``dup_attn``. Flash-decoding over a sequence-sharded cache
+(``seq_sharded=True``) is ROADMAP.md queue A item 13.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import torch.nn.functional as F
 from repro_torch.models.common import (
     AttnSharding, ParallelCtx, apply_rope, dense_init, plan_attn_sharding, squeeze_tp,
 )
-from repro_torch.models.meta import Meta, check_tp
+from repro_torch.models.meta import Meta
 
 NEG_INF = -1e30
 
@@ -59,25 +64,38 @@ def plan(spec: AttentionSpec, tp: int) -> AttnSharding:
     return plan_attn_sharding(spec.num_heads, spec.num_kv_heads, tp)
 
 
-def init_params(generator: torch.Generator, spec: AttentionSpec, device="cuda") -> dict:
-    """The reference's parameter layouts at tp = 1."""
+def init_params(generator: torch.Generator, spec: AttentionSpec, device="cuda", tp: int = 1,
+                keep=None) -> dict:
+    """The reference's global parameters at ``tp``: distinct content per
+    ``tp_attn`` query slice (``kv_shards`` KV slice), repeated over the
+    duplicates. ``keep(t, meta)``, if given, takes each leaf as it is
+    drawn (``meta.slicer``: a rank's slice)."""
+    sh = plan(spec, tp)
+    meta = param_meta(spec, tp)
     D, hd = spec.d_model, spec.head_dim
-    q_dim, kv_dim = spec.num_heads * hd, spec.num_kv_heads * hd
 
-    def init(shape, in_axis):
-        return dense_init(generator, shape, in_axis=in_axis, device=device)
+    def init(name, shape, in_axis, repeat, axis):
+        t = dense_init(generator, shape, in_axis=in_axis, device=device)
+        if repeat > 1:
+            t = t.repeat_interleave(repeat, dim=axis)
+        return t if keep is None else keep(t, meta[name])
 
-    p = {"wq": init((D, 1, q_dim), 0), "wkv": init((D, 1, kv_dim * 2), 0),
-         "wo": init((1, q_dim, D), 1)}
+    def zeros(name):
+        t = torch.zeros(meta[name].shape, device=device)
+        return t if keep is None else keep(t, meta[name])
+
+    p = {"wq": init("wq", (D, sh.tp_attn, sh.q_local * hd), 0, sh.dup_attn, 1),
+         "wkv": init("wkv", (D, sh.kv_shards, sh.kv_local * hd * 2), 0,
+                     sh.dup_kv * sh.dup_attn, 1),
+         "wo": init("wo", (sh.tp_attn, sh.q_local * hd, D), 1, sh.dup_attn, 0)}
     if spec.qkv_bias:
-        p["bq"] = torch.zeros((1, q_dim), device=device)
-        p["bkv"] = torch.zeros((1, kv_dim * 2), device=device)
+        p["bq"] = zeros("bq")
+        p["bkv"] = zeros("bkv")
     return p
 
 
 def param_meta(spec: AttentionSpec, tp: int = 1) -> dict:
     """Mirrors init_params: (global_shape, dtype, pspec, sync_group)."""
-    check_tp(tp)
     sh = plan(spec, tp)
     D, hd = spec.d_model, spec.head_dim
     m = {

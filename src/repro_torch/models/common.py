@@ -3,15 +3,30 @@
 The reference runs its layers inside a manual ``shard_map`` over a
 (pod, data, model) mesh; on one device it passes a ``ParallelCtx`` with
 ``model_axis=None`` and every collective is the identity. The port runs
-the model axis at tp = 1 only: the tensor-parallel mesh, with its psums
-and the compressed sequence-parallel all-gather, is ROADMAP.md queue A
-item 12. Parameter layouts keep the reference's leading ``tp`` axes (of
-size 1), so a parameter tree carries across unchanged.
+one process a rank, as ``torch.distributed`` does: the federated-client
+axes ('pod', 'data') are the ranks of the clients' process group,
+linearized pod-major (``distributed/step.py:MeshPlan``), and the model
+axis (Megatron-style tensor parallelism, tp > 1) the ranks of a model
+group, one per client (``launch/mesh.py:mesh_groups``). Parameter layouts
+keep the reference's leading ``tp`` axes, of size 1 on a rank.
 
-The client half is ported: the federated-client axes ('pod', 'data')
-are the ranks of a ``torch.distributed`` process group, one process a
-rank, linearized pod-major (``distributed/step.py:MeshPlan``), and
-``psum_clients``/``pmean_clients`` are all_reduces over it.
+The model-axis collectives carry the reference's transposes under its
+``check_vma=False``, where a replicated value is not tracked: the
+backward of psum is psum, of the tiled all_gather the psum_scatter, of
+psum_scatter the tiled all_gather, and of the sequence slice the zero
+padding (plain autograd of the slice). ``torch.distributed`` collectives
+carry no gradient of their own, hence the ``autograd.Function``s below.
+The reference's train step differentiates ``loss / tp`` against that
+arithmetic (``distributed/step.py``), which the port repeats.
+
+GQA head duplication: where an architecture's Q or KV head count does not
+cover the model axis, parameter slices are duplicated across contiguous
+power-of-two subgroups of the model axis; the forward divides the
+out-projection psum by the duplication factor, and the duplicates'
+gradients are summed over their subgroup (``subgroup_psum``) in the
+reference's recursive-doubling order, so the copies stay bit-identical.
+The compressed sequence-parallel all-gather (``sp_compress``) is
+ROADMAP.md queue A item 14.
 """
 from __future__ import annotations
 
@@ -23,14 +38,99 @@ import torch
 import torch.distributed as dist
 
 
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def _gather(x: torch.Tensor, group, size: int) -> list:
+    """The ``size`` ranks' ``x`` of ``group``, in rank order."""
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return parts
+
+
+def _all_gather(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (the
+    reference's tiled all_gather)."""
+    return torch.cat(_gather(x, group, size), dim=dim)
+
+
+def _reduce_scatter(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` summed, and this rank's block of ``dim`` (the
+    reference's tiled psum_scatter)."""
+    chunks = [c.contiguous() for c in x.detach().chunk(size, dim)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    """psum over ``group``; its backward is psum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled all_gather along ``dim``; its backward is the psum_scatter."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, dim):
+        ctx.group, ctx.size, ctx.dim = group, size, dim
+        return _all_gather(x, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.size, ctx.dim), None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    """Tiled psum_scatter along ``dim``; its backward is the all_gather."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, dim):
+        ctx.group, ctx.size, ctx.dim = group, size, dim
+        return _reduce_scatter(x, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.size, ctx.dim), None, None, None
+
+
+def doubling_sum(parts: list) -> torch.Tensor:
+    """``parts`` (a power-of-two count) summed in recursive-doubling order,
+    ``(x0 + x1) + (x2 + x3)``: the sum every rank of the reference's
+    ``subgroup_psum`` makes (IEEE addition commutes, so its ``own +
+    partner`` is this on every rank)."""
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """The mesh seen from inside the train step, at tp = 1: every
-    model-axis collective is the identity and the model index is 0.
+    """The mesh seen from inside the train step.
 
+    model_axis / tp: the tensor-parallel axis's name (None: no model
+      axis) and size; model_group: its ranks (this client's), model_rank:
+      this rank's index on it; subgroups: ``((size, group), ...)``, this
+      rank's aligned model-axis subgroup of each power-of-two size
+      between 1 and tp (``subgroup_psum``);
     client_axes: the names of the federated-client axes ('pod', 'data'),
       empty for a plain run; n_clients: their product, the ranks of
-      ``group``; client_index: this rank's linear index among them.
+      ``group``; client_index: this rank's linear index among them;
+    seq_parallel: Megatron-style sequence parallelism, the residual
+      stream between blocks (B, S/tp, D), all-gathered on a block's entry
+      and psum_scattered on its exit.
     """
 
     model_axis: Optional[str] = None
@@ -39,21 +139,36 @@ class ParallelCtx:
     n_clients: int = 1
     client_index: int = 0
     group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
+    model_group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
+    model_rank: int = 0
+    subgroups: tuple = dataclasses.field(default=(), compare=False)
+    seq_parallel: bool = False
+    sp_compress: bool = False
 
     def __post_init__(self):
-        if self.model_axis is not None or self.tp != 1:
+        if self.sp_compress:
             raise NotImplementedError(
-                "a model axis (tp > 1) is not ported yet: ROADMAP.md queue A item 12")
+                "sp_compress (the int8 sequence-parallel all-gather) is not ported yet: "
+                "ROADMAP.md queue A item 14")
+        if self.model and self.model_group is None:
+            raise ValueError(f"a model axis of {self.tp} needs its process group")
         if self.client_axes and self.group is None:
             raise ValueError(f"client axes {self.client_axes} need the clients' process group")
 
+    @property
+    def model(self) -> bool:
+        """Whether the model-axis collectives act (a model axis above 1)."""
+        return self.model_axis is not None and self.tp > 1
+
     def psum_clients(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the client ranks, in a new tensor."""
+        """``x`` summed over the client ranks, in a new tensor; over one
+        client rank a copy, with no collective (a one-rank gloo group
+        would stage the tensor through the host and back)."""
         if not self.client_axes:
             return x
-        out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
-        return out
+        if self.n_clients == 1:
+            return x.clone()
+        return _all_reduce(x, self.group)
 
     def pmean_clients(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the client ranks divided by their count, as
@@ -62,23 +177,58 @@ class ParallelCtx:
             return x
         return self.psum_clients(x) / self.n_clients
 
-    def psum_model(self, x):
-        return x
+    def psum_model(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.model:
+            return x
+        return _Psum.apply(x, self.model_group)
 
-    def pmax_model(self, x):
-        return x
+    def pmax_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The max over the model axis, of a value no gradient flows
+        through (the reference's pmax has no differentiation rule)."""
+        if not self.model:
+            return x
+        return _all_reduce(x, self.model_group, dist.ReduceOp.MAX)
 
     def model_index(self) -> int:
-        return 0
+        return self.model_rank if self.model else 0
 
-    def sp_gather(self, x):
-        return x
+    def subgroup_psum(self, x: torch.Tensor, group_size: int) -> torch.Tensor:
+        """Sum over contiguous aligned subgroups of ``group_size`` (a
+        power of two dividing tp) of the model axis, in the reference's
+        recursive-doubling order: the subgroup's values gathered in rank
+        order, then ``doubling_sum``. Not differentiated (it syncs
+        gradients)."""
+        if group_size <= 1 or not self.model:
+            return x
+        if group_size & (group_size - 1):
+            raise ValueError(f"group_size must be a power of 2, got {group_size}")
+        group = self.model_group if group_size == self.tp else dict(self.subgroups)[group_size]
+        return doubling_sum(_gather(x, group, group_size))
 
-    def sp_scatter(self, x):
-        return x
+    def sp_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S/tp, D) -> (B, S, D) when sequence parallelism is on."""
+        if not self.seq_parallel or not self.model:
+            return x
+        return _AllGather.apply(x, self.model_group, self.tp, 1)
 
-    def sp_slice(self, x):
-        return x
+    def sp_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum partial (B, S, D) contributions across the model axis:
+        psum_scatter along the sequence to (B, S/tp, D) with sequence
+        parallelism, else psum."""
+        if not self.model:
+            return x
+        if not self.seq_parallel:
+            return _Psum.apply(x, self.model_group)
+        return _PsumScatter.apply(x, self.model_group, self.tp, 1)
+
+    def sp_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's sequence slice of a replicated (B, S, D) tensor
+        (the free entry into the sequence-parallel form; its backward
+        zero-pads, which composes with the embedding's psum)."""
+        if not self.seq_parallel or not self.model:
+            return x
+        s_l = x.shape[1] // self.tp
+        return x.narrow(1, self.model_rank * s_l, s_l)
 
 
 # ---------------------------------------------------------------------------

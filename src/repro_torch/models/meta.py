@@ -1,4 +1,4 @@
-"""Parameter metadata (counterpart of ``repro/models/meta.py``), at tp = 1.
+"""Parameter metadata (counterpart of ``repro/models/meta.py``).
 
 Every parameter leaf is described by a ``Meta``: its GLOBAL shape, its
 dtype, its partition spec over the mesh (a tuple of axis names or
@@ -10,12 +10,13 @@ gradient-sync subgroup size on the model axis:
                are summed over the subgroup.
   sync == tp   replicated leaf: gradients summed over the whole model axis.
 
-At tp = 1 every ``sync`` is 1 and ``sync_grads`` is the identity; the
-model axis above 1, and with it the shardings and the dry run's
-shape structs, is ROADMAP.md queue A item 12. A Meta tree has the
-parameters' structure, so ``convert.leaves`` gives its leaves in the
-reference's ``tree_flatten`` order (sorted dict keys), the order in
-which the train step's per-leaf seeds are handed.
+A Meta tree has the parameters' structure, so ``convert.leaves`` gives
+its leaves in the reference's ``tree_flatten`` order (sorted dict keys),
+the order in which the train step's gradients and per-leaf seeds are
+handed. The reference's ``shardings`` (a ``NamedSharding`` a leaf) has
+two counterparts here, one process a rank: ``shard_leaf`` takes a rank's
+slice of a global leaf along its "model" dim, and ``gather_leaf`` puts
+the model ranks' slices back together.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.convert import leaves
+from repro_torch.models import common
 from repro_torch.models.common import ParallelCtx
 
 
@@ -35,14 +37,6 @@ class Meta:
     dtype: Any
     pspec: Optional[tuple]
     sync: int = 1
-
-
-def check_tp(tp: int) -> None:
-    """Refuse a model axis above 1 (the layers' ``param_meta``)."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"param_meta at tp={tp}: a model axis (tp > 1) is not ported yet: "
-            f"ROADMAP.md queue A item 12")
 
 
 def is_meta(x) -> bool:
@@ -63,12 +57,79 @@ def tree_map(f, tree, *rest):
     raise TypeError(f"not a Meta tree node: {type(tree)!r}")
 
 
-def sync_grads(grads, meta_tree, ctx: ParallelCtx):
-    """Tensor-parallel gradient correction: the identity at tp = 1."""
-    if ctx.tp != 1:
-        raise NotImplementedError(
-            "sync_grads at tp > 1 is not ported yet: ROADMAP.md queue A item 12")
-    return grads
+def model_dim(m: Meta) -> int:
+    """The leaf's dim sharded over the model axis, or -1 (replicated)."""
+    return next((i for i, e in enumerate(m.pspec or ()) if e == "model"), -1)
+
+
+def local_shape(m: Meta, tp: int) -> tuple:
+    """A rank's shape of the leaf (its model dim divided by tp)."""
+    d, shape = model_dim(m), list(m.shape)
+    if d >= 0:
+        shape[d] //= tp
+    return tuple(shape)
+
+
+def shard_leaf(p: torch.Tensor, m: Meta, tp: int, index: int) -> torch.Tensor:
+    """Model rank ``index``'s slice (a view) of the global leaf ``p``: its
+    block ``index`` of ``tp`` along the model dim, the whole of a
+    replicated leaf (the reference's ``fed/tasks.py:shard_params``)."""
+    d = model_dim(m)
+    if d < 0 or tp == 1:
+        return p
+    size = p.shape[d] // tp
+    return p.narrow(d, index * size, size)
+
+
+def gather_leaf(p: torch.Tensor, m: Meta, ctx: ParallelCtx) -> torch.Tensor:
+    """The global leaf from every model rank's slice ``p``: a tiled
+    all_gather along the model dim over the model group (a replicated
+    leaf as it is)."""
+    d = model_dim(m)
+    if d < 0 or not ctx.model:
+        return p
+    return common._all_gather(p, ctx.model_group, ctx.tp, d)
+
+
+def shard_tree(tree, meta_tree, tp: int, index: int):
+    """``shard_leaf`` at every leaf of a global tree."""
+    return tree_map(lambda m, p: shard_leaf(p, m, tp, index), meta_tree, tree)
+
+
+def gather_tree(tree, meta_tree, ctx: ParallelCtx):
+    """``gather_leaf`` at every leaf of a rank's tree."""
+    return tree_map(lambda m, p: gather_leaf(p, m, ctx), meta_tree, tree)
+
+
+def slicer(tp: int, index: int):
+    """``keep(t, m)`` for the layers' ``init_params``: model rank
+    ``index``'s slice of a freshly drawn global leaf, in a buffer of its
+    own (the global leaf is freed once dropped)."""
+    if tp == 1:
+        return None
+
+    def keep(t: torch.Tensor, m: Meta) -> torch.Tensor:
+        return shard_leaf(t, m, tp, index).clone()
+
+    return keep
+
+
+def sync_grads(grads: list, meta_tree, ctx: ParallelCtx) -> list:
+    """Tensor-parallel gradient correction of the list ``grads``
+    (``convert.leaves`` order of ``meta_tree``): a leaf duplicated over
+    the whole model axis (``sync >= tp``) psums its gradient over it, one
+    duplicated over aligned subgroups (``1 < sync < tp``) sums over its
+    subgroup, a sharded one (``sync == 1``) keeps its own."""
+    if not ctx.model:
+        return grads
+    out = []
+    for g, m in zip(grads, leaves(meta_tree)):
+        if m.sync >= ctx.tp:
+            g = ctx.psum_model(g)
+        elif m.sync > 1:
+            g = ctx.subgroup_psum(g, m.sync)
+        out.append(g)
+    return out
 
 
 def _size(m: Meta) -> int:

@@ -1,4 +1,6 @@
-"""Dense MLP variants (counterpart of ``repro/models/mlp.py``), at tp = 1.
+"""Dense MLP variants (counterpart of ``repro/models/mlp.py``):
+column-parallel in, row-parallel out (``d_ff / tp`` a rank, the output's
+psum in ``sp_scatter``).
 
 Kinds:
   swiglu        silu(x Wg) * (x Wu) Wd        (llama/mistral/chatglm/qwen…)
@@ -14,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
-from repro_torch.models.meta import Meta, check_tp
+from repro_torch.models.meta import Meta
 
 GATED = {"swiglu", "geglu"}
 
@@ -25,20 +27,26 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def init_params(generator: torch.Generator, kind: str, d_model: int, d_ff: int,
-                device="cuda") -> dict:
-    def init(shape, in_axis):
-        return dense_init(generator, shape, in_axis=in_axis, device=device)
+                device="cuda", tp: int = 1, keep=None) -> dict:
+    """The global parameters at ``tp``; ``keep(t, meta)`` as in
+    ``attention.init_params``."""
+    if d_ff % tp != 0:
+        raise ValueError(f"d_ff={d_ff} not divisible by tp={tp}")
+    meta = param_meta(kind, d_model, d_ff, tp)
+
+    def init(name, in_axis):
+        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device)
+        return t if keep is None else keep(t, meta[name])
 
     if kind in GATED:
-        p = {"w_gate": init((d_model, 1, d_ff), 0), "w_up": init((d_model, 1, d_ff), 0)}
+        p = {"w_gate": init("w_gate", 0), "w_up": init("w_up", 0)}
     else:
-        p = {"w_in": init((d_model, 1, d_ff), 0)}
-    p["w_down"] = init((1, d_ff, d_model), 1)
+        p = {"w_in": init("w_in", 0)}
+    p["w_down"] = init("w_down", 1)
     return p
 
 
 def param_meta(kind: str, d_model: int, d_ff: int, tp: int = 1) -> dict:
-    check_tp(tp)
     f_l = d_ff // tp
     m = {"w_down": Meta((tp, f_l, d_model), torch.float32, ("model", None, None), 1)}
     if kind in GATED:
@@ -50,7 +58,8 @@ def param_meta(kind: str, d_model: int, d_ff: int, tp: int = 1) -> dict:
 
 
 def forward(params: dict, kind: str, ctx: ParallelCtx, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., D) -> (..., D)."""
+    """x: (..., D) replicated over the model axis -> (..., D) summed over
+    it (psum_scattered along the sequence with sequence parallelism)."""
     if kind in GATED:
         g = x @ squeeze_tp(params["w_gate"], 1).to(x.dtype)
         u = x @ squeeze_tp(params["w_up"], 1).to(x.dtype)

@@ -1,17 +1,20 @@
-"""Model assembly (counterpart of ``repro/models/model.py``), at tp = 1:
-embedding -> blocks (attn / ssm / shared_attn, mlp / moe) -> the
-vocab-chunked LM head loss, and the serving path (``prefill``,
-``decode_step``, greedy ``lm_head_argmax``).
+"""Model assembly (counterpart of ``repro/models/model.py``): embedding
+-> blocks (attn / ssm / shared_attn, mlp / moe) -> the vocab-parallel,
+sequence-chunked LM head loss, tensor-parallel over the model axis; and
+the serving path (``prefill``, ``decode_step``, greedy
+``lm_head_argmax``) at tp = 1.
 
-Parameter tree (the reference's, leading ``tp`` axes kept at size 1):
-  embed:      (tp, V_l, D)
+Parameter tree (the reference's; on a rank the ``tp`` axes are of size 1):
+  embed:      (tp, V_l, D)  vocab-parallel table
   layers[i]:  {"norm1", "attn"/"ssm", ["norm2", "mlp"/"moe"]}; a
               'shared_attn' layer is {} (its params live in "shared")
   shared:     one attention+MLP block reused by every 'shared_attn' layer
   final_norm: (D,)
-  lm_head:    (D, tp, V_l)
+  lm_head:    (D, tp, V_l)  column-parallel
 
-Everything computes in float32, the compute dtype the reference's lm task
+With sequence parallelism the residual stream between blocks is (B,
+S/tp, D): ``sp_slice`` enters it after the embedding, each block
+all-gathers on entry and psum_scatters on exit. Everything computes in float32, the compute dtype the reference's lm task
 passes. The reference's remat (``jax.checkpoint`` of blocks and CE
 chunks) moves memory, not values, and is left out
 (``torch.utils.checkpoint`` does not compose with ``torch.func``).
@@ -21,7 +24,8 @@ attention layer's k/v, a sliding-window layer's as a ring buffer of
 ``min(capacity, window)`` slots; an SSM layer's recurrent state), and
 ``decode_step`` feeds one token a step, writing those caches IN PLACE
 and returning them (the reference returns new ones). ``cache_meta``, the
-caches' sharding over a mesh (and with it the int8 KV layout), is
+caches' sharding over a mesh (and with it the int8 KV layout), and
+greedy decoding over a model axis (``lm_head_argmax``'s pmin) are
 ROADMAP.md queue A item 13.
 """
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 from repro_torch.configs.base import InputShape, LayerSpec, ModelConfig
 from repro_torch.models import attention, mlp, moe, ssm
 from repro_torch.models.common import ParallelCtx, dense_init, rms_norm, squeeze_tp
-from repro_torch.models.meta import Meta, check_tp
+from repro_torch.models.meta import Meta
 
 
 # ---------------------------------------------------------------------------
@@ -41,20 +45,20 @@ from repro_torch.models.meta import Meta, check_tp
 # ---------------------------------------------------------------------------
 
 
-def _layer_init(generator, cfg: ModelConfig, layer: LayerSpec, device):
+def _layer_init(generator, cfg: ModelConfig, layer: LayerSpec, device, tp: int, keep):
     D = cfg.d_model
     if layer.kind == "shared_attn":
         return {}  # params live in the shared block
     p = {"norm1": torch.zeros((D,), device=device)}
     if layer.kind == "ssm":
-        p["ssm"] = ssm.init_params(generator, cfg.ssm, device)
+        p["ssm"] = ssm.init_params(generator, cfg.ssm, device, tp, keep)
         return p
-    p["attn"] = attention.init_params(generator, cfg.attn_spec(layer), device)
+    p["attn"] = attention.init_params(generator, cfg.attn_spec(layer), device, tp, keep)
     p["norm2"] = torch.zeros((D,), device=device)
     if cfg.moe is not None:
-        p["moe"] = moe.init_params(generator, cfg.moe, device)
+        p["moe"] = moe.init_params(generator, cfg.moe, device, tp, keep)
     elif cfg.mlp_kind is not None:
-        p["mlp"] = mlp.init_params(generator, cfg.mlp_kind, D, cfg.d_ff, device)
+        p["mlp"] = mlp.init_params(generator, cfg.mlp_kind, D, cfg.d_ff, device, tp, keep)
     return p
 
 
@@ -82,32 +86,43 @@ def _shared_layerspec(cfg: ModelConfig) -> LayerSpec:
     raise ValueError("no shared_attn layer in config")
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
-    """Random float32 parameters of the reference's shapes at tp = 1,
-    drawn from ``generator`` on its device (the reference draws from
-    ``jax.random``: values differ, shapes and the special leaves do not)."""
+def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda", tp: int = 1,
+                keep=None) -> dict:
+    """Random float32 parameters of the reference's global shapes at
+    ``tp``, drawn from ``generator`` on its device leaf by leaf (the
+    reference draws from ``jax.random``: values differ, shapes and the
+    special leaves do not). ``keep(t, meta)``, if given, takes each
+    sharded leaf as it is drawn: ``meta.slicer(tp, index)`` keeps model
+    rank ``index``'s slice, so that a rank never holds the global tree
+    and every rank draws the same one."""
     D = cfg.d_model
-    V = cfg.padded_vocab(1)
+    meta = param_meta(cfg, tp)
+
+    def init(name, in_axis):
+        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device)
+        return t if keep is None else keep(t, meta[name])
+
     params = {
-        "embed": dense_init(generator, (1, V, D), in_axis=2, device=device),
-        "layers": tuple(_layer_init(generator, cfg, layer, device) for layer in cfg.layers),
+        "embed": init("embed", 2),
+        "layers": tuple(_layer_init(generator, cfg, layer, device, tp, keep)
+                        for layer in cfg.layers),
         "final_norm": torch.zeros((D,), device=device),
     }
     if cfg.shared_attn:
         spec = cfg.attn_spec(_shared_layerspec(cfg))
         params["shared"] = {
             "norm1": torch.zeros((D,), device=device),
-            "attn": attention.init_params(generator, spec, device),
+            "attn": attention.init_params(generator, spec, device, tp, keep),
             "norm2": torch.zeros((D,), device=device),
-            "mlp": mlp.init_params(generator, cfg.mlp_kind, D, cfg.shared_d_ff, device),
+            "mlp": mlp.init_params(generator, cfg.mlp_kind, D, cfg.shared_d_ff, device, tp,
+                                   keep),
         }
-    params["lm_head"] = dense_init(generator, (D, 1, V), in_axis=0, device=device)
+    params["lm_head"] = init("lm_head", 0)
     return params
 
 
 def param_meta(cfg: ModelConfig, tp: int = 1) -> dict:
     """The Meta tree of ``init_params``' parameters (``models/meta.py``)."""
-    check_tp(tp)
     D = cfg.d_model
     V = cfg.padded_vocab(tp)
     m = {
@@ -133,7 +148,8 @@ def param_meta(cfg: ModelConfig, tp: int = 1) -> dict:
 
 
 def embed(params: dict, cfg: ModelConfig, ctx: ParallelCtx, tokens: torch.Tensor):
-    """tokens (B, S) -> (B, S, D)."""
+    """tokens (B, S) -> (B, S, D): the rank's rows of the table, psummed
+    over the model axis."""
     table = squeeze_tp(params["embed"], 0)  # (V_l, D)
     v_l = table.shape[0]
     ids = tokens.to(torch.int64) - ctx.model_index() * v_l
@@ -145,10 +161,12 @@ def embed(params: dict, cfg: ModelConfig, ctx: ParallelCtx, tokens: torch.Tensor
 
 def lm_head_loss(params: dict, cfg: ModelConfig, ctx: ParallelCtx, h: torch.Tensor,
                  labels: torch.Tensor, *, seq_chunk: int = 512):
-    """Cross entropy over the PADDED vocab (its extra columns take part in
-    the log-sum-exp). h: (B, S, D); labels: (B, S), positions with label
-    < 0 masked out. Returns (mean_loss, n_tokens). The logits are made a
-    sequence chunk at a time."""
+    """Vocab-parallel cross entropy over the PADDED vocab (its extra
+    columns take part in the log-sum-exp). h: (B, S, D); labels: (B, S),
+    positions with label < 0 masked out. Returns (mean_loss, n_tokens).
+    A rank makes its (B, chunk, V/tp) logits a sequence chunk at a time;
+    the log-sum-exp and the target logit combine over the model axis by
+    pmax (of a value no gradient flows through) and psum."""
     head = squeeze_tp(params["lm_head"], 1)  # (D, V_l)
     v_l = head.shape[1]
     lo = ctx.model_index() * v_l
@@ -182,6 +200,10 @@ def lm_head_loss(params: dict, cfg: ModelConfig, ctx: ParallelCtx, h: torch.Tens
 def lm_head_argmax(params: dict, ctx: ParallelCtx, h: torch.Tensor) -> torch.Tensor:
     """Greedy next token. h: (B, D) -> (B,) int32; among equal logits the
     smallest id (``torch.argmax`` returns the first maximum)."""
+    if ctx.model:
+        raise NotImplementedError(
+            "greedy decoding over a model axis (lm_head_argmax's pmin over it) is not "
+            "ported yet: ROADMAP.md queue A item 13")
     head = squeeze_tp(params["lm_head"], 1)
     logits = (h @ head.to(h.dtype)).to(torch.float32)
     return torch.argmax(logits, dim=-1).to(torch.int32)

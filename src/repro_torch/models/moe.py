@@ -1,13 +1,18 @@
-"""Mixture-of-Experts with sort-based token dispatch (counterpart of
-``repro/models/moe.py``), at tp = 1.
+"""Expert-parallel Mixture-of-Experts with sort-based token dispatch
+(counterpart of ``repro/models/moe.py``). Over a model axis of tp a rank
+holds ``E / tp`` experts, from ``model_index * E / tp``; the router is
+replicated (its gradient summed over the axis, ``sync = tp``), and the
+output's psum combines the experts of every rank.
 
   1. router logits -> top-k experts per token (ties to the lower index,
      as ``lax.top_k``: a stable descending sort);
-  2. the (T*k) assignments SORTED by expert id (stable);
+  2. the (T*k) assignments filtered to the rank's experts and SORTED by
+     expert id (stable);
   3. the first CAP survivors gathered into a dense (E, C, D) buffer (slot
      = rank within the expert's run, capacity drops beyond C);
   4. two batched einsums over the experts, SwiGLU inside;
-  5. results scatter-added back per token, weighted.
+  5. results scatter-added back per token, weighted, and summed over the
+     model axis.
 
 The reference's ``.at[...].set(mode="drop")`` writes the dropped
 assignments to an out-of-range expert row; here they go to one extra
@@ -24,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
-from repro_torch.models.meta import Meta, check_tp
+from repro_torch.models.meta import Meta
 from repro_torch.models.mlp import gelu
 
 
@@ -44,22 +49,21 @@ class MoESpec:
         return self.num_experts // tp
 
 
-def init_params(generator: torch.Generator, spec: MoESpec, device="cuda") -> dict:
-    E, D, F_ = spec.num_experts, spec.d_model, spec.d_ff_expert
+def init_params(generator: torch.Generator, spec: MoESpec, device="cuda", tp: int = 1,
+                keep=None) -> dict:
+    """The global parameters at ``tp``; ``keep(t, meta)`` as in
+    ``attention.init_params``."""
+    meta = param_meta(spec, tp)
 
-    def init(shape, in_axis):
-        return dense_init(generator, shape, in_axis=in_axis, device=device)
+    def init(name, in_axis):
+        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device)
+        return t if keep is None else keep(t, meta[name])
 
-    return {
-        "router": init((D, E), 0),
-        "w_gate": init((1, E, D, F_), 2),
-        "w_up": init((1, E, D, F_), 2),
-        "w_down": init((1, E, F_, D), 2),
-    }
+    return {"router": init("router", 0), "w_gate": init("w_gate", 2),
+            "w_up": init("w_up", 2), "w_down": init("w_down", 2)}
 
 
 def param_meta(spec: MoESpec, tp: int = 1) -> dict:
-    check_tp(tp)
     e_l = spec.experts_local(tp)
     D, F_ = spec.d_model, spec.d_ff_expert
     return {
@@ -92,8 +96,9 @@ def top_k(probs: torch.Tensor, k: int):
 
 def forward(params: dict, spec: MoESpec, ctx: ParallelCtx, x: torch.Tensor, *,
             decode: bool = False):
-    """x: (B, S, D). Returns (y, aux) with aux carrying the load-balance
-    loss and the drop fraction. ``decode``: every expert takes every
+    """x: (B, S, D) replicated over the model axis. Returns (y, aux) with
+    aux carrying the load-balance loss and the drop fraction (the drops
+    of every rank's experts). ``decode``: every expert takes every
     token (capacity T * top_k), so nothing is dropped."""
     B, S, D = x.shape
     T = B * S
@@ -152,7 +157,7 @@ def forward(params: dict, spec: MoESpec, ctx: ParallelCtx, x: torch.Tensor, *,
     act = F.silu(g) if spec.kind == "swiglu" else gelu(g)
     y_buf = torch.einsum("ecf,efd->ecd", act * u, wd)
 
-    # --- combine: weighted scatter-add back to tokens ---
+    # --- combine: weighted scatter-add back to tokens, psum over experts ---
     y_sel = y_buf[e_c, s_c] * (w_sel * valid).to(x.dtype)[:, None]
     y = torch.zeros((T, D), dtype=x.dtype, device=dev).index_put((t_sel,), y_sel,
                                                                   accumulate=True)

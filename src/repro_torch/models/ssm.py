@@ -1,6 +1,13 @@
 """Mamba2 (state-space duality / SSD) blocks (counterpart of
-``repro/models/ssm.py``), at tp = 1: the chunked training / prefill
-forward and the recurrent decode step.
+``repro/models/ssm.py``): the chunked training / prefill forward and the
+recurrent decode step.
+
+Over a model axis of tp the heads are sharded (``heads_local(tp)`` a
+rank): the in-projection ``w_zx`` is column-parallel, its global layout
+(D, tp, 2 di_l) packing each rank's z and x streams together, and
+``w_out`` row-parallel; the shared B/C projection and its conv (ngroups
+= 1) are replicated (``sync = tp``). The gated RMSNorm spans the whole
+d_inner, its mean square psummed over the axis.
 
 The chunked SSD algorithm (Dao & Gu, 2024) as dense einsums per chunk:
 an intra-chunk quadratic form, whose decay is masked to ``-inf`` BEFORE
@@ -24,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
-from repro_torch.models.meta import Meta, check_tp
+from repro_torch.models.meta import Meta
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,34 +59,43 @@ class SSMSpec:
         return self.num_heads // tp
 
 
-def init_params(generator: torch.Generator, spec: SSMSpec, device="cuda") -> dict:
-    h, di = spec.num_heads, spec.d_inner
-    D, N, W = spec.d_model, spec.state_dim, spec.conv_width
+def init_params(generator: torch.Generator, spec: SSMSpec, device="cuda", tp: int = 1,
+                keep=None) -> dict:
+    """The global parameters at ``tp`` (each rank's heads numbered from 1
+    in ``A_log``, as the reference's); ``keep(t, meta)`` as in
+    ``attention.init_params``."""
+    h_l = spec.heads_local(tp)
+    meta = param_meta(spec, tp)
 
-    def init(shape, in_axis=0):
-        return dense_init(generator, shape, in_axis=in_axis, device=device)
+    def init(name, in_axis=0):
+        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device)
+        return t if keep is None else keep(t, meta[name])
+
+    def put(name, t):
+        t = t.to(device)
+        return t if keep is None else keep(t, meta[name])
 
     # dt log-uniform in [dt_min, dt_max]; its bias the inverse softplus
-    u = torch.rand((1, h), generator=generator, dtype=torch.float32, device=generator.device)
+    u = torch.rand((tp, h_l), generator=generator, dtype=torch.float32,
+                   device=generator.device)
     dt = torch.exp(u * (math.log(spec.dt_max) - math.log(spec.dt_min)) + math.log(spec.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))
-    a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32)[None])
+    a_log = torch.log(torch.arange(1, h_l + 1, dtype=torch.float32)[None]).repeat(tp, 1)
     return {
-        "w_zx": init((D, 1, 2 * di)),  # z (gate) and x streams
-        "w_bc": init((D, 2 * N)),  # shared B and C projections (ngroups=1)
-        "w_dt": init((D, 1, h)),
-        "conv_x": init((1, W, di), 1),
-        "conv_bc": init((W, 2 * N)),
-        "A_log": a_log.to(device),
-        "D_skip": torch.ones((1, h), device=device),
-        "dt_bias": dt_bias.to(device),
-        "norm": torch.zeros((1, di), device=device),
-        "w_out": init((1, di, D), 1),
+        "w_zx": init("w_zx"),  # z (gate) and x streams, per rank
+        "w_bc": init("w_bc"),  # shared B and C projections (ngroups=1)
+        "w_dt": init("w_dt"),
+        "conv_x": init("conv_x", 1),
+        "conv_bc": init("conv_bc"),
+        "A_log": put("A_log", a_log),
+        "D_skip": put("D_skip", torch.ones((tp, h_l))),
+        "dt_bias": put("dt_bias", dt_bias),
+        "norm": put("norm", torch.zeros(meta["norm"].shape)),
+        "w_out": init("w_out", 1),
     }
 
 
 def param_meta(spec: SSMSpec, tp: int = 1) -> dict:
-    check_tp(tp)
     h_l = spec.heads_local(tp)
     di_l = h_l * spec.head_dim
     D, N, W = spec.d_model, spec.state_dim, spec.conv_width
@@ -103,9 +119,11 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_rms_norm(y, z, w, ctx: ParallelCtx, eps: float = 1e-6):
-    """Mamba2's RMSNormGated over the full d_inner dimension."""
+    """Mamba2's RMSNormGated over the full d_inner dimension, which is
+    head-sharded over the model axis: the mean square is psummed."""
     x = (y * F.silu(z)).to(torch.float32)
-    var = x.square().sum(-1, keepdim=True) / x.shape[-1]
+    total = ctx.psum_model(x.square().sum(-1, keepdim=True))
+    var = total / (x.shape[-1] * (ctx.tp if ctx.model_axis is not None else 1))
     return ((x * torch.rsqrt(var + eps)) * (1.0 + w.to(torch.float32))).to(y.dtype)
 
 

@@ -1127,3 +1127,49 @@ def test_reduced_serve_on_the_card(deterministic, arch):
     h = rms_norm(h, params_d["final_norm"])
     assert torch.equal(model.lm_head_argmax(params_d, ParallelCtx(), h[:, -2]).cpu(), want[:, 0])
     assert torch.equal(model.lm_head_argmax(params_d, ParallelCtx(), h[:, -1]).cpu(), want[:, 1])
+
+
+@pytest.mark.cuda
+def test_model_axis_collectives_on_a_one_rank_gloo_group(cuda):
+    """The model axis's autograd Functions (``models/common.py``) on CUDA
+    tensors over a one-rank gloo group: forward and backward the identity
+    (a sum, gather or scatter of one), on the card, no copy to the CPU in
+    what they return."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import shard_group
+    from repro_torch.models import common
+
+    shard_group(None, "cuda")  # a default group, made once if none exists
+    group = dist.new_group([dist.get_rank()], backend="gloo")
+    x = torch.randn(2, 4, 3, device="cuda", requires_grad=True)
+    ct = torch.randn(2, 4, 3, device="cuda")
+    for name, y in (("psum", common._Psum.apply(x, group)),
+                    ("all_gather", common._AllGather.apply(x, group, 1, 1)),
+                    ("psum_scatter", common._PsumScatter.apply(x, group, 1, 1))):
+        assert y.is_cuda and torch.equal(y, x), name
+        g = torch.autograd.grad(y, x, ct)[0]
+        assert g.is_cuda and torch.equal(g, ct), name
+
+
+@pytest.mark.cuda
+def test_model_axis_collectives_on_two_gloo_ranks(cuda, tmp_path):
+    """Two gloo ranks on the card (tests/torch_tp_worker.py ``cuda_ops``):
+    each collective of a tp = 2 ``ParallelCtx`` and its backward on CUDA
+    tensors, equal bit for bit to the same sums made on the CPU from both
+    ranks' inputs (a sum of two is exact in either order)."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([os.path.join(os.path.dirname(here),
+                                                                      "src"), here])}
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "torch_tp_worker.py"),
+                               "cuda_ops", str(r), "2", str(tmp_path / "store"), "none",
+                               str(tmp_path)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        assert "collectives on cuda == their CPU sums" in out, out

@@ -118,11 +118,17 @@ def test_dense_init_is_truncated_at_two_sigma():
 
 
 def test_parallel_ctx_is_tp_one_only():
+    """Without a model axis above 1 every model-axis collective is the
+    identity (as the reference's with ``model_axis=None``); a model axis
+    above 1 needs its process group (tests/test_torch_tp_ops.py runs
+    one), and the compressed all-gather is queue A item 14."""
     assert CTX.model_index() == 0 and CTX.psum_model(3) == 3
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        ParallelCtx(tp=2)
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        ParallelCtx(model_axis="model")
+    for ctx in (ParallelCtx(tp=2), ParallelCtx(model_axis="model")):
+        assert not ctx.model and ctx.model_index() == 0 and ctx.psum_model(3) == 3
+    with pytest.raises(ValueError, match="process group"):
+        ParallelCtx(model_axis="model", tp=2)
+    with pytest.raises(NotImplementedError, match="queue A item 14"):
+        ParallelCtx(sp_compress=True)
     # the geometry planner is pure Python: equal at every tp it accepts
     for h, kv in [(8, 2), (32, 8), (4, 4), (48, 8), (24, 24)]:
         for tp in (1, 2, 4, 8, 16):

@@ -111,9 +111,25 @@ def test_model_axis_refusals():
         t.bind_model_axis(None)
     lm = make_task(LM_TASK, FedConfig(**LM_FED), "cpu")
     assert lm.supports_model_axis and jtasks.LmTask.supports_model_axis
-    for hook in ("bind_model_axis", "shard_params", "local_loss", "gather_grads"):
-        with pytest.raises(NotImplementedError, match="queue A item 12"):
-            getattr(lm, hook)(None)
+    # the lm task binds a model axis: its parameters are then the global
+    # tree at that tp, a rank's slices those of meta.shard_leaf (the
+    # hooks' collectives run in tests/test_torch_tp_fed.py)
+    from repro_torch.convert import leaves
+    from repro_torch.models import meta as meta_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import ParallelCtx
+
+    ctx = ParallelCtx(model_axis="model", tp=2, model_group=object(), model_rank=1)
+    lm.bind_model_axis(ctx)
+    assert lm.tp == 2
+    glob = lm.init_params(torch.Generator().manual_seed(0))
+    m = model_lib.param_meta(lm.model_cfg, tp=2)
+    assert [tuple(t.shape) for t in leaves(glob)] == [x.shape for x in leaves(m)]
+    mine = lm.shard_params(glob, ctx)
+    assert [tuple(t.shape) for t in leaves(mine)] == [meta_lib.local_shape(x, 2)
+                                                       for x in leaves(m)]
+    assert all(torch.equal(a, meta_lib.shard_leaf(b, x, 2, 1))
+               for a, b, x in zip(leaves(mine), leaves(glob), leaves(m)))
 
 
 def test_emnist_batch_pytree_shape():
@@ -130,8 +146,8 @@ def test_model_shards_validation():
         validate_config(FedConfig(model_shards=0, **SMALL))
     with pytest.raises(ValueError, match="engine"):
         validate_config(FedConfig(engine="scan", model_shards=2, **SMALL))
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        validate_config(FedConfig(engine="shard", model_shards=2, **LM_FED))
+    # the 2-D grid is admitted (tests/test_torch_tp_fed.py runs it)
+    validate_config(FedConfig(engine="shard", model_shards=2, **LM_FED))
 
 
 # ---------------------------------------------------------------------------

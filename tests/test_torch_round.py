@@ -262,15 +262,16 @@ def test_wire_width_selection():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    # the shard engine is ported; its 2-D client x model mesh is not
-    pytest.param(dict(engine="shard", model_shards=2), "ROADMAP.md", id="engine=shard"),
-    # the lm task is ported at tp = 1; its model axis is not
+    # the shard engine's 2-D grid needs a task with a model axis
+    pytest.param(dict(engine="shard", model_shards=2), "supports_model_axis",
+                 id="engine=shard"),
+    # the lm task has one; its grid needs shards x model_shards ranks
+    # (tests/test_torch_tp_fed.py starts them)
     pytest.param(dict(task="lm:seq_len=16,batch=1", engine="shard", model_shards=2),
-                 r"the lm task's 2-D client x model mesh.*ROADMAP.md queue A item 12",
-                 id="task=lm"),
+                 r"wants 2 ranks", id="task=lm"),
 ])
 def test_unported_options_raise(overrides, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         FedTrainer(SPEC, FedConfig(**{**SMALL, **overrides}), device="cpu")
 
 

@@ -390,7 +390,7 @@ def test_epsilon_uses_full_cohort():
     # trainer accounts and stages before the engine refuses)
     (dict(clients_per_round=4_370, num_clients=4_370, shard_packed=True, staging="stream",
           accountant_alphas=(2.0,)), ValueError, "unsafe"),
-    (dict(model_shards=2), NotImplementedError, "queue A item 12"),
+    (dict(model_shards=2), ValueError, "supports_model_axis"),
     (dict(engine="perround", model_shards=2), ValueError, "requires engine='shard'"),
     (dict(scan_block=0), ValueError, "scan_block"),
 ], ids=["too-many-shards", "unsafe-forced-packing", "model-shards", "model-shards-perround",

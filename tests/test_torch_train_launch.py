@@ -96,7 +96,7 @@ def test_fed_lm_and_its_refusals(capsys):
 
 
 def test_plans_refused_and_one_rank_plan_equals_plain():
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         train.main(BASE + ["--steps", "1", "--mesh-shape", "2x2"])
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         train.main(BASE + ["--steps", "1", "--mesh-shape", "4"])

@@ -14,8 +14,9 @@ reference on the CPU:
     tensor): equal to the flat update of the raveled tree bit for bit,
     one ``t`` for the tree, and to the reference's ``tree_map`` within
     tests/test_torch_optimizers.py's tolerances;
-  * the client half of ``ParallelCtx`` and ``MeshPlan``: the model axis
-    refused naming queue A item 12; a one-rank gloo plan's psum/pmean;
+  * the client half of ``ParallelCtx`` and ``MeshPlan``: a model axis
+    without its process group refused, ``sp_compress`` refused naming
+    queue A item 14; a one-rank gloo plan's psum/pmean;
   * ``fed/loop.py`` re-exports the trainer's names.
 """
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
@@ -118,8 +119,11 @@ def test_param_meta_matches_reference(arch):
     assert meta.tree_map(lambda m: m.sync, got) == jax.tree_util.tree_map(
         lambda m: m.sync, want, is_leaf=jmeta.is_meta)
     assert meta.sync_grads(params, got, ParallelCtx()) is params
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        model.param_meta(cfg, tp=2)
+    # over a model axis, field for field (every tp: tests/test_torch_tp_ops.py)
+    for g, w in zip(leaves(model.param_meta(cfg, tp=2)), jax.tree_util.tree_leaves(
+            jmodel.param_meta(jregistry.get_config(arch, reduced=True), tp=2),
+            is_leaf=jmeta.is_meta)):
+        assert (g.shape, g.pspec, g.sync) == (tuple(w.shape), tuple(w.pspec), w.sync)
 
 
 def _tree(rng, scale):
@@ -165,12 +169,20 @@ def test_tree_update_is_the_flat_update_leaf_by_leaf(name):
 
 
 def test_parallel_ctx_and_plan_refuse_a_model_axis():
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
+    """A model axis needs its process group (the groups of a plan with
+    one are made by ``launch/mesh.py:mesh_groups`` under a launcher, run
+    in tests/test_torch_tp_*.py); the compressed all-gather is queue A
+    item 14."""
+    with pytest.raises(ValueError, match="process group"):
         ParallelCtx(model_axis="model", tp=2)
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        tstep.MeshPlan((2, 2), ("data", "model"), ("data",))
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        meta.sync_grads({}, {}, type("Ctx", (), {"tp": 2})())
+    with pytest.raises(NotImplementedError, match="queue A item 14"):
+        ParallelCtx(sp_compress=True)
+    plan = tstep.MeshPlan((2, 2), ("data", "model"), ("data",))
+    assert plan.tp == 2 and plan.n_clients == 2
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+        tstep.make_plan((2, 2), "cpu")
+    model_ctx = ParallelCtx(model_axis="model", tp=2, model_group=object())
+    assert meta.sync_grads([], {}, model_ctx) == []
     with pytest.raises(ValueError, match="process group"):
         ParallelCtx(client_axes=("data",), n_clients=2)
     plan = tstep.MeshPlan((2, 2, 1), ("pod", "data", "model"), ("pod", "data"))
