@@ -228,6 +228,29 @@ which raises and exits non-zero:
      all_reduce timed alone, each rank's peak, the first leaf of each
      shape's levels == rqm_quantize_plain; lines start with [5k], report
      "model_axis", files under build/phase5k;
+  5l. serving over a mesh, ranks as 5k's (``--serve-worker``), each run
+     counted (the serve path launches none of the port's kernels): (a)
+     on 2 ranks meshes 2x1 and 1x2, on 4 ranks 2x2, reduced gemma3-4b
+     (a window-64 ring and a global layer), h2o-danube-3-4b and
+     zamba2-1.2b (SSM states, the shared attention block), float32 and
+     int8 caches: batch 4 split over the clients (``make_prefill_step``,
+     sequence parallel, then 8 greedy ``make_decode_step`` steps) and
+     batch 1 with caches of 128 after a prompt of 96 (the one-rank
+     prefill's caches cut by ``convert.cache_from_numpy``,
+     flash-decoding), every token == the one-rank ``decode_step``'s,
+     exactly; (b) gemma3-4b at full width at long_500k (sequence 524,288,
+     batch 1) over 2x1, the global layers' caches sequence-sharded over
+     the two ranks and filled block by block from generators keyed on
+     the global position, float32 then int8, 8 steps from position
+     524,280: tokens and block sums == a one-rank unsharded decode over
+     the whole caches (its own process after the ranks, ``--serve-check``),
+     hidden states within 1e-4 of the largest; decode ms a step, bound,
+     host dispatch and busy ms, the seq collectives a step, peak a rank;
+     (c) gemma3-4b at full width at 1x2, this rank's slices of 5i's tree,
+     5i's batch 4 and prompt 1280 prefilled (sequence parallel), decode
+     teacher-forced on 5i's tokens: every next token == 5i's; ms a step
+     beside 5i's, the model axis's collectives a step; lines start with
+     [5l], report "serve_mesh", files under build/phase5l;
   6. profile: device time by kernel over 3 more rounds of FedConfig()'s
      trainer for each mechanism (graphed; phase 5's, and phase 5c's for
      rqm), of phase 5e's graphed Poisson round, of the graphed fused packed
@@ -240,7 +263,7 @@ which raises and exits non-zero:
      ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
      (reported, not gated).
 
-Every run of phases 4 to 5k (but their reports) sets the kernels' launch counters to 0
+Every run of phases 4 to 5l (but their reports) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
@@ -394,6 +417,30 @@ TP_FED_GRIDS = {2: ("1x2", "2x1"), 4: ("2x2",)}
 TP_FULL = ("gemma3-4b", 2, 256, 3, 4_550_996_480)
 TP_TIMEOUT = 900  # seconds a launch of ranks may take
 TP_PROBE_REPS = 20  # (c): all_reduces timed alone
+# phase 5l: serving over a mesh, its ranks subprocesses of
+# torch.distributed.run on the one card (gloo). (a) the reduced configs,
+# the meshes of each launch (ranks: meshes), the batch-sharded and the
+# seq-sharded shape (batch, prompt, cache), the decode steps; (b) full
+# width at the reference's long_500k shape over SERVE_LONG_MESH: the
+# decode steps from the cache's last positions, the filled caches'
+# generator block (positions), the hidden states' tolerance; (c) full
+# width over a model axis at phase 5i's shape, the arch's 5i tokens
+SERVE_MESH_ARCHS = ("gemma3-4b", "h2o-danube-3-4b", "zamba2-1.2b")
+SERVE_MESH_MESHES = {2: ("2x1", "1x2"), 4: ("2x2",)}
+SERVE_MESH_SHAPES = {"batch": (4, 64, 96), "seq": (1, 96, 128)}
+SERVE_MESH_STEPS = 8
+SERVE_LONG = ("gemma3-4b", "long_500k", 8, 4_550_996_480)
+SERVE_LONG_MESH = (2, 1)
+SERVE_LONG_BLOCK = 4096
+# (b) the sharded decode's final hidden state against the one-rank
+# decode's, of the largest entry: the flash-decoding combine sums the
+# same exp-weighted values in another order (two partial sums of 262,144
+# keys, and the division after the value product, not before), float32;
+# its error ~ a few ulps x sqrt(keys) of the attention output, ~1e-6
+# relative, carried through 34 residual blocks and the final norm
+SERVE_LONG_HIDDEN_RTOL = 1e-4
+SERVE_AXIS_ARCH = "gemma3-4b"
+SERVE_AXIS_MESH = (1, 2)
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -2293,7 +2340,7 @@ def launches_by_issuer(prof) -> tuple:
 
 
 def serve_full_width(torch, arch: str, batch: int, prompt: int, gen_len: int, want_params: int,
-                     card: str) -> dict:
+                     card: str, keep: dict = None) -> dict:
     """Phase 5i (b), (c): ``arch`` at full width, random from a CUDA
     generator: init seconds, prefill ms and tokens/s, decode ms a step
     (CUDA events, median of the steps after the first) and tokens/s, the
@@ -2305,7 +2352,9 @@ def serve_full_width(torch, arch: str, batch: int, prompt: int, gen_len: int, wa
     the teacher-forced forward over prompt + 1 (and prefill == forward).
     The step's bound: every weight but the embedding table read once, and
     every cache read once, over HBM's rate (its float32 operations, 2 a
-    weight a token over 67 TFLOP/s, are below it)."""
+    weight a token over 67 TFLOP/s, are below it). ``keep``, if given,
+    takes the prompt, the generated tokens and the decode ms (phase 5l
+    (c) replays them over a model axis)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import InputShape
@@ -2397,6 +2446,8 @@ def serve_full_width(torch, arch: str, batch: int, prompt: int, gen_len: int, wa
         f"{cache_bytes} B); peak {peak} B above the start; gates held (margins {margins}); nvidia-smi: {card}")
     log(f"{tag}: one step's {traced} launches over {len(cfg.layers)} layers; by operator "
         f"{dict(list(by_op.items())[:16])}; by source line {dict(list(by_line.items())[:30])}")
+    if keep is not None:
+        keep.update(toks=toks.cpu(), gen=gen.cpu(), decode_ms=decode_ms)
     del params, caches
     torch.cuda.empty_cache()
     return report
@@ -3259,31 +3310,14 @@ def tp_full_width(torch, dist, counted, card: str) -> dict:
     launches = sum(str(e.device_type).endswith("CUDA") for e in prof.events())
     memcpy_ms = sum(e.device_time_total for e in by_kernel if "Memcpy" in e.key) / 1e3
     # one step with the model-axis collectives clocked
-    clocked = {"calls": 0, "ms": 0.0, "bytes": 0}
-    saved = (common._all_reduce, common._gather, common._reduce_scatter)
+    b = batch_to(pipe.batch(steps + 1), "cuda")
 
-    def clock(fn):
-        def timed(x, *args, **kwargs):
-            torch.cuda.synchronize()
-            c0 = time.perf_counter()
-            out = fn(x, *args, **kwargs)
-            torch.cuda.synchronize()
-            clocked["calls"] += 1
-            clocked["ms"] += (time.perf_counter() - c0) * 1e3
-            clocked["bytes"] += x.numel() * x.element_size()
-            return out
-        return timed
-
-    common._all_reduce, common._gather, common._reduce_scatter = map(clock, saved)
-    try:
-        b = batch_to(pipe.batch(steps + 1), "cuda")
-        torch.cuda.synchronize()
-        c0 = time.perf_counter()
+    def clocked_step():
+        nonlocal params, state
         params, state, _ = step_fn(params, state, steps + 1, b, seeds(steps + 1))
-        torch.cuda.synchronize()
-        clocked_step_ms = (time.perf_counter() - c0) * 1e3
-    finally:
-        common._all_reduce, common._gather, common._reduce_scatter = saved
+
+    clocked = clocked_collectives(torch, clocked_step)
+    clocked_step_ms = clocked.pop("step_ms")
 
     def per_call_ms(x, reps=TP_PROBE_REPS):
         """ms a model-axis all_reduce of ``x`` (mean of ``reps``)."""
@@ -3390,14 +3424,16 @@ def tp_worker(part: str) -> int:
     return 0
 
 
-def tp_launch(part: str, ranks: int) -> list:
-    """``ranks`` processes of this script's ``--tp-worker part`` under
-    torch.distributed.run on the one card; returns their reports (any
-    failed rank fails the launch, its output's end printed)."""
-    out_dir = os.path.join(ROOT, "build", "phase5k")
+def tp_launch(part: str, ranks: int, phase: str = "5k") -> list:
+    """``ranks`` processes of this script's ``--tp-worker part`` (phase
+    5k; 5l: ``--serve-worker part``) under torch.distributed.run on the
+    one card; returns their reports (any failed rank fails the launch,
+    its output's end printed)."""
+    out_dir = os.path.join(ROOT, "build", f"phase{phase}")
     logf = os.path.join(out_dir, f"{part}.log")
+    flag = {"5k": "--tp-worker", "5l": "--serve-worker"}[phase]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={ranks}", os.path.abspath(__file__), "--tp-worker", part]
+           f"--nproc-per-node={ranks}", os.path.abspath(__file__), flag, part]
     t0 = time.perf_counter()
     with open(logf, "w") as f:
         proc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
@@ -3406,13 +3442,14 @@ def tp_launch(part: str, ranks: int) -> list:
     if proc.returncode:
         with open(logf) as f:
             tail = f.read()[-6000:]
-        raise AssertionError(f"[5k] {part}: {ranks} ranks exited {proc.returncode}:\n{tail}")
+        raise AssertionError(f"[{phase}] {part}: {ranks} ranks exited {proc.returncode}:\n"
+                             f"{tail}")
     reports = []
     for r in range(ranks):
         with open(os.path.join(out_dir, f"{part}_rank{r}.json")) as f:
             reports.append(json.load(f))
-    log(f"[5k] {part}: {ranks} ranks on {reports[0]['device']}, backend {reports[0]['backend']}, "
-        f"in {took} s")
+    log(f"[{phase}] {part}: {ranks} ranks on {reports[0]['device']}, backend "
+        f"{reports[0]['backend']}, in {took} s")
     return reports
 
 
@@ -3494,6 +3531,567 @@ def tp_phase(torch, counts: dict, paths: dict, card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 5l: serving over a mesh. The ranks run this script with
+# ``--serve-worker <part>`` (serve_worker) as 5k's do, each writing
+# build/phase5l/<part>_rank<r>.json; the long shape's one-rank check is a
+# process of its own (``--serve-check``, serve_check), started after the
+# ranks exit.
+# ---------------------------------------------------------------------------
+
+
+def int8_caches(torch, caches) -> tuple:
+    """The int8 layout (``cache_meta(kv_quant=True)``) of float caches:
+    each attention cache's k and v as ``attention.quant_kv``'s codes and
+    per-token scales; SSM states as they are."""
+    from repro_torch.models.attention import quant_kv
+
+    out = []
+    for c in caches:
+        if "k" in c:
+            c = {f"{name}{part}": t for name in ("k", "v")
+                 for part, t in zip(("", "_scale"), quant_kv(c[name]))}
+        out.append(c)
+    return tuple(out)
+
+
+def serve_mesh_reduced(torch, counted, world: int, device) -> dict:
+    """Phase 5l (a) on this rank: each mesh of SERVE_MESH_MESHES[world]
+    and each reduced config of SERVE_MESH_ARCHS, in both shapes of
+    SERVE_MESH_SHAPES, with float32 and int8 caches. ``batch``: the batch
+    split over the clients, ``make_prefill_step`` (sequence parallel)
+    then SERVE_MESH_STEPS greedy ``make_decode_step`` steps; ``seq``: a
+    batch of 1, the one-rank prefill's caches cut to this rank
+    (``convert.cache_from_numpy``: the global layers' on their sequence
+    over the clients, KV heads over the model axis), flash-decoding. The
+    int8 caches are ``int8_caches`` of the prefill's. Each run counted
+    (the serve path launches none of the port's kernels); its tokens
+    == the one-rank ``prefill`` + ``decode_step`` over the whole
+    parameters and caches, this rank's rows, exactly."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import cache_from_numpy, shard_from_one_rank
+    from repro_torch.distributed.step import make_decode_step, make_plan, make_prefill_step
+    from repro_torch.launch.serve import synthetic_prompt
+    from repro_torch.models import model
+    from repro_torch.models.common import ParallelCtx
+
+    one, report = ParallelCtx(), {}
+    for mesh in SERVE_MESH_MESHES[world]:
+        plan = make_plan(tuple(int(d) for d in mesh.split("x")), device)
+        for arch in SERVE_MESH_ARCHS:
+            cfg = get_config(arch, reduced=True)
+            params1 = model.init_params(torch.Generator(device).manual_seed(0), cfg, device=device)
+            for mode, (B, prompt, cap) in SERVE_MESH_SHAPES.items():
+                shape = InputShape("serve", cap, B, "decode")
+                toks, _ = synthetic_prompt(cfg, B, prompt, torch.Generator(device).manual_seed(1),
+                                           device)
+                for quant in (False, True):
+                    tag = f"[5l] (a) {arch} {mesh} {mode} {'int8' if quant else 'float32'}"
+                    dec, specs = make_decode_step(cfg, plan, shape, kv_quant=quant)
+                    ctx, rows = specs["ctx"], specs["token_rows"]
+                    params = shard_from_one_rank(params1, specs["param_meta"], plan.tp,
+                                                 ctx.model_index())
+                    nxt1, caches1 = model.prefill(params1, cfg, one, toks, shape)
+                    if quant:
+                        caches1 = int8_caches(torch, caches1)
+                    got = []
+
+                    def go():
+                        if mode == "batch":
+                            pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True)
+                            nxt, caches = pre(params, toks[rows])
+                            if quant:
+                                caches = int8_caches(torch, caches)
+                        else:
+                            caches = cache_from_numpy(
+                                caches1, specs["cache_meta"], plan.tp, ctx.model_index(),
+                                client=ctx.client_index, n_clients=ctx.n_clients, device=device)
+                            nxt = nxt1[rows]
+                        got.append(nxt)
+                        for t in range(SERVE_MESH_STEPS):
+                            nxt, caches = dec(params, caches, nxt[:, None], prompt + t)
+                            got.append(nxt)
+
+                    counted(tag, {}, go)
+                    want = [nxt1]
+                    for t in range(SERVE_MESH_STEPS):
+                        nxt1, caches1 = model.decode_step(params1, caches1, cfg, one,
+                                                          nxt1[:, None], prompt + t)
+                        want.append(nxt1)
+                    got, want = torch.stack(got, 1), torch.stack(want, 1)[rows]
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{tag}: tokens {got.tolist()} != the one-rank "
+                                             f"decode's {want.tolist()}")
+                    report[tag[9:]] = {"rows": [rows.start, rows.stop], "tokens": got.tolist(),
+                                       "seq_shards": ctx.seq_shards if mode == "seq" else 1,
+                                       "tp": plan.tp}
+                    del params, caches1
+    return report
+
+
+def long_fill(torch, cache_meta, client: int, n_clients: int, device, block: int):
+    """This client's caches of ``cache_meta`` (no model axis), every
+    attention cache's k and v drawn block by block of ``block`` sequence
+    positions: float32 normals from a generator seeded by (layer, k or v,
+    the block's global index), so that any sharding on the sequence
+    rebuilds the same global cache (a ring is whole, its slots its
+    positions); an int8 cache holds ``quant_kv`` of the same values; SSM
+    states zero. Returns (caches, {"layer/name/block": float64 sum of
+    the block's float32 values}) for the blocks this client holds."""
+    from repro_torch.models import meta as meta_lib
+    from repro_torch.models.attention import quant_kv
+
+    caches = meta_lib.zeros(cache_meta, 1, n_clients, device)
+    sums = {}
+    for layer, (c, m) in enumerate(zip(caches, cache_meta)):
+        if "k" not in c:
+            continue
+        for name in ("k", "v"):
+            buf = c[name][:, 0]  # (1, kvl, S_local, hd)
+            S = buf.shape[2]
+            start = client * S if m[name].pspec[3] is not None else 0
+            for lo in range(0, S, block):
+                b = (start + lo) // block
+                g = torch.Generator(device).manual_seed((layer * 2 + (name == "v")) << 24 | b)
+                vals = torch.randn((1,) + tuple(buf.shape[1:2]) + (min(block, S - lo),)
+                                   + tuple(buf.shape[3:]), generator=g, device=device)
+                sums[f"{layer}/{name}/{b}"] = vals.double().sum()
+                if buf.dtype == torch.int8:
+                    q, sc = quant_kv(vals)
+                    buf[:, :, lo:lo + block] = q
+                    c[name + "_scale"][:, 0, :, lo:lo + block] = sc
+                else:
+                    buf[:, :, lo:lo + block] = vals
+    return caches, {k: float(v) for k, v in sums.items()}
+
+
+@contextlib.contextmanager
+def hidden_states(model):
+    """Records the final hidden state (B, D) that each decode step hands
+    ``model.lm_head_argmax``, a copy a call."""
+    kept, saved = [], model.lm_head_argmax
+
+    def recording(params, ctx, h):
+        kept.append(h.detach().clone())
+        return saved(params, ctx, h)
+
+    model.lm_head_argmax = recording
+    try:
+        yield kept
+    finally:
+        model.lm_head_argmax = saved
+
+
+def clocked_collectives(torch, fn) -> dict:
+    """``fn()`` with every collective of ``models/common.py`` clocked (a
+    synchronisation around each): calls, bytes in, ms, and the whole
+    call's ms."""
+    from repro_torch.models import common
+
+    clocked = {"calls": 0, "ms": 0.0, "bytes": 0}
+    saved = (common._all_reduce, common._gather, common._reduce_scatter)
+
+    def clock(f):
+        def timed(x, *args, **kwargs):
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            out = f(x, *args, **kwargs)
+            torch.cuda.synchronize()
+            clocked["calls"] += 1
+            clocked["ms"] += (time.perf_counter() - c0) * 1e3
+            clocked["bytes"] += x.numel() * x.element_size()
+            return out
+        return timed
+
+    common._all_reduce, common._gather, common._reduce_scatter = map(clock, saved)
+    try:
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        clocked["step_ms"] = (time.perf_counter() - c0) * 1e3
+    finally:
+        common._all_reduce, common._gather, common._reduce_scatter = saved
+    return clocked
+
+
+def decode_clock(torch, step, n: int) -> dict:
+    """``step(i)`` for i < n: ms a step by CUDA events, the host's ms a
+    call; then one more ``step(n - 1)`` under torch.profiler (device busy
+    ms, launches, the largest kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    host = []
+    ev[0].record()
+    for i in range(n):
+        h0 = time.perf_counter()
+        step(i)
+        host.append((time.perf_counter() - h0) * 1e3)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(n - 1)
+        torch.cuda.synchronize()
+    by_kernel = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in by_kernel) / 1e3
+    launches = sum(str(e.device_type).endswith("CUDA") for e in prof.events())
+    steady = ms[1:]
+    return {"step_ms": ms, "median_ms": statistics.median(steady), "min_ms": min(steady),
+            "max_ms": max(steady), "host_ms": host, "host_median_ms": statistics.median(host[1:]),
+            "profiled_busy_ms": busy, "profiled_launches": launches,
+            "top_kernels_ms": {demangle(e.key)[:80]: e.device_time_total / 1e3
+                               for e in by_kernel[:5]}}
+
+
+def serve_long_run(torch, counted, ctx, dec, params, cfg, caches, pos0: int, steps: int,
+                   tag: str) -> dict:
+    """SERVE_LONG's decode: ``steps`` greedy steps from token 7 at
+    ``pos0`` (counted), their tokens and final hidden states; then the
+    clocks (``decode_clock`` over the last position again,
+    ``clocked_collectives`` of one more step)."""
+    from repro_torch.models import model
+
+    got = {}
+
+    def go():
+        nxt = torch.full((1,), 7, dtype=torch.int32, device=params["final_norm"].device)
+        tokens = []
+        with hidden_states(model) as kept:
+            for t in range(steps):
+                nxt, _ = dec(params, caches, cfg, ctx, nxt[:, None], pos0 + t)
+                tokens.append(int(nxt[0]))
+        got["tokens"], got["hidden"] = tokens, torch.cat(kept).cpu()
+
+    counted(tag, {}, go)
+    last = pos0 + steps - 1
+    one = torch.full((1, 1), got["tokens"][-1], dtype=torch.int32,
+                     device=params["final_norm"].device)
+    clock = decode_clock(torch, lambda i: dec(params, caches, cfg, ctx, one, last), steps)
+    clock["collectives"] = clocked_collectives(
+        torch, lambda: dec(params, caches, cfg, ctx, one, last))
+    return {**got, **clock}
+
+
+def serve_long_rank(torch, counted, device) -> dict:
+    """Phase 5l (b) on this rank of SERVE_LONG_MESH: SERVE_LONG's arch at
+    full width (a CUDA generator's tree, whole on each rank) at its input
+    shape, a batch of 1: ``make_decode_step`` with the global layers'
+    caches sequence-sharded over the client ranks, filled by
+    ``long_fill``, float32 then int8; SERVE_LONG's steps from the
+    cache's last positions. Per run: tokens, hidden states (to
+    build/phase5l), block sums, clocks, peak memory, the bound."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.distributed.step import make_decode_step, make_plan
+    from repro_torch.models import model
+
+    arch, shape_name, steps, want_params = SERVE_LONG
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    plan = make_plan(SERVE_LONG_MESH, device)
+    params = model.init_params(torch.Generator(device).manual_seed(0), cfg, device=device)
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != want_params:
+        raise AssertionError(f"[5l] (b) {arch}: {n_params} parameters")
+    weight_bytes = 4 * (n_params - params["embed"].numel())
+    report = {"arch": arch, "shape": shape_name, "seq": shape.seq_len, "params": n_params}
+    for quant in (False, True):
+        kind = "int8" if quant else "float32"
+        fn, specs = make_decode_step(cfg, plan, shape, kv_quant=quant)
+        ctx = specs["ctx"]
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        caches, sums = long_fill(torch, specs["cache_meta"], ctx.client_index, ctx.n_clients,
+                                 device, SERVE_LONG_BLOCK)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        cache_bytes = sum(t.numel() * t.element_size() for t in leaves(caches))
+        run = serve_long_run(torch, counted, ctx,
+                             lambda p, c, cfg_, ctx_, tok, pos: fn(p, c, tok, pos),
+                             params, cfg, caches, shape.seq_len - steps, steps,
+                             f"[5l] (b) {arch} {kind}")
+        hidden = run.pop("hidden")
+        torch.save(hidden, os.path.join(ROOT, "build", "phase5l",
+                                        f"long_{kind}_rank{torch.distributed.get_rank()}.pt"))
+        b = bound(weight_bytes + cache_bytes)
+        report[kind] = {**run, "fill_s": fill_s, "block_sums": sums, "cache_bytes": cache_bytes,
+                        "weight_bytes": weight_bytes, "bound_ms": b[0], "bound_by": b[1],
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "peak_bytes_above_start": torch.cuda.max_memory_allocated() - start_bytes,
+                        "seq_shards": ctx.seq_shards, "client": ctx.client_index}
+        del caches
+    del params
+    torch.cuda.empty_cache()
+    return report
+
+
+def serve_check() -> int:
+    """Phase 5l (b)'s one-rank check, a process of its own after the
+    ranks exit: SERVE_LONG's arch at full width (the same generator's
+    tree), the whole cache of each layer from ``long_fill``, unsharded
+    ``model.decode_step`` from the same token and position, float32 then
+    int8: tokens, hidden states, block sums, clocks, to
+    build/phase5l/check.json (hidden states beside it)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.common import ParallelCtx
+
+    arch, shape_name, steps, _ = SERVE_LONG
+    cfg, shape, ctx = get_config(arch), INPUT_SHAPES[shape_name], ParallelCtx()
+    params = model.init_params(torch.Generator("cuda").manual_seed(0), cfg, device="cuda")
+    report = {}
+
+    def counted(tag, expect, fn):
+        ops.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        if dict(ops.launches) != expect:
+            raise AssertionError(f"{tag}: launch counts {dict(ops.launches)}")
+
+    for quant in (False, True):
+        kind = "int8" if quant else "float32"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        caches, sums = long_fill(torch, model.cache_meta(cfg, 1, shape, (), kv_quant=quant), 0, 1,
+                                 "cuda", SERVE_LONG_BLOCK)
+        run = serve_long_run(
+            torch, counted, ctx, lambda p, c, cfg_, ctx_, tok, pos: model.decode_step(
+                p, c, cfg_, ctx_, tok, pos), params, cfg, caches, shape.seq_len - steps, steps,
+            f"[5l] (b) one-rank {kind}")
+        torch.save(run.pop("hidden"), os.path.join(ROOT, "build", "phase5l", f"long_{kind}_check.pt"))
+        report[kind] = {**run, "block_sums": sums,
+                        "cache_bytes": sum(t.numel() * t.element_size() for t in leaves(caches)),
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+        del caches
+    with open(os.path.join(ROOT, "build", "phase5l", "check.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def serve_axis_rank(torch, counted, device) -> dict:
+    """Phase 5l (c) on this rank of SERVE_AXIS_MESH: SERVE_AXIS_ARCH at
+    full width, this rank's slices of phase 5i's tree (the same
+    generator's one-rank tree, ``convert.shard_from_one_rank``), at 5i's
+    batch, prompt and capacity: ``make_prefill_step`` (sequence parallel)
+    of 5i's prompt, then ``make_decode_step`` teacher-forced on 5i's
+    generated tokens (counted); every next token == 5i's. Clocks as
+    (b)'s, over 5i's last position."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves, shard_from_one_rank
+    from repro_torch.distributed.step import make_decode_step, make_plan, make_prefill_step
+    from repro_torch.models import model
+
+    served = torch.load(os.path.join(ROOT, "build", "phase5l", "serve_5i.pt"))
+    toks, gen = served["toks"].to(device), served["gen"].to(device)
+    B, prompt = toks.shape
+    gen_len = gen.shape[1]
+    cfg = get_config(SERVE_AXIS_ARCH)
+    plan = make_plan(SERVE_AXIS_MESH, device)
+    shape = InputShape("serve", prompt + gen_len, B, "decode")
+    pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True)
+    dec, specs = make_decode_step(cfg, plan, shape)
+    ctx, rows = specs["ctx"], specs["token_rows"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device).manual_seed(0), cfg, device=device)
+    params = shard_from_one_rank(params, specs["param_meta"], plan.tp, ctx.model_index())
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    local_params = sum(t.numel() for t in leaves(params))
+    toks, gen = toks[rows], gen[rows]
+    got = {}
+
+    def go():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        nxt, caches = pre(params, toks)
+        ev[1].record()
+        torch.cuda.synchronize()
+        got["prefill_ms"] = ev[0].elapsed_time(ev[1])
+        out = [nxt]
+        for i in range(gen_len - 1):
+            nxt, caches = dec(params, caches, gen[:, i:i + 1], prompt + i)
+            out.append(nxt)
+        got["tokens"], got["caches"] = torch.stack(out, 1), caches
+
+    counted(f"[5l] (c) {SERVE_AXIS_ARCH} 1x2", {}, go)
+    if not torch.equal(got["tokens"], gen):
+        bad = (got["tokens"] != gen).nonzero().tolist()
+        raise AssertionError(f"[5l] (c) next tokens differ from phase 5i's at (row, step) {bad}")
+    caches, last = got.pop("caches"), prompt + gen_len - 1
+    one = gen[:, -1:]
+    clock = decode_clock(torch, lambda i: dec(params, caches, one, last), gen_len - 1)
+    clock["collectives"] = clocked_collectives(torch, lambda: dec(params, caches, one, last))
+    report = {"arch": SERVE_AXIS_ARCH, "mesh": "x".join(map(str, SERVE_AXIS_MESH)),
+              "batch": B, "prompt": prompt, "generated": gen_len, "init_s": init_s,
+              "local_params": local_params, "prefill_ms": got["prefill_ms"],
+              "seq_parallel": pspecs["ctx"].seq_parallel, **clock,
+              "tokens_per_s": B / clock["median_ms"] * 1e3,
+              "phase_5i_decode_ms": served["decode_ms"],
+              "peak_bytes": torch.cuda.max_memory_allocated(),
+              "peak_bytes_above_start": torch.cuda.max_memory_allocated() - start_bytes}
+    del params, caches
+    torch.cuda.empty_cache()
+    return report
+
+
+def serve_worker(part: str) -> int:
+    """One rank of a phase 5l launch (``--serve-worker two|four|full``),
+    as ``tp_worker``: ``two``/``four`` run (a) at the meshes of their
+    ranks, ``full`` runs (b) then (c); each run counted, the report to
+    build/phase5l/<part>_rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    device = train._device("cuda")
+    train._init_from_env(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    runs = {}
+
+    def counted(tag, expect, fn):
+        ops.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        got = dict(ops.launches)
+        if got != expect:
+            raise AssertionError(f"{tag} (rank {rank}): launch counts {got}, expected {expect}")
+        runs[tag] = got
+
+    report = {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(device)}
+    if part == "full":
+        report["long"] = serve_long_rank(torch, counted, device)
+        dist.barrier()
+        report["model_axis"] = serve_axis_rank(torch, counted, device)
+    else:
+        report["reduced"] = serve_mesh_reduced(torch, counted, world, device)
+    report["runs"] = runs
+    with open(os.path.join(ROOT, "build", "phase5l", f"{part}_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def serve_phase(torch, served: dict, card: str) -> dict:
+    """Phase 5l: serving over a mesh on the one card. Writes phase 5i's
+    SERVE_AXIS_ARCH tokens for (c); three launches of ranks
+    (serve_worker): (a) on 2 and on 4 ranks, (b) and (c) on 2; then
+    serve_check. Holds (b)'s ranks against the check: block sums equal,
+    tokens equal, hidden states within SERVE_LONG_HIDDEN_RTOL of the
+    largest; returns the report."""
+    import shutil
+
+    out_dir = os.path.join(ROOT, "build", "phase5l")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.save(served, os.path.join(out_dir, "serve_5i.pt"))
+    torch.cuda.empty_cache()
+    report = {}
+    for part, ranks in (("two", 2), ("four", 4), ("full", 2)):
+        reports = tp_launch(part, ranks, phase="5l")
+        report[part] = [{k: v for k, v in rep.items() if k != "runs"} for rep in reports]
+        if part != "full":
+            for key, r in reports[0]["reduced"].items():
+                log(f"[5l] (a) {key}: prefill + {SERVE_MESH_STEPS} decode steps on {ranks} ranks "
+                    f"== the one-rank decode, every rank's rows: {r['tokens']}")
+    t0 = time.perf_counter()
+    check = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-check"],
+                           cwd=ROOT, capture_output=True, text=True, timeout=TP_TIMEOUT)
+    if check.returncode:
+        raise AssertionError(f"[5l] (b) one-rank check exited {check.returncode}:\n"
+                             f"{(check.stdout + check.stderr)[-6000:]}")
+    log(f"[5l] (b) one-rank check in {time.perf_counter() - t0} s")
+    with open(os.path.join(out_dir, "check.json")) as f:
+        want = json.load(f)
+    long = [r["long"] for r in report["full"]]
+    for kind in ("float32", "int8"):
+        ref = want[kind]
+        h_ref = torch.load(os.path.join(out_dir, f"long_{kind}_check.pt"))
+        errs = []
+        for r, rep in enumerate(long):
+            mine = rep[kind]
+            for k, v in mine["block_sums"].items():
+                if ref["block_sums"][k] != v:
+                    raise AssertionError(f"[5l] (b) {kind} rank {r}: block {k} sum {v} != "
+                                         f"{ref['block_sums'][k]}")
+            if mine["tokens"] != ref["tokens"]:
+                raise AssertionError(f"[5l] (b) {kind} rank {r}: tokens {mine['tokens']} != the "
+                                     f"one-rank decode's {ref['tokens']}")
+            h = torch.load(os.path.join(out_dir, f"long_{kind}_rank{r}.pt"))
+            err = float((h - h_ref).abs().max() / h_ref.abs().max())
+            if not err <= SERVE_LONG_HIDDEN_RTOL:
+                raise AssertionError(f"[5l] (b) {kind} rank {r}: hidden states {err} of the "
+                                     f"largest from the one-rank decode's")
+            errs.append(err)
+        covered = set().union(*(rep[kind].pop("block_sums") for rep in long))
+        if covered != set(ref["block_sums"]):  # the rings' blocks on every rank
+            raise AssertionError(f"[5l] (b) {kind}: the ranks hold {len(covered)} blocks of "
+                                 f"{len(ref['block_sums'])}")
+        report.setdefault("long_check", {})[kind] = {
+            "tokens": ref["tokens"], "hidden_rel_err": errs,
+            "one_rank": {k: ref[k] for k in ("median_ms", "min_ms", "max_ms", "host_median_ms",
+                                             "profiled_busy_ms", "profiled_launches",
+                                             "top_kernels_ms", "cache_bytes", "peak_bytes")}}
+        two = [rep[kind] for rep in long]
+        log(f"[5l] (b) {long[0]['arch']} full width ({long[0]['params']} parameters) at "
+            f"{long[0]['shape']} (sequence {long[0]['seq']}, batch 1), {kind} caches sharded "
+            f"on the sequence over 2 ranks: tokens {ref['tokens']} == the one-rank decode's, "
+            f"hidden states within {errs} of the largest (tolerance {SERVE_LONG_HIDDEN_RTOL}); "
+            f"decode ms a step, median (min-max) "
+            f"{[(t['median_ms'], t['min_ms'], t['max_ms']) for t in two]}; bound ms a rank "
+            f"{[t['bound_ms'] for t in two]} ({two[0]['bound_by']}: weights "
+            f"{two[0]['weight_bytes']} B + caches {[t['cache_bytes'] for t in two]} B); host "
+            f"dispatch ms {[t['host_median_ms'] for t in two]}, busy ms "
+            f"{[t['profiled_busy_ms'] for t in two]} in {[t['profiled_launches'] for t in two]} "
+            f"launches (largest kernels {two[0]['top_kernels_ms']}); seq collectives a step "
+            f"{[t['collectives'] for t in two]}; peak a rank {[t['peak_bytes'] for t in two]} B "
+            f"({[t['peak_bytes_above_start'] for t in two]} above the parameters); one-rank "
+            f"{ref['median_ms']} ms a step ({ref['min_ms']}-{ref['max_ms']}), busy "
+            f"{ref['profiled_busy_ms']} ms (largest kernels {ref['top_kernels_ms']}), peak "
+            f"{ref['peak_bytes']} B; nvidia-smi: {card}")
+    axis = [r["model_axis"] for r in report["full"]]
+    a0 = axis[0]
+    log(f"[5l] (c) {a0['arch']} full width at {a0['mesh']} ({[r['local_params'] for r in axis]} "
+        f"parameters a rank), batch {a0['batch']}, prompt {a0['prompt']} (sequence parallel "
+        f"{a0['seq_parallel']}), {a0['generated']} tokens teacher-forced: every next token == "
+        f"phase 5i's; prefill ms {[r['prefill_ms'] for r in axis]}; decode ms a step, median "
+        f"(min-max) {[(r['median_ms'], r['min_ms'], r['max_ms']) for r in axis]} against 5i's "
+        f"{a0['phase_5i_decode_ms']} at tp = 1; host dispatch ms "
+        f"{[r['host_median_ms'] for r in axis]}, busy ms {[r['profiled_busy_ms'] for r in axis]}; "
+        f"model-axis collectives a step {[r['collectives'] for r in axis]}; peak a rank "
+        f"{[r['peak_bytes'] for r in axis]} B; nvidia-smi: {card}")
+    return report
+
+
+def main() -> int:
+    import torch
 def main() -> int:
     import torch
 
@@ -3684,11 +4282,13 @@ def main() -> int:
 
     # phase 5i: serving (each reduced config; gemma3-4b and zamba2-1.2b at
     # full width), the single-leaf encodes, calibration
+    served = {}  # SERVE_AXIS_ARCH's prompt and tokens, for phase 5l (c)
     with torch.no_grad():
         log(json.dumps({"serve_reduced": serve_reduced(torch, card)}))
         for arch, (batch, prompt, gen_len, n_params) in SERVE_FULL.items():
             log(json.dumps({"serve_full_width": serve_full_width(
-                torch, arch, batch, prompt, gen_len, n_params, card)}))
+                torch, arch, batch, prompt, gen_len, n_params, card,
+                keep=served if arch == SERVE_AXIS_ARCH else None)}))
     log(json.dumps({"single_leaves": serve_single_leaves(torch, counted)}))
     log(json.dumps({"calibration": calibration_report(card)}))
 
@@ -3706,6 +4306,12 @@ def main() -> int:
     t5k = time.perf_counter()
     log(json.dumps({"model_axis": tp_phase(torch, counts, paths, card)}))
     log(f"[5k] phase 5k in {time.perf_counter() - t5k} s")
+
+    # phase 5l: serving over a mesh (the serve steps, flash-decoding at
+    # long_500k, greedy decoding over a model axis), ranks on the one card
+    t5l = time.perf_counter()
+    log(json.dumps({"serve_mesh": serve_phase(torch, served, card)}))
+    log(f"[5l] phase 5l in {time.perf_counter() - t5l} s")
 
     # phase 6: where a warm round spends device time, FedConfig()'s round
     # for each mechanism (graphed), the graphed fused packed round, the
@@ -3762,4 +4368,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-worker"]:
+        sys.exit(serve_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-check"]:
+        sys.exit(serve_check())
     sys.exit(main())

@@ -35,3 +35,7 @@ def get_config(arch: str, *, reduced: bool = False):
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.reduced_config() if reduced else mod.config()
+
+
+def all_configs(reduced: bool = False) -> dict:
+    return {a: get_config(a, reduced=reduced) for a in ARCH_IDS}

@@ -10,6 +10,7 @@ same weight in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -42,6 +43,82 @@ def shard_from_numpy(tree, meta_tree, tp: int, index: int, device="cuda"):
     return meta_lib.tree_map(
         lambda m, a: meta_lib.shard_leaf(tree_from_numpy(a, "cpu"), m, tp, index)
         .clone().to(device), meta_tree, tree)
+
+
+def _as_tensor(a, dtype) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, through float32, exactly) or
+    tensor as a tensor of ``dtype``, on the CPU or where it lies."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype)
+    a = np.asarray(a)
+    if a.dtype != np.int8:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+def _rank_piece(t: torch.Tensor, m, tp: int, index: int, client: int, n_clients: int,
+                key=None) -> torch.Tensor:
+    """Model rank ``index``'s and client ``client``'s piece (a view) of a
+    leaf given in its global layout at ``tp`` (the shape of ``m``) or in
+    the one-rank layout (its model dim of 1). From the one-rank layout,
+    as the reference's ``tests/sharded_checks.py`` re-lays a leaf: where
+    the leaf's content dim holds ``n`` distinct slices for the ``tp``
+    ranks (KV heads fewer than tp: ``n < tp``), rank ``index`` takes slice
+    ``index // (tp // n)``, the copies duplicated across model ranks; a
+    leaf of no such dim is the same on every rank; an SSM ``w_zx``'s z
+    and x streams are split each."""
+    from repro_torch.models import meta as meta_lib
+
+    if tuple(t.shape) != tuple(m.shape):
+        ax = meta_lib.model_dim(m)
+        if ax < 0 or t.shape[ax] != 1 or m.shape[ax] != tp or t.dim() != len(m.shape):
+            raise ValueError(f"a leaf of shape {tuple(t.shape)} is neither the global "
+                             f"{m.shape} nor its one-rank layout")
+        diff = [i for i in range(t.dim()) if i != ax and t.shape[i] != m.shape[i]]
+        if key == "w_zx":
+            z, x = t.chunk(2, dim=-1)
+            t = torch.cat([_rank_piece(h, dataclasses.replace(m, shape=m.shape[:-1] + (
+                m.shape[-1] // 2,)), tp, index, 0, 1) for h in (z, x)], dim=-1)
+        elif diff:
+            (c,) = diff
+            dup = tp // (t.shape[c] // m.shape[c])
+            t = t.narrow(c, (index // dup) * m.shape[c], m.shape[c])
+        return meta_lib.shard_leaf(t, m, 1, 0, client=client, n_clients=n_clients)
+    return meta_lib.shard_leaf(t, m, tp, index, client=client, n_clients=n_clients)
+
+
+def _walk(f, tree, meta_tree, key=None):
+    if isinstance(meta_tree, dict):
+        return {k: _walk(f, tree[k], v, k) for k, v in meta_tree.items()}
+    if isinstance(meta_tree, (tuple, list)):
+        return type(meta_tree)(_walk(f, t, v, key) for t, v in zip(tree, meta_tree))
+    if meta_tree is None:
+        return None
+    return f(tree, meta_tree, key)
+
+
+def cache_from_numpy(caches, cache_meta, tp: int, index: int, *, client: int = 0,
+                     n_clients: int = 1, device="cuda"):
+    """The reference's caches (numpy, GLOBAL layout: as its serve steps
+    return them at ``tp``, or a one-rank prefill's at tp = 1) -> this
+    rank's local caches by ``cache_meta`` (``models/model.py``): model
+    rank ``index``'s slice (``_rank_piece``: KV heads fewer than tp are
+    duplicated across model ranks, not split) and client ``client``'s
+    block of ``n_clients`` along a batch or, at batch 1, sequence dim
+    sharded over the clients; each leaf in a buffer of its own on
+    ``device``, of its Meta's dtype (int8 codes, bfloat16 scales)."""
+    return _walk(lambda a, m, key: _rank_piece(_as_tensor(a, m.dtype), m, tp, index, client,
+                                               n_clients, key).clone().to(device),
+                 caches, cache_meta)
+
+
+def shard_from_one_rank(tree, meta_tree, tp: int, index: int):
+    """A one-rank (tp = 1) tree of tensors (parameters or caches) -> model
+    rank ``index``'s pieces at ``tp`` by ``meta_tree`` (``_rank_piece``),
+    each in a buffer of its own where it lies: every rank of a model axis
+    serving the model that the one-rank tree is."""
+    return _walk(lambda t, m, key: _rank_piece(t, m, tp, index, 0, 1, key).clone(),
+                 tree, meta_tree)
 
 
 class _Leaf:

@@ -73,6 +73,12 @@ class RQMParams(GridGeometry):
         if not 0.0 < self.q < 1.0:
             raise ValueError(f"q must be in (0,1), got {self.q}")
 
+    def epsilon_infinity(self) -> float:
+        """Theorem 5.2's closed-form upper bound on D_inf (the eps of
+        (eps, 0)-DP): log(2 (1-q)^2 (1 + c/delta)) + m log(1/(1-q))."""
+        return float(np.log(2.0 * (1.0 - self.q) ** 2 * (1.0 + self.c / self.delta))
+                     + self.m * np.log(1.0 / (1.0 - self.q)))
+
 
 def decode_scale(n: int, params: GridGeometry) -> float:
     """``2 x_max / (n (m-1))`` as the reference computes it: a Python
@@ -109,3 +115,9 @@ def decode_sum(z_sum: torch.Tensor, n, params: GridGeometry) -> torch.Tensor:
     else:
         scale = float(np.float32(decode_scale(n, params)))
     return float(np.float32(-params.x_max)) + z_sum.to(torch.float32) * scale
+
+
+def encode_value(z: torch.Tensor, params: GridGeometry) -> torch.Tensor:
+    """A level index mapped back to its grid value B(z) (single device):
+    ``-(c+delta) + z * step`` in float32."""
+    return float(np.float32(-params.x_max)) + z.to(torch.float32) * float(np.float32(params.step))

@@ -72,7 +72,7 @@ def accepted_options(name: str) -> frozenset:
 def _require_kernel(mech) -> None:
     if not mech.use_kernel:
         raise NotImplementedError(
-            f"{mech.name} with use_kernel=False draws from jax.random (threefry), "
+            f"{mech.name} with use_kernel=False draws on jax.random (threefry), "
             "which this package does not reimplement; the port encodes with the "
             "counter-based splitmix32 kernels only")
 
@@ -444,3 +444,19 @@ def make_mechanism(spec, **defaults) -> Mechanism:
     options = {k: v for k, v in defaults.items() if k in accepted}
     options.update(explicit)
     return cls.from_options(**options)
+
+
+def make_rqm_mechanism(params: RQMParams, *, use_kernel: bool = True) -> Mechanism:
+    return RQMMechanism(params, use_kernel=use_kernel)
+
+
+def make_pbm_mechanism(params: PBMParams, *, use_kernel: bool = True) -> Mechanism:
+    return PBMMechanism(params, use_kernel=use_kernel)
+
+
+def make_qmgeo_mechanism(params: QMGeoParams, *, use_kernel: bool = True) -> Mechanism:
+    return QMGeoMechanism(params, use_kernel=use_kernel)
+
+
+def make_noise_free_mechanism(c: float) -> Mechanism:
+    return NoiseFreeMechanism(c=c)

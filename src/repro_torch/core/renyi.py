@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -59,14 +59,29 @@ def worst_case_inputs(c: float, n: int, seed: int = 0) -> tuple[np.ndarray, np.n
     return np.concatenate([[c], rest]), np.concatenate([[-c], rest])
 
 
+def rqm_pairwise_divergence(x: float, x_prime: float, params: RQMParams, alpha: float) -> float:
+    """D_alpha(P_{Q(x)} || P_{Q(x')}): single-device (local) Renyi DP."""
+    return renyi_divergence(rqm_outcome_distribution(x, params),
+                            rqm_outcome_distribution(x_prime, params), alpha)
+
+
+def aggregate_renyi_divergence(per_device_pmf: Callable[[float], np.ndarray],
+                               xs: Sequence[float], xs_prime: Sequence[float],
+                               alpha: float) -> float:
+    """eps(alpha) = D_alpha(P_{sum Q(x_i)} || P_{sum Q(x'_i)}) for the
+    aggregate-level adversary that sees only the SecAgg output (Sec 6.1)."""
+    p = aggregate_distribution([per_device_pmf(float(x)) for x in xs])
+    q = aggregate_distribution([per_device_pmf(float(x)) for x in xs_prime])
+    return renyi_divergence(p, q, alpha)
+
+
 def _aggregate_epsilon(family: str, params, pmf, n: int, alpha: float, seed: int) -> float:
     """The worst-case aggregate epsilon of n devices whose per-device pmf
     is ``pmf``, through the privacy cache."""
 
     def compute():
         x, xp = worst_case_inputs(params.c, n, seed)
-        return renyi_divergence(aggregate_distribution([pmf(float(v)) for v in x]),
-                                aggregate_distribution([pmf(float(v)) for v in xp]), alpha)
+        return aggregate_renyi_divergence(pmf, x, xp, alpha)
 
     return cached_epsilon(family, params, n, alpha, seed, compute)
 

@@ -1,7 +1,7 @@
-"""The distributed LM train step (counterpart of
-``repro/distributed/step.py``), its train half: the paper's Algorithm 1
-over client-parallel ranks, each client tensor-parallel over a model
-axis.
+"""The distributed LM train and serve steps (counterpart of
+``repro/distributed/step.py``): the paper's Algorithm 1 over
+client-parallel ranks, each client tensor-parallel over a model axis;
+and the prefill and decode steps over the same mesh.
 
   * the ('pod', 'data') axes are the FEDERATED CLIENTS: one process a
     client, each computing its gradient on its rows of the global batch;
@@ -31,8 +31,17 @@ per-leaf uint32 seeds instead, in the reference's leaf order
 a pure function of (seed, step, client, leaf, shard index), so a resumed
 run needs no stored stream. A leaf's shard index (``shard_seed_indices``)
 is shared by the ranks that hold the same copy of it, so that copies
-draw identical levels. ZeRO-1, int16 aggregation and the serve steps are
-not ported (ROADMAP.md queue A items 13-14).
+draw identical levels. ZeRO-1 and int16 aggregation are not ported
+(ROADMAP.md queue A item 14).
+
+Serve steps (``make_prefill_step``, ``make_decode_step``): a batch above
+1 is split over the clients, each client's rows served by its model
+ranks; at batch 1 (long-context decode) every rank decodes the one row
+and the full-attention caches are sharded on their sequence dim over the
+clients (flash-decoding, ``models/attention.py:decode``). A rank's step
+takes its parameters, its pieces of the caches (``model.cache_meta``;
+``meta.zeros``, ``convert.cache_from_numpy``) and its rows of the tokens
+(``specs["token_rows"]``).
 """
 from __future__ import annotations
 
@@ -89,15 +98,21 @@ class MeshPlan:
         return math.prod(self.shape[a] for a in self.client_axes)
 
     def ctx(self, *, seq_parallel: bool = False) -> ParallelCtx:
+        """This rank's ParallelCtx; the seq axis (long-context decode's
+        KV sharding) is the client axes, as in the reference."""
+        seq = dict(seq_axis=self.client_axes or None,
+                   seq_axis_sizes=tuple(self.shape[a] for a in self.client_axes),
+                   seq_shards=self.n_clients)
         if self.tp == 1:
             return ParallelCtx(client_axes=self.client_axes, n_clients=self.n_clients,
-                               client_index=dist.get_rank(self.group), group=self.group)
+                               client_index=dist.get_rank(self.group), group=self.group,
+                               **seq)
         g = self.model_groups
         return ParallelCtx(model_axis=self.model_axis, tp=self.tp,
                            client_axes=self.client_axes, n_clients=self.n_clients,
                            client_index=g.client_index, group=self.group,
                            model_group=g.model, model_rank=g.model_index,
-                           subgroups=g.subgroups, seq_parallel=seq_parallel)
+                           subgroups=g.subgroups, seq_parallel=seq_parallel, **seq)
 
 
 def make_plan(dims, device) -> MeshPlan:
@@ -251,3 +266,93 @@ def make_train_step(cfg: ModelConfig, plan: MeshPlan, mech: Mechanism, opt: Opti
     meta_tree = model_lib.param_meta(cfg, tp=plan.tp)
     return step_fn, {"param_meta": meta_tree, "ctx": ctx,
                      "shard_seeds": shard_seed_indices(meta_tree, ctx)}
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+
+def _float32_only(compute_dtype, param_dtype) -> None:
+    if compute_dtype != torch.float32 or param_dtype != torch.float32:
+        raise NotImplementedError(
+            f"compute_dtype {compute_dtype} / param_dtype {param_dtype}: the port's LM paths "
+            "compute in float32; other dtypes are ROADMAP.md queue A item 14")
+
+
+def _token_rows(B: int, ctx: ParallelCtx, *, whole: bool) -> slice:
+    """This rank's rows of a global batch of ``B``: its client's block
+    (the reference's in_spec ``P(client_axes, None)``), or all of them
+    (``whole``: the seq-sharded batch of 1, replicated)."""
+    if whole:
+        return slice(0, B)
+    N = max(1, ctx.n_clients)
+    if B % N:
+        raise ValueError(f"global batch {B} does not divide over {N} client ranks "
+                         f"(axes {ctx.client_axes})")
+    return slice(ctx.client_index * (B // N), (ctx.client_index + 1) * (B // N))
+
+
+def make_decode_step(cfg: ModelConfig, plan: MeshPlan, shape: InputShape, *,
+                     compute_dtype=torch.float32, param_dtype=torch.float32,
+                     kv_quant: bool = False):
+    """One-token decode step against a ``shape.seq_len`` KV cache, on this
+    rank of ``plan``: ``fn(params, caches, tokens, pos) -> (next_token,
+    caches)``, the caches written in place; ``tokens`` (b, 1) are the
+    rank's rows of the global batch (``specs["token_rows"]``), and so are
+    the next tokens (equal on a client's model ranks). At batch 1 the
+    full-attention caches are sequence-sharded over the client ranks and
+    every rank decodes the one row. ``kv_quant``: int8 K/V caches.
+    Returns ``(fn, specs)``: ``param_meta``, ``cache_meta`` (also as
+    ``param_specs``/``cache_specs``: each Meta holds its pspec),
+    ``token_spec``, ``token_rows`` and this rank's ``ctx``."""
+    _float32_only(compute_dtype, param_dtype)
+    ctx = plan.ctx()
+    seq_sharded = shape.global_batch == 1
+    meta_tree = model_lib.param_meta(cfg, tp=ctx.tp)
+    cache_meta = model_lib.cache_meta(cfg, ctx.tp, shape, plan.client_axes, kv_quant=kv_quant)
+    rows = _token_rows(shape.global_batch, ctx, whole=seq_sharded)
+
+    def fn(params, caches, tokens, pos):
+        return model_lib.decode_step(params, caches, cfg, ctx, tokens, pos,
+                                     seq_sharded=seq_sharded)
+
+    specs = {"param_meta": meta_tree, "cache_meta": cache_meta,
+             "param_specs": meta_tree, "cache_specs": cache_meta,  # each Meta holds its pspec
+             "token_spec": (None if seq_sharded else plan.client_axes, None),
+             "token_rows": rows, "ctx": ctx}
+    return fn, specs
+
+
+def make_prefill_step(cfg: ModelConfig, plan: MeshPlan, shape: InputShape, *,
+                      compute_dtype=torch.float32, param_dtype=torch.float32,
+                      seq_parallel: bool = False, sp_compress: bool = False):
+    """Prefill a prompt into ``shape.seq_len`` caches and the first token,
+    on this rank of ``plan``: ``fn(params, tokens, prefix_embeds=None) ->
+    (next_token, caches)`` on the rank's rows of the global batch
+    (``specs["token_rows"]``, which must divide over the clients), the
+    caches whole on their sequence dim. ``seq_parallel``: the residual
+    stream sharded over the model axis (dropped where tp does not divide
+    ``shape.seq_len``, as in the reference, and for a prompt it does not
+    divide). ``sp_compress`` is refused (queue A item 14). Returns ``(fn,
+    specs)``: ``param_meta``, ``param_specs``, ``cache_meta``,
+    ``token_spec``, ``token_rows``, ``ctx``."""
+    _float32_only(compute_dtype, param_dtype)
+    if seq_parallel and shape.seq_len % plan.tp != 0:
+        seq_parallel = False
+    ctx = plan.ctx(seq_parallel=seq_parallel)
+    if sp_compress:
+        ctx = dataclasses.replace(ctx, sp_compress=True)  # refused (A14)
+    no_sp = plan.ctx()
+    meta_tree = model_lib.param_meta(cfg, tp=ctx.tp)
+    rows = _token_rows(shape.global_batch, ctx, whole=False)
+    pfx = cfg.frontend.prefix_len if cfg.frontend is not None else 0
+
+    def fn(params, tokens, prefix_embeds=None):
+        c = ctx if (pfx + tokens.shape[1]) % ctx.tp == 0 else no_sp
+        return model_lib.prefill(params, cfg, c, tokens, shape, prefix_embeds)
+
+    specs = {"param_meta": meta_tree, "param_specs": meta_tree,
+             "cache_meta": model_lib.cache_meta(cfg, ctx.tp, shape, plan.client_axes),
+             "token_spec": (plan.client_axes, None), "token_rows": rows, "ctx": ctx}
+    return fn, specs

@@ -26,6 +26,7 @@ from __future__ import annotations
 import inspect
 from typing import ClassVar, Dict, Type
 
+import numpy as np
 import torch
 
 from repro_torch.core.mechanisms import parse_mechanism_spec
@@ -281,3 +282,12 @@ class LmTask(ClientTask):
         grads = meta_lib.sync_grads(local_grads, self._meta, ctx)
         return meta_lib.gather_tree(map_leaves(lambda i, _: grads[i], self._meta),
                                     self._meta, ctx)
+
+
+def tree_nbytes(tree) -> int:
+    """Total bytes of a staged tree's leaves (numpy arrays or tensors; the
+    staging byte counters)."""
+    from repro_torch.convert import leaves
+
+    return int(sum(t.numel() * t.element_size() if isinstance(t, torch.Tensor)
+                   else np.asarray(t).nbytes for t in leaves(tree)))

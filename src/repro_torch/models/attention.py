@@ -20,8 +20,10 @@ Over a model axis of tp, a rank holds ``q_local`` query heads and
 ``kv_local`` KV heads (``plan_attn_sharding``); where the heads do not
 cover the axis, the global parameters hold each slice ``dup_attn``
 (``dup_kv``) times, and the out-projection's psum is divided by
-``dup_attn``. Flash-decoding over a sequence-sharded cache
-(``seq_sharded=True``) is ROADMAP.md queue A item 13.
+``dup_attn``. Flash-decoding (``decode(seq_sharded=True)``): a cache's
+sequence dim sharded over the seq axis (``ParallelCtx.seq_axis``, the
+client axes), each shard attends over its own keys and the partial
+softmaxes combine by a max and a sum over the axis.
 """
 from __future__ import annotations
 
@@ -252,16 +254,31 @@ def _cache_write(cache: dict, prefix: str, new: torch.Tensor, idx: int, *,
 
 
 def _attend_cache(params: dict, spec: AttentionSpec, ctx: ParallelCtx, sh: AttnSharding,
-                  q: torch.Tensor, cache: dict, valid: torch.Tensor) -> torch.Tensor:
+                  q: torch.Tensor, cache: dict, valid: torch.Tensor, *,
+                  seq_combine: bool = False) -> torch.Tensor:
     """One query (B, kvl, qpg, hd) against the cache's keys where
-    ``valid`` (S,), then the output projection: (B, 1, D)."""
+    ``valid`` (S,), then the output projection: (B, 1, D). With
+    ``seq_combine`` the keys are this shard's of a sequence-sharded cache,
+    and the shards' partial softmaxes combine over the seq axis
+    (flash-decoding): the max of the local maxima, then each shard's
+    ``exp(scores - max)``-weighted values and exp-sum, summed over the
+    axis (in one collective), divided."""
     B = q.shape[0]
     k_cache = _cache_read(cache, "k", q.dtype)  # (B, kvl, S, hd)
     v_cache = _cache_read(cache, "v", q.dtype)
     scores = torch.einsum("bkgh,bksh->bkgs", q, k_cache).to(torch.float32) * spec.scale
     scores = torch.where(valid[None, None, None], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    attn = torch.einsum("bkgs,bksh->bkgh", w, v_cache).reshape(B, 1, sh.q_local * spec.head_dim)
+    if seq_combine:
+        m = ctx.pmax_seq(scores.amax(-1, keepdim=True))
+        e = torch.exp(scores - m)
+        num = torch.einsum("bkgs,bksh->bkgh", e.to(v_cache.dtype), v_cache)
+        den = e.sum(-1, keepdim=True).to(v_cache.dtype)
+        both = ctx.psum_seq(torch.cat([num, den], dim=-1))
+        attn = both[..., :-1] / both[..., -1:]
+    else:
+        w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+        attn = torch.einsum("bkgs,bksh->bkgh", w, v_cache)
+    attn = attn.reshape(B, 1, sh.q_local * spec.head_dim)
     y = attn @ squeeze_tp(params["wo"], 0).to(attn.dtype)
     y = ctx.psum_model(y)
     if sh.dup_attn > 1:
@@ -271,25 +288,38 @@ def _attend_cache(params: dict, spec: AttentionSpec, ctx: ParallelCtx, sh: AttnS
 
 def decode(params: dict, spec: AttentionSpec, ctx: ParallelCtx, x: torch.Tensor,
            cache: dict, pos: int, *, seq_sharded: bool = False):
-    """One decode step. x: (B, 1, D); cache entries (B, 1(tp), kvl, S, hd);
-    pos: the number of tokens already in the cache. Writes the token's
-    k/v at ``pos`` in place; returns (y (B,1,D), cache)."""
-    if seq_sharded:
-        raise NotImplementedError(
-            "seq_sharded decode (flash-decoding over a sequence-sharded cache) is not "
-            "ported yet: ROADMAP.md queue A item 13")
+    """One decode step. x: (B, 1, D); cache entries (B, 1(tp), kvl, S, hd)
+    locally; pos: the number of tokens already in the cache. Writes the
+    token's k/v at ``pos`` in place; returns (y (B,1,D), cache).
+
+    seq_sharded: the cache's S dim is sharded over ``ctx.seq_axis``, shard
+    i holding keys ``[i S, (i+1) S)``. The shard whose slice holds ``pos``
+    writes the token; every other shard keeps its entry (a masked write).
+    Without a seq axis this is the plain decode."""
     sh = plan(spec, ctx.tp)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, spec, sh, x, positions)
     q = q.reshape(B, sh.kv_local, sh.q_local // sh.kv_local, spec.head_dim)
-    _cache_write(cache, "k", k_new.transpose(1, 2), pos)
-    _cache_write(cache, "v", v_new.transpose(1, 2), pos)
-    k_pos = torch.arange(cache["k"].shape[3], device=x.device)
+    S_local = cache["k"].shape[3]
+    k_pos = torch.arange(S_local, device=x.device)
+    if seq_sharded:
+        shard = ctx.seq_index()
+        local = pos - shard * S_local
+        write = torch.full((), 0 <= local < S_local, dtype=torch.bool, device=x.device)
+        idx = min(max(local, 0), S_local - 1)
+        _cache_write(cache, "k", k_new.transpose(1, 2), idx, masked_write=write)
+        _cache_write(cache, "v", v_new.transpose(1, 2), idx, masked_write=write)
+        k_pos = k_pos + shard * S_local
+    else:
+        _cache_write(cache, "k", k_new.transpose(1, 2), pos)
+        _cache_write(cache, "v", v_new.transpose(1, 2), pos)
     valid = k_pos <= pos
     if spec.window is not None:
         valid = valid & (k_pos > pos - spec.window)
-    return _attend_cache(params, spec, ctx, sh, q, cache, valid), cache
+    y = _attend_cache(params, spec, ctx, sh, q, cache, valid,
+                      seq_combine=seq_sharded and ctx.seq_axis is not None)
+    return y, cache
 
 
 def prefill_kv(params: dict, spec: AttentionSpec, ctx: ParallelCtx, x: torch.Tensor,
@@ -300,7 +330,8 @@ def prefill_kv(params: dict, spec: AttentionSpec, ctx: ParallelCtx, x: torch.Ten
     sh = plan(spec, ctx.tp)
     S = x.shape[1]
     q, k, v = _project_qkv(params, spec, sh, x, positions)
-    cache = {name: k.new_zeros(shape)
+    # this rank's cache: its kv_local heads, the tp axis of 1
+    cache = {name: k.new_zeros((shape[0], 1) + shape[2:])
              for name, shape in init_cache_shape(spec, ctx.tp, x.shape[0], max_len).items()}
     squeeze_tp(cache["k"], 1)[:, :, :S] = k.transpose(1, 2)
     squeeze_tp(cache["v"], 1)[:, :, :S] = v.transpose(1, 2)

@@ -27,6 +27,13 @@ gradients are summed over their subgroup (``subgroup_psum``) in the
 reference's recursive-doubling order, so the copies stay bit-identical.
 The compressed sequence-parallel all-gather (``sp_compress``) is
 ROADMAP.md queue A item 14.
+
+Long-context decode shards a KV cache's sequence dim over the client
+axes (flash-decoding, ``attention.decode(seq_sharded=True)``): the seq
+axis's ranks are the clients' process group and a shard's index its
+client index. Its collectives (``pmax_seq``, ``psum_seq``) and the
+model axis's ``pmin_model`` serve the forward-only decode and carry no
+gradient.
 """
 from __future__ import annotations
 
@@ -128,6 +135,11 @@ class ParallelCtx:
     client_axes: the names of the federated-client axes ('pod', 'data'),
       empty for a plain run; n_clients: their product, the ranks of
       ``group``; client_index: this rank's linear index among them;
+    seq_axis / seq_axis_sizes / seq_shards: the axes over which
+      long-context decode shards the KV cache's sequence dim (the client
+      axes; None: no seq axis), their sizes and product; a shard's index
+      is ``client_index`` (``seq_index``) and its collectives run over
+      ``group``;
     seq_parallel: Megatron-style sequence parallelism, the residual
       stream between blocks (B, S/tp, D), all-gathered on a block's entry
       and psum_scattered on its exit.
@@ -142,6 +154,9 @@ class ParallelCtx:
     model_group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
     model_rank: int = 0
     subgroups: tuple = dataclasses.field(default=(), compare=False)
+    seq_axis: Optional[tuple] = None
+    seq_axis_sizes: tuple = ()
+    seq_shards: int = 1
     seq_parallel: bool = False
     sp_compress: bool = False
 
@@ -154,6 +169,9 @@ class ParallelCtx:
             raise ValueError(f"a model axis of {self.tp} needs its process group")
         if self.client_axes and self.group is None:
             raise ValueError(f"client axes {self.client_axes} need the clients' process group")
+        if self.seq_axis and self.seq_shards > 1 and self.group is None:
+            raise ValueError(f"a seq axis {self.seq_axis} of {self.seq_shards} shards needs "
+                             f"the clients' process group")
 
     @property
     def model(self) -> bool:
@@ -189,8 +207,34 @@ class ParallelCtx:
             return x
         return _all_reduce(x, self.model_group, dist.ReduceOp.MAX)
 
+    def pmin_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The min over the model axis (forward only)."""
+        if not self.model:
+            return x
+        return _all_reduce(x, self.model_group, dist.ReduceOp.MIN)
+
     def model_index(self) -> int:
         return self.model_rank if self.model else 0
+
+    def seq_index(self) -> int:
+        """This shard's linear index along the KV-sequence sharding (the
+        reference's pod-major index over ``seq_axis``: the client index)."""
+        return self.client_index if self.seq_axis else 0
+
+    def _seq(self) -> bool:
+        return bool(self.seq_axis) and self.seq_shards > 1
+
+    def pmax_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The max over the seq axis (forward only); over one shard ``x``."""
+        if not self._seq():
+            return x
+        return _all_reduce(x, self.group, dist.ReduceOp.MAX)
+
+    def psum_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the seq axis (forward only); over one shard ``x``."""
+        if not self._seq():
+            return x
+        return _all_reduce(x, self.group)
 
     def subgroup_psum(self, x: torch.Tensor, group_size: int) -> torch.Tensor:
         """Sum over contiguous aligned subgroups of ``group_size`` (a

@@ -15,8 +15,11 @@ its leaves in the reference's ``tree_flatten`` order (sorted dict keys),
 the order in which the train step's gradients and per-leaf seeds are
 handed. The reference's ``shardings`` (a ``NamedSharding`` a leaf) has
 two counterparts here, one process a rank: ``shard_leaf`` takes a rank's
-slice of a global leaf along its "model" dim, and ``gather_leaf`` puts
-the model ranks' slices back together.
+slice of a global leaf along its "model" dim and along every dim sharded
+over the client axes (a cache's batch, or its sequence at batch 1;
+``models/model.py:cache_meta``), and ``gather_leaf`` puts the model
+ranks' slices back together. ``zeros`` makes a rank's zero leaves (the
+caches a decode starts from).
 """
 from __future__ import annotations
 
@@ -62,23 +65,45 @@ def model_dim(m: Meta) -> int:
     return next((i for i, e in enumerate(m.pspec or ()) if e == "model"), -1)
 
 
-def local_shape(m: Meta, tp: int) -> tuple:
-    """A rank's shape of the leaf (its model dim divided by tp)."""
+def client_dims(m: Meta) -> list:
+    """The leaf's dims sharded over the client axes (a pspec entry that
+    names axes other than the model axis)."""
+    return [i for i, e in enumerate(m.pspec or ()) if e not in (None, "model", ())]
+
+
+def local_shape(m: Meta, tp: int, n_clients: int = 1) -> tuple:
+    """A rank's shape of the leaf (its model dim divided by tp, each client
+    dim by ``n_clients``)."""
     d, shape = model_dim(m), list(m.shape)
     if d >= 0:
         shape[d] //= tp
+    for d in client_dims(m):
+        shape[d] //= n_clients
     return tuple(shape)
 
 
-def shard_leaf(p: torch.Tensor, m: Meta, tp: int, index: int) -> torch.Tensor:
+def shard_leaf(p: torch.Tensor, m: Meta, tp: int, index: int, *, client: int = 0,
+               n_clients: int = 1) -> torch.Tensor:
     """Model rank ``index``'s slice (a view) of the global leaf ``p``: its
     block ``index`` of ``tp`` along the model dim, the whole of a
-    replicated leaf (the reference's ``fed/tasks.py:shard_params``)."""
+    replicated leaf (the reference's ``fed/tasks.py:shard_params``); and
+    client ``client``'s block of ``n_clients`` along each client dim."""
     d = model_dim(m)
-    if d < 0 or tp == 1:
-        return p
-    size = p.shape[d] // tp
-    return p.narrow(d, index * size, size)
+    if d >= 0 and tp > 1:
+        size = p.shape[d] // tp
+        p = p.narrow(d, index * size, size)
+    if n_clients > 1:
+        for d in client_dims(m):
+            size = p.shape[d] // n_clients
+            p = p.narrow(d, client * size, size)
+    return p
+
+
+def zeros(meta_tree, tp: int = 1, n_clients: int = 1, device="cuda"):
+    """A rank's zero leaves of ``meta_tree`` (``local_shape``, each its
+    Meta's dtype) on ``device``."""
+    return tree_map(lambda m: torch.zeros(local_shape(m, tp, n_clients), dtype=m.dtype,
+                                          device=device), meta_tree)
 
 
 def gather_leaf(p: torch.Tensor, m: Meta, ctx: ParallelCtx) -> torch.Tensor:

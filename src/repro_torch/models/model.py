@@ -1,8 +1,9 @@
 """Model assembly (counterpart of ``repro/models/model.py``): embedding
 -> blocks (attn / ssm / shared_attn, mlp / moe) -> the vocab-parallel,
 sequence-chunked LM head loss, tensor-parallel over the model axis; and
-the serving path (``prefill``, ``decode_step``, greedy
-``lm_head_argmax``) at tp = 1.
+the serving path (``cache_meta``, ``prefill``, ``decode_step``, greedy
+``lm_head_argmax``), over a model axis and, for long-context decode, a
+sequence-sharded cache.
 
 Parameter tree (the reference's; on a rank the ``tp`` axes are of size 1):
   embed:      (tp, V_l, D)  vocab-parallel table
@@ -23,10 +24,11 @@ Serving: ``prefill`` runs a prompt and builds one cache a layer (an
 attention layer's k/v, a sliding-window layer's as a ring buffer of
 ``min(capacity, window)`` slots; an SSM layer's recurrent state), and
 ``decode_step`` feeds one token a step, writing those caches IN PLACE
-and returning them (the reference returns new ones). ``cache_meta``, the
-caches' sharding over a mesh (and with it the int8 KV layout), and
-greedy decoding over a model axis (``lm_head_argmax``'s pmin) are
-ROADMAP.md queue A item 13.
+and returning them (the reference returns new ones). ``cache_meta`` lays
+the caches out over a mesh (batch-sharded over the client axes, or at
+batch 1 a full-attention layer's cache sharded on its sequence dim for
+flash-decoding), float32 or int8 K/V codes with bfloat16 per-token
+scales.
 """
 from __future__ import annotations
 
@@ -198,15 +200,22 @@ def lm_head_loss(params: dict, cfg: ModelConfig, ctx: ParallelCtx, h: torch.Tens
 
 
 def lm_head_argmax(params: dict, ctx: ParallelCtx, h: torch.Tensor) -> torch.Tensor:
-    """Greedy next token. h: (B, D) -> (B,) int32; among equal logits the
-    smallest id (``torch.argmax`` returns the first maximum)."""
-    if ctx.model:
-        raise NotImplementedError(
-            "greedy decoding over a model axis (lm_head_argmax's pmin over it) is not "
-            "ported yet: ROADMAP.md queue A item 13")
+    """Greedy next token over the vocab-parallel head. h: (B, D) -> (B,)
+    int32; among equal logits the smallest id. Over a model axis: each
+    rank's best logit and its (first) id, offset to the global vocab;
+    the max over the axis; the ids of the ranks holding it, the min over
+    the axis (the others offer int32's max)."""
     head = squeeze_tp(params["lm_head"], 1)
+    v_l = head.shape[1]
     logits = (h @ head.to(h.dtype)).to(torch.float32)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    local_arg = torch.argmax(logits, dim=-1).to(torch.int32)  # the first maximum
+    if not ctx.model:
+        return local_arg
+    local_arg = local_arg + ctx.model_index() * v_l
+    local_best = logits.amax(dim=-1)
+    best = ctx.pmax_model(local_best)
+    cand = torch.where(local_best >= best, local_arg, torch.iinfo(torch.int32).max)
+    return ctx.pmin_model(cand)
 
 
 # ---------------------------------------------------------------------------
@@ -276,10 +285,67 @@ def _mlp_or_moe(layer_params: dict, p: dict, cfg: ModelConfig, layer: LayerSpec,
     return mlp.forward(p["mlp"], cfg.mlp_kind, ctx, h)
 
 
+def cache_meta(cfg: ModelConfig, tp: int, shape: InputShape, client_axes: tuple, *,
+               dtype=torch.float32, kv_quant: bool = False) -> tuple:
+    """The Meta tree of the KV/SSM caches of one serving shape (global
+    shapes; a pspec entry ``client_axes`` is a dim sharded over the
+    clients, ``"model"`` one over the model axis).
+
+    A batch above 1 is sharded over the client axes, each shard holding
+    the whole sequence. At batch 1 (``long_500k``) a full-attention
+    layer's cache is sharded over the client axes on its SEQUENCE dim
+    (flash-decoding); a sliding-window layer keeps a ring of ``min(seq_len,
+    window)`` slots and the SSM states are replicated. ``kv_quant``
+    stores K/V as int8 codes and bfloat16 per-token scales (``k_scale``,
+    ``v_scale``, of shape ``k.shape[:-1] + (1,)``). The caches compute in
+    float32, as every LM path of this package: another ``dtype`` is
+    ROADMAP.md queue A item 14."""
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"caches of {dtype} (the reference's compute_dtype other than float32) are not "
+            "ported yet: ROADMAP.md queue A item 14")
+    B = shape.global_batch
+    seq_sharded = B == 1
+    # the entry as a PartitionSpec holds it: None for no axes, a name for one
+    client_axes = tuple(client_axes)
+    client_axes = (client_axes[0] if len(client_axes) == 1 else client_axes) or None
+    batch_spec = None if seq_sharded else client_axes
+    seq_spec = client_axes if seq_sharded else None
+    caches = []
+    for layer in cfg.layers:
+        if layer.kind == "ssm":
+            s = ssm.init_state_shape(cfg.ssm, tp, B)
+            caches.append({
+                "h": Meta(s["h"], torch.float32, (batch_spec, "model", None, None, None), 1),
+                "conv_x": Meta(s["conv_x"], dtype, (batch_spec, "model", None, None), 1),
+                "conv_bc": Meta(s["conv_bc"], dtype, (batch_spec, None, None), 1),
+            })
+            continue
+        # a sliding-window layer reads only the last `window` keys: a ring
+        # of that many slots, replicated at batch 1
+        S_c = shape.seq_len if layer.window is None else min(shape.seq_len, layer.window)
+        layer_seq_spec = seq_spec if layer.window is None else None
+        c = attention.init_cache_shape(cfg.attn_spec(layer), tp, B, S_c)
+        pspec = (batch_spec, "model", None, layer_seq_spec, None)
+        if kv_quant:
+            scale_shape = c["k"][:-1] + (1,)
+            caches.append({"k": Meta(c["k"], torch.int8, pspec, 1),
+                           "k_scale": Meta(scale_shape, torch.bfloat16, pspec, 1),
+                           "v": Meta(c["v"], torch.int8, pspec, 1),
+                           "v_scale": Meta(scale_shape, torch.bfloat16, pspec, 1)})
+        else:
+            caches.append({"k": Meta(c["k"], dtype, pspec, 1),
+                           "v": Meta(c["v"], dtype, pspec, 1)})
+    return tuple(caches)
+
+
 def decode_step(params: dict, caches: tuple, cfg: ModelConfig, ctx: ParallelCtx,
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int, *, seq_sharded: bool = False):
     """One decode step. tokens (B, 1); pos: the tokens already in the
-    caches. Writes the caches in place; returns (next_token (B,), caches)."""
+    caches. Writes the caches in place; returns (next_token (B,), caches).
+    seq_sharded: the full-attention layers' caches are sharded on their
+    sequence dim over ``ctx.seq_axis`` (``cache_meta`` at batch 1), and
+    decode by flash-decoding; sliding-window rings are whole."""
     x = embed(params, cfg, ctx, tokens)
     for layer_params, layer, cache in zip(params["layers"], cfg.layers, caches):
         if layer.kind == "ssm":
@@ -294,7 +360,8 @@ def decode_step(params: dict, caches: tuple, cfg: ModelConfig, ctx: ParallelCtx,
             # ring-buffer window cache: write at pos % window
             y, _ = _decode_ring(p["attn"], spec, ctx, h, cache, pos, S_c)
         else:
-            y, _ = attention.decode(p["attn"], spec, ctx, h, cache, pos)
+            y, _ = attention.decode(p["attn"], spec, ctx, h, cache, pos,
+                                    seq_sharded=seq_sharded and layer.window is None)
         x = x + y
         h = rms_norm(x, p["norm2"])
         x = x + _mlp_or_moe(layer_params, p, cfg, layer, ctx, h, decode=True)

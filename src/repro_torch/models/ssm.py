@@ -215,8 +215,7 @@ def forward(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor, *,
     }
     # each in a buffer of its own: a view of the raw streams would keep the
     # whole (B, S, 2 d_inner) projection alive for as long as the state
-    state = {name: final[name].new_empty(shape).copy_(final[name])
-             for name, shape in init_state_shape(spec, ctx.tp, B).items()}
+    state = {name: t.clone(memory_format=torch.contiguous_format) for name, t in final.items()}
     return out, state
 
 

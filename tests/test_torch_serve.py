@@ -25,7 +25,8 @@ reference's parameters carried over with ``tree_from_numpy``:
   * the int8 KV helpers and a masked ``_cache_write`` on a hand-built
     int8 cache, and a decode step over it, bit for bit;
   * MoE decode capacity (T * top_k, nothing dropped); a tie in
-    ``lm_head_argmax`` (the smallest id); ``seq_sharded=True`` refused;
+    ``lm_head_argmax`` (the smallest id); ``seq_sharded=True`` with no
+    seq axis == the plain decode bit for bit;
     ``dense_init`` on a CPU generator unchanged;
   * ``python -m repro_torch.launch.serve`` and
     ``examples/serve_demo_torch.py`` on ``--device cpu``.
@@ -318,11 +319,30 @@ def test_lm_head_argmax_ties_go_to_the_smallest_id():
 
 
 def test_seq_sharded_decode_is_refused():
+    """Named for the refusal it held until flash-decoding was ported: now
+    the reference's case of ``seq_sharded=True`` with no seq axis (its
+    ``attention.py:309``), the plain decode, bit for bit (output and the
+    written caches, float32 and int8)."""
     spec = attention.AttentionSpec(d_model=16, num_heads=2, num_kv_heads=1, head_dim=8)
     p = attention.init_params(torch.Generator().manual_seed(0), spec, device="cpu")
-    cache = {k: torch.zeros(1, 1, 1, 4, 8) for k in ("k", "v")}
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        attention.decode(p, spec, CTX, torch.zeros(1, 1, 16), cache, 0, seq_sharded=True)
+    rng = np.random.default_rng(8)
+    kv = rng.normal(size=(2, 1, 1, 6, 8)).astype(np.float32)
+    x = torch.from_numpy(rng.normal(size=(2, 1, 16)).astype(np.float32))
+    for quant in (False, True):
+        caches = []
+        for _ in range(2):
+            if quant:
+                q, s = attention.quant_kv(torch.from_numpy(kv))
+                caches.append({"k": q.clone(), "k_scale": s.clone(), "v": q.clone(),
+                               "v_scale": s.clone()})
+            else:
+                caches.append({k: torch.from_numpy(kv.copy()) for k in ("k", "v")})
+        for pos in (0, 3, 5):
+            plain, _ = attention.decode(p, spec, CTX, x, caches[0], pos)
+            sharded, _ = attention.decode(p, spec, CTX, x, caches[1], pos, seq_sharded=True)
+            assert torch.equal(plain, sharded), (quant, pos)
+            for k in caches[0]:
+                assert torch.equal(caches[0][k], caches[1][k]), (quant, pos, k)
 
 
 def test_dense_init_on_a_cpu_generator_is_unchanged():

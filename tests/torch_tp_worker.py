@@ -30,7 +30,14 @@ and exits 0 when every hold passed. Imports no JAX.
     (the ranks share the card over gloo) against their sums on the CPU;
   * ``fed <SxM>``: the shard engine's 2-D lm round (tests/fed_lm_2d_checks.py's
     problem), its per-round sums and parameters written for the test to
-    compare across grids.
+    compare across grids;
+  * ``serve <mode> <DxM>``: tests/tp_reference.py's ``serve`` job on this
+    rank: ``make_prefill_step``/``make_decode_step`` at the mesh from the
+    one-rank parameters (``convert.shard_from_one_rank``), the caches of
+    mode ``seq`` through ``convert.cache_from_numpy``, the int8 ones from
+    ``meta.zeros``; this rank's tokens of every step and final caches
+    written with its model and client index; in mode ``batch``
+    ``lm_head_argmax`` at each of tp_cases.ARGMAX_TPS.
 """
 import datetime
 import hashlib
@@ -322,6 +329,70 @@ def job_fed(rank, world, inputs, out_dir, grid):
     print(f"rank {rank}: fed {grid}: parameters bit-equal on every rank")
 
 
+def job_serve(rank, world, inputs, out_dir, mode, mesh):
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import cache_from_numpy, shard_from_one_rank
+    from repro_torch.distributed.step import make_decode_step, make_plan, make_prefill_step
+    from repro_torch.launch.mesh import mesh_groups
+    from repro_torch.models import model
+
+    dims = tuple(int(d) for d in mesh.split("x"))
+    plan = make_plan(dims, "cpu")
+    shape = InputShape("t", tp_cases.SERVE_CAP, tp_cases.SERVE_BATCH[mode], "decode")
+    out = {}
+
+    def save(prefix, tokens, caches):
+        out[f"{prefix}tokens"] = torch.stack(tokens).numpy()
+        for i, c in enumerate(leaves(caches)):
+            out[f"{prefix}cache/{i}"] = c.float().numpy() if c.dtype == torch.bfloat16 \
+                else c.numpy()
+
+    for arch in tp_cases.SERVE_ARCHS[mode]:
+        cfg = get_config(arch, reduced=True)
+        dec, specs = make_decode_step(cfg, plan, shape)
+        ctx, rows = specs["ctx"], specs["token_rows"]
+        one = map_leaves(lambda i, _: torch.from_numpy(inputs[f"{arch}/params/{i}"]),
+                         model.param_meta(cfg, 1))
+        params = shard_from_one_rank(one, specs["param_meta"], plan.tp, ctx.model_index())
+        pos = tp_cases.SERVE_PROMPT
+        if mode == "batch":
+            pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True)
+            assert pspecs["ctx"].seq_parallel == (plan.tp > 1)
+            nxt, caches = pre(params, torch.from_numpy(inputs[f"{arch}/tokens"])[rows])
+        else:
+            ref = map_leaves(lambda i, _: inputs[f"{arch}/cache/{i}"], specs["cache_meta"])
+            caches = cache_from_numpy(ref, specs["cache_meta"], plan.tp, ctx.model_index(),
+                                      client=ctx.client_index, n_clients=ctx.n_clients,
+                                      device="cpu")
+            nxt = torch.from_numpy(inputs[f"{arch}/tok"])[rows][:, 0]
+        tokens = [nxt]
+        for t in range(tp_cases.SERVE_STEPS):
+            nxt, caches = dec(params, caches, nxt[:, None], pos + t)
+            tokens.append(nxt)
+        save(f"{arch}/", tokens, caches)
+        dec_q, qspecs = make_decode_step(cfg, plan, shape, kv_quant=True)
+        caches = meta_lib.zeros(qspecs["cache_meta"], plan.tp, ctx.n_clients, "cpu")
+        nxt, tokens = torch.from_numpy(inputs[f"{arch}/tok0"])[rows][:, 0], []
+        for t in range(tp_cases.SERVE_INT8_STEPS):
+            nxt, caches = dec_q(params, caches, nxt[:, None], t)
+            tokens.append(nxt)
+        save(f"{arch}/q_", tokens, caches)
+    if mode == "batch":  # lm_head_argmax at each model axis, ties across shards
+        head, h = (torch.from_numpy(inputs[f"argmax/{k}"]) for k in ("head", "h"))
+        for tp in tp_cases.ARGMAX_TPS:
+            g = mesh_groups(world // tp, tp, "cpu")
+            ctx = ParallelCtx(model_axis="model", tp=tp, model_group=g.model,
+                              model_rank=g.model_index, subgroups=g.subgroups)
+            v_l = head.shape[1] // tp
+            mine = {"lm_head": head[:, None, g.model_index * v_l:(g.model_index + 1) * v_l]}
+            out[f"argmax{tp}"] = model.lm_head_argmax(mine, ctx, h).numpy()
+    out["model_index"] = np.asarray(plan.ctx().model_index())
+    out["client_index"] = np.asarray(plan.ctx().client_index)
+    np.savez(os.path.join(out_dir, f"serve_{mode}_{mesh}_rank{rank}.npz"), **out)
+    print(f"rank {rank}: serve {mode} {mesh}")
+
+
 def job_cuda_ops(rank, world):
     """Each collective of a tp = ``world`` ParallelCtx and its backward on
     CUDA tensors (gloo; the ranks share the card), against the sums made
@@ -374,6 +445,8 @@ def main():
         job_step(rank, world, inputs, out_dir, sys.argv[7])
     elif job == "fed":
         job_fed(rank, world, inputs, out_dir, sys.argv[7])
+    elif job == "serve":
+        job_serve(rank, world, inputs, out_dir, *sys.argv[7:9])
     elif job == "launch":
         tp = int(sys.argv[7].split("x")[-1])
         GROUPS[tp] = mesh_groups(world // tp, tp, "cpu")

@@ -81,3 +81,23 @@ def client_fed(case: dict) -> dict:
     return dict(FED, engine="shard", model_shards=case["tp"], local_steps=case["local_steps"],
                 local_lr=CLIENT_LR,
                 task=f"lm:model={case['model']},seq_len=16,batch=1")
+
+# the serve steps over a mesh (tests/test_torch_serve_mesh*.py): each
+# mode's reduced archs (gemma3: a window-64 ring and a global layer;
+# h2o-danube: windows only; zamba2: SSM states and the shared attention
+# block), the prompt and cache (the prompt past the window: the ring's
+# re-lay), the float32 decode steps after the caches, the int8 steps from
+# zero caches, each mode's global batch and meshes ("batch": the batch
+# split over the clients, prefill then decode; "seq": a batch of 1, the
+# global layers' caches sharded on their sequence over the clients,
+# decode from given caches)
+SERVE_ARCHS = {"batch": ("gemma3-4b", "h2o-danube-3-4b", "zamba2-1.2b"),
+               "seq": ("gemma3-4b", "h2o-danube-3-4b")}
+SERVE_PROMPT, SERVE_CAP = 96, 128
+SERVE_STEPS, SERVE_INT8_STEPS = 3, 4
+SERVE_BATCH = {"batch": 4, "seq": 1}
+SERVE_MESHES = {"batch": ("2x2",), "seq": ("2x2", "4x1")}
+
+# lm_head_argmax over a model axis of each tp: a (D, V) head whose rows'
+# maxima tie across shards (the smallest id wins)
+ARGMAX_TPS, ARGMAX_D, ARGMAX_V = (2, 4), 8, 32

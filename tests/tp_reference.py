@@ -25,7 +25,21 @@ at one local step, the lm task's held-out loss at tp (``evaluate``);
 job ``step <DxM>``: the reference's jitted ``make_train_step`` on a
 reduced tp_cases.STEP_ARCH at the mesh, from the global parameters, the
 token batches and the step keys (``key<t>``, key data) of
-``inputs.npz``: the losses and the global parameters after.
+``inputs.npz``: the losses and the global parameters after;
+
+job ``serve <mode> <DxM>``: for each of tp_cases.SERVE_ARCHS[mode], the
+reference's ``make_prefill_step``/``make_decode_step`` at the mesh
+(float32 compute and parameters) from the one-rank parameters of
+``inputs.npz`` (``<arch>/params/<i>``) re-laid at tp as
+``tests/sharded_checks.py`` re-lays them: mode ``batch``, prefill of
+``<arch>/tokens`` then SERVE_STEPS greedy decode steps; mode ``seq``,
+SERVE_STEPS decode steps from the one-rank caches ``<arch>/cache/<i>``
+(re-laid as ``check_flash_decoding`` re-lays them) and token
+``<arch>/tok``; both modes, SERVE_INT8_STEPS int8 steps from zero
+caches and ``<arch>/tok0``. Out: the tokens of every step and the final
+global caches (``<arch>/tokens``, ``<arch>/cache/<i>``, and ``q_``-
+prefixed for int8, scales as float32); and ``lm_head_argmax`` at each
+of tp_cases.ARGMAX_TPS (``argmax<tp>``) on ``argmax/head``, ``argmax/h``.
 """
 import os
 import sys
@@ -225,9 +239,134 @@ def step(inputs: dict, mesh: str) -> dict:
     return out
 
 
+def relayout_tp(params1, cfg, tp):
+    """tp = 1 parameters -> the global layout at tp (shard/duplicate), as
+    tests/sharded_checks.py:relayout_tp does."""
+    import jax.tree_util as jtu
+
+    from repro.models import model
+
+    m1 = jtu.tree_leaves(model.param_meta(cfg, tp=1), is_leaf=meta_lib.is_meta)
+    mN = jtu.tree_leaves(model.param_meta(cfg, tp=tp), is_leaf=meta_lib.is_meta)
+    paths = [jtu.keystr(p) for p, _ in jtu.tree_leaves_with_path(params1)]
+    outs = []
+    for path, p, a, b in zip(paths, jtu.tree_leaves(params1), m1, mN):
+        if a.shape == b.shape:
+            outs.append(p)
+            continue
+        if "w_zx" in path:  # [z | x] streams concatenated: shard separately
+            z, x = jnp.split(p, 2, axis=-1)
+            per = [jnp.concatenate([zz, xx], axis=-1)
+                   for zz, xx in zip(jnp.split(z, tp, axis=-1), jnp.split(x, tp, axis=-1))]
+            outs.append(jnp.concatenate(per, axis=1))
+            continue
+        diff = [i for i, (x_, y_) in enumerate(zip(a.shape, b.shape)) if x_ != y_]
+        ax = diff[0]
+        if len(diff) == 1:  # pure duplication
+            outs.append(jnp.repeat(p, tp, axis=ax))
+            continue
+        n_distinct = a.shape[diff[1]] // b.shape[diff[1]]
+        stacked = jnp.concatenate(jnp.split(p, n_distinct, axis=diff[1]), axis=ax)
+        outs.append(jnp.repeat(stacked, tp // n_distinct, axis=ax))
+    return jtu.tree_unflatten(jtu.tree_structure(params1), outs)
+
+
+def relayout_cache(v, target):
+    """A one-rank cache leaf -> the global layout ``target`` at tp, as
+    tests/sharded_checks.py:check_flash_decoding re-lays it (KV heads
+    duplicated where the slice is whole, else split)."""
+    if v.shape == target:
+        return v
+    if v.shape[2] == target[2]:
+        return jnp.repeat(v, target[1], axis=1)
+    return jnp.stack(jnp.split(jnp.squeeze(v, 1), target[1], axis=1), axis=1)
+
+
+def serve(inputs: dict, mode: str, mesh: str) -> dict:
+    import jax.tree_util as jtu
+
+    from repro.configs import registry
+    from repro.configs.base import InputShape
+    from repro.distributed.step import MeshPlan, make_decode_step, make_prefill_step
+    from repro.models import model
+
+    dims = tuple(int(d) for d in mesh.split("x"))
+    jmesh = _mesh(dims, ("data", "model"))
+    plan = MeshPlan(mesh=jmesh, client_axes=("data",), model_axis="model")
+    B = tp_cases.SERVE_BATCH[mode]
+    shape = InputShape("t", tp_cases.SERVE_CAP, B, "decode")
+    f32 = dict(compute_dtype=jnp.float32, param_dtype=jnp.float32)
+    out = {}
+
+    def save(prefix, tokens, caches):
+        out[f"{prefix}tokens"] = np.stack([np.asarray(t) for t in tokens])
+        for i, c in enumerate(jtu.tree_leaves(caches)):
+            out[f"{prefix}cache/{i}"] = np.asarray(c.astype(jnp.float32)
+                                                   if c.dtype == jnp.bfloat16 else c)
+
+    for arch in tp_cases.SERVE_ARCHS[mode]:
+        cfg = registry.get_config(arch, reduced=True)
+        like = jax.eval_shape(lambda k: model.init_params(k, cfg, tp=1), jax.random.key(0))
+        treedef = jax.tree_util.tree_structure(like)
+        params1 = jax.tree_util.tree_unflatten(treedef, [
+            jnp.asarray(inputs[f"{arch}/params/{i}"]) for i in range(treedef.num_leaves)])
+        params = relayout_tp(params1, cfg, dims[1])
+        dec, specs = make_decode_step(cfg, plan, shape, **f32)
+        params = jax.device_put(params, meta_lib.shardings(specs["param_meta"], jmesh))
+        cmeta = specs["cache_meta"]
+        if mode == "batch":
+            pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True, **f32)
+            nxt, caches = pre(params, jnp.asarray(inputs[f"{arch}/tokens"]))
+            pos = tp_cases.SERVE_PROMPT
+        else:
+            metas = jtu.tree_leaves(cmeta, is_leaf=meta_lib.is_meta)
+            caches = jtu.tree_unflatten(jtu.tree_structure(cmeta, is_leaf=meta_lib.is_meta), [
+                relayout_cache(jnp.asarray(inputs[f"{arch}/cache/{i}"]), m.shape)
+                for i, m in enumerate(metas)])
+            caches = jax.device_put(caches, meta_lib.shardings(cmeta, jmesh))
+            nxt, pos = jnp.asarray(inputs[f"{arch}/tok"])[:, 0], tp_cases.SERVE_PROMPT
+        tokens = [nxt]
+        for t in range(tp_cases.SERVE_STEPS):
+            nxt, caches = dec(params, caches, nxt[:, None], jnp.int32(pos + t))
+            tokens.append(nxt)
+        save(f"{arch}/", tokens, caches)
+        dec_q, qspecs = make_decode_step(cfg, plan, shape, kv_quant=True, **f32)
+        qmeta = qspecs["cache_meta"]
+        caches = jax.device_put(
+            jax.tree_util.tree_map(lambda m: jnp.zeros(m.shape, m.dtype), qmeta,
+                                   is_leaf=meta_lib.is_meta),
+            meta_lib.shardings(qmeta, jmesh))
+        nxt, tokens = jnp.asarray(inputs[f"{arch}/tok0"])[:, 0], []
+        for t in range(tp_cases.SERVE_INT8_STEPS):
+            nxt, caches = dec_q(params, caches, nxt[:, None], jnp.int32(t))
+            tokens.append(nxt)
+        save(f"{arch}/q_", tokens, caches)
+    if mode == "batch":
+        out.update(argmax(inputs))
+    return out
+
+
+def argmax(inputs: dict) -> dict:
+    """lm_head_argmax over a ("model",) mesh of each tp on the global head."""
+    from repro.models import model
+
+    out = {}
+    head, h = jnp.asarray(inputs["argmax/head"]), jnp.asarray(inputs["argmax/h"])
+    for tp in tp_cases.ARGMAX_TPS:
+        ctx = ParallelCtx(model_axis="model", tp=tp)
+        V = head.shape[1]
+        fn = compat_shard_map(lambda p, h: model.lm_head_argmax(p, ctx, h),
+                              mesh=_mesh((tp,), ("model",)),
+                              in_specs=({"lm_head": P(None, "model", None)}, P()),
+                              out_specs=P(), check_vma=False)
+        out[f"argmax{tp}"] = jax.jit(fn)({"lm_head": head.reshape(-1, tp, V // tp)}, h)
+    return out
+
+
 if __name__ == "__main__":
     job, src, dst = sys.argv[1:4]
     inputs = dict(np.load(src)) if os.path.exists(src) else {}
-    res = {"layers": layers, "ops": ops, "client": client, "step": step}[job](inputs, *sys.argv[4:])
+    res = {"layers": layers, "ops": ops, "client": client, "step": step,
+           "serve": serve}[job](inputs, *sys.argv[4:])
     np.savez(dst, **{k: np.asarray(v) for k, v in res.items()})
     print(f"{job}: {len(res)} arrays")
