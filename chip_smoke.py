@@ -261,9 +261,29 @@ which raises and exits non-zero:
      default rounds of benchmarks/fig3_fl_emnist.py's FED settings;
      whether noise-free >= RQM >= PBM held, and the reference's own
      ``tradeoff_ok`` (RQM accuracy >= PBM's - 0.02 and RQM eps < PBM's)
-     (reported, not gated).
+     (reported, not gated);
+  5m. the LM steps at the reference's own precision and memory options,
+     last (so that (c)'s two ranks find the card as free as it gets): (a)
+     on 4 ranks as 5k's (``--opt-worker variants``), reduced gemma3-4b
+     and mamba2-370m at 2x2, float32, tests/sharded_checks.py's
+     ``check_perf_variants`` cases (base, int16 aggregation, int8
+     sequence-parallel gathers, ZeRO-1 with ``agg_dtype="auto"``), 3
+     steps on one batch each, counted (``rqm_quantize`` once a leaf a
+     step): int16 == base bit for bit, ZeRO-1 within 2e-3 of base, every
+     loss finite and falling; (b) 5j (c)'s full-width step in bfloat16
+     with remat (float32 parameters), its first loss within 1e-2 of 5j's
+     float32 one: ms a step and tokens/s beside the bfloat16 bound, host
+     dispatch, one profiled step's busy ms and launches, peak beside the
+     memory model's estimate; (c) on 2 ranks (``--opt-worker zero1
+     <layers>``) ZeRO-1 with bfloat16 parameters and compute over 2x1 at
+     full width (at 12 layers if twice the estimate a rank and this
+     process's memory do not fit the free card, said on the line): losses,
+     ms a step, peak a rank beside the estimate; (d) 5i's gemma3-4b
+     decode in bfloat16 (parameters, compute, caches): ms a step, peak,
+     tokens equal to 5i's float32 ones (reported); lines start with [5m],
+     report "opt_steps", files under build/phase5m.
 
-Every run of phases 4 to 5l (but their reports) sets the kernels' launch counters to 0
+Every run of phases 4 to 5m (but their reports) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
 one of those runs but ``decode_apply``, the folded decode + SGD, which
 no round of either package runs (its association is not bit-identical
@@ -278,6 +298,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -441,6 +462,28 @@ SERVE_LONG_BLOCK = 4096
 SERVE_LONG_HIDDEN_RTOL = 1e-4
 SERVE_AXIS_ARCH = "gemma3-4b"
 SERVE_AXIS_MESH = (1, 2)
+# phase 5m: the LM steps at the reference's own precision and memory
+# options. (a) tests/sharded_checks.py's check_perf_variants on the reduced
+# OPT_ARCHS over OPT_MESH (ranks on the one card, gloo): its variants, its
+# batch (one, repeated: random tokens, the labels the same), its spec, rate
+# and steps, float32 compute; (b) 5j's full-width step in bfloat16 with
+# remat; (c) ZeRO-1 with bfloat16 parameters at full width over
+# OPT_ZERO1_MESH, or at OPT_ZERO1_REDUCED_LAYERS where two ranks' estimate
+# does not fit the card; (d) 5i's decode in bfloat16. bfloat16's dense
+# tensor-core peak (NVIDIA data sheet, H100 SXM); (b)'s first loss against
+# 5j's float32 one: bfloat16 rounds the residual stream at 2**-8 of each
+# element, over 34 blocks
+OPT_ARCHS = ("gemma3-4b", "mamba2-370m")
+OPT_MESH = (2, 2)
+OPT_BATCH, OPT_SEQ, OPT_STEPS = 8, 128, 3
+OPT_SPEC, OPT_LR = "rqm:c=0.05", 0.2
+OPT_VARIANTS = {"base": {}, "int16": {"agg_dtype": "int16"}, "sp_compress": {"sp_compress": True},
+                "zero1": {"zero1": True, "agg_dtype": "auto"}}
+OPT_ZERO1_ATOL = 2e-3
+OPT_ZERO1_MESH = (2, 1)
+OPT_ZERO1_REDUCED_LAYERS = 12
+BF16_FLOPS_PER_S = 989e12
+BF16_LOSS_RTOL = 1e-2
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -2136,7 +2179,8 @@ def lm_full_width(torch, counted, card: str) -> dict:
     batches = [batch_to(pipe.batch(i), "cuda") for i in range(2)]
 
     def loss(f, batch):
-        return model.loss_fn(unravel(f), cfg, ParallelCtx(), batch)[0]
+        return model.loss_fn(unravel(f), cfg, ParallelCtx(), batch, remat=False,
+                             compute_dtype=torch.float32)[0]
 
     grad_and_loss = torch.func.grad_and_value(loss)
     mech = make_mechanism(SPECS["rqm"])
@@ -2382,13 +2426,14 @@ def serve_full_width(torch, arch: str, batch: int, prompt: int, gen_len: int, wa
     shape = InputShape("serve", prompt + gen_len, batch, "decode")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(gen_len + 1)]
     ev[0].record()
-    nxt, caches = model.prefill(params, cfg, ctx, toks, shape, pe)
+    nxt, caches = model.prefill(params, cfg, ctx, toks, shape, pe, compute_dtype=torch.float32)
     ev[1].record()
     generated, host_ms = [nxt], []
     timed = gen_len - 1 - SERVE_PROFILED
     for i in range(timed):
         h0 = time.perf_counter()
-        nxt, caches = model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + i)
+        nxt, caches = model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + i,
+                                        compute_dtype=torch.float32)
         host_ms.append((time.perf_counter() - h0) * 1e3)
         ev[i + 2].record()
         generated.append(nxt)
@@ -2397,7 +2442,8 @@ def serve_full_width(torch, arch: str, batch: int, prompt: int, gen_len: int, wa
     step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(timed)]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(timed, gen_len - 1):
-            nxt, caches = model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + i)
+            nxt, caches = model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + i,
+                                            compute_dtype=torch.float32)
             generated.append(nxt)
         torch.cuda.synchronize()
     by_kernel = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
@@ -2411,7 +2457,8 @@ def serve_full_width(torch, arch: str, batch: int, prompt: int, gen_len: int, wa
     # who issues the launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with issuer_mode(torch):
-            model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + gen_len - 1)
+            model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + gen_len - 1,
+                              compute_dtype=torch.float32)
         torch.cuda.synchronize()
     traced, by_op, by_line = launches_by_issuer(prof)
     peak = torch.cuda.max_memory_allocated() - start_bytes  # parameters included
@@ -2854,14 +2901,15 @@ def train_full_width(torch, counted, card: str) -> dict:
         return out
 
     shape = InputShape("cli", seq, batch, "train")
-    runs["plain"] = run("plain", build_train_step_fn(cfg, mech, opt, lr_fn, ParallelCtx()),
+    f32 = dict(remat=False, compute_dtype=torch.float32)
+    runs["plain"] = run("plain", build_train_step_fn(cfg, mech, opt, lr_fn, ParallelCtx(), **f32),
                         profiled=True)
     t0 = time.perf_counter()
     held = held_encodes(torch, runs["plain"].pop("kept"), f"{arch} full width")
     held_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     plan_step, _ = make_train_step(cfg, make_plan((1, 1), "cuda"), mech, opt, lr_fn, shape,
-                                   packed=True)
+                                   packed=True, **f32)
     runs["plan 1 packed"] = run("plan 1 packed", plan_step, profiled=False)
     a, b = runs["plain"], runs["plan 1 packed"]
     if a["digests"] != b["digests"] or not torch.equal(a["embed"], b["embed"]) \
@@ -3258,7 +3306,8 @@ def tp_full_width(torch, dist, counted, card: str) -> dict:
     pipe = TokenPipeline(cfg, seq, batch, seed=0)
     plan = make_plan((1, 2), "cuda")
     step_fn, specs = make_train_step(cfg, plan, mech, opt, lr_fn,
-                                     InputShape("cli", seq, batch, "train"))
+                                     InputShape("cli", seq, batch, "train"), remat=False,
+                                     compute_dtype=torch.float32)
     meta, ctx, shards = specs["param_meta"], specs["ctx"], specs["shard_seeds"]
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3424,16 +3473,16 @@ def tp_worker(part: str) -> int:
     return 0
 
 
-def tp_launch(part: str, ranks: int, phase: str = "5k") -> list:
+def tp_launch(part: str, ranks: int, phase: str = "5k", args: tuple = ()) -> list:
     """``ranks`` processes of this script's ``--tp-worker part`` (phase
-    5k; 5l: ``--serve-worker part``) under torch.distributed.run on the
-    one card; returns their reports (any failed rank fails the launch,
-    its output's end printed)."""
+    5k; 5l: ``--serve-worker part``; 5m: ``--opt-worker part``, then
+    ``args``) under torch.distributed.run on the one card; returns their
+    reports (any failed rank fails the launch, its output's end printed)."""
     out_dir = os.path.join(ROOT, "build", f"phase{phase}")
     logf = os.path.join(out_dir, f"{part}.log")
-    flag = {"5k": "--tp-worker", "5l": "--serve-worker"}[phase]
+    flag = {"5k": "--tp-worker", "5l": "--serve-worker", "5m": "--opt-worker"}[phase]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={ranks}", os.path.abspath(__file__), flag, part]
+           f"--nproc-per-node={ranks}", os.path.abspath(__file__), flag, part, *args]
     t0 = time.perf_counter()
     with open(logf, "w") as f:
         proc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
@@ -3568,6 +3617,7 @@ def serve_mesh_reduced(torch, counted, world: int, device) -> dict:
     (the serve path launches none of the port's kernels); its tokens
     == the one-rank ``prefill`` + ``decode_step`` over the whole
     parameters and caches, this rank's rows, exactly."""
+    F32 = dict(compute_dtype=torch.float32, param_dtype=torch.float32)  # as 5l measured
     from repro_torch.configs.base import InputShape
     from repro_torch.configs.registry import get_config
     from repro_torch.convert import cache_from_numpy, shard_from_one_rank
@@ -3588,18 +3638,20 @@ def serve_mesh_reduced(torch, counted, world: int, device) -> dict:
                                            device)
                 for quant in (False, True):
                     tag = f"[5l] (a) {arch} {mesh} {mode} {'int8' if quant else 'float32'}"
-                    dec, specs = make_decode_step(cfg, plan, shape, kv_quant=quant)
+                    dec, specs = make_decode_step(cfg, plan, shape, kv_quant=quant, **F32)
                     ctx, rows = specs["ctx"], specs["token_rows"]
                     params = shard_from_one_rank(params1, specs["param_meta"], plan.tp,
                                                  ctx.model_index())
-                    nxt1, caches1 = model.prefill(params1, cfg, one, toks, shape)
+                    nxt1, caches1 = model.prefill(params1, cfg, one, toks, shape,
+                                                  compute_dtype=torch.float32)
                     if quant:
                         caches1 = int8_caches(torch, caches1)
                     got = []
 
                     def go():
                         if mode == "batch":
-                            pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True)
+                            pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True,
+                                                            **F32)
                             nxt, caches = pre(params, toks[rows])
                             if quant:
                                 caches = int8_caches(torch, caches)
@@ -3617,7 +3669,8 @@ def serve_mesh_reduced(torch, counted, world: int, device) -> dict:
                     want = [nxt1]
                     for t in range(SERVE_MESH_STEPS):
                         nxt1, caches1 = model.decode_step(params1, caches1, cfg, one,
-                                                          nxt1[:, None], prompt + t)
+                                                          nxt1[:, None], prompt + t,
+                                                          compute_dtype=torch.float32)
                         want.append(nxt1)
                     got, want = torch.stack(got, 1), torch.stack(want, 1)[rows]
                     if not torch.equal(got, want):
@@ -3783,6 +3836,7 @@ def serve_long_rank(torch, counted, device) -> dict:
     ``long_fill``, float32 then int8; SERVE_LONG's steps from the
     cache's last positions. Per run: tokens, hidden states (to
     build/phase5l), block sums, clocks, peak memory, the bound."""
+    F32 = dict(compute_dtype=torch.float32, param_dtype=torch.float32)  # as 5l measured
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.registry import get_config
     from repro_torch.convert import leaves
@@ -3800,7 +3854,7 @@ def serve_long_rank(torch, counted, device) -> dict:
     report = {"arch": arch, "shape": shape_name, "seq": shape.seq_len, "params": n_params}
     for quant in (False, True):
         kind = "int8" if quant else "float32"
-        fn, specs = make_decode_step(cfg, plan, shape, kv_quant=quant)
+        fn, specs = make_decode_step(cfg, plan, shape, kv_quant=quant, **F32)
         ctx = specs["ctx"]
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -3867,11 +3921,13 @@ def serve_check() -> int:
         kind = "int8" if quant else "float32"
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        caches, sums = long_fill(torch, model.cache_meta(cfg, 1, shape, (), kv_quant=quant), 0, 1,
-                                 "cuda", SERVE_LONG_BLOCK)
+        caches, sums = long_fill(torch, model.cache_meta(cfg, 1, shape, (), dtype=torch.float32,
+                                                         kv_quant=quant), 0, 1, "cuda",
+                                 SERVE_LONG_BLOCK)
         run = serve_long_run(
             torch, counted, ctx, lambda p, c, cfg_, ctx_, tok, pos: model.decode_step(
-                p, c, cfg_, ctx_, tok, pos), params, cfg, caches, shape.seq_len - steps, steps,
+                p, c, cfg_, ctx_, tok, pos, compute_dtype=torch.float32), params, cfg, caches,
+            shape.seq_len - steps, steps,
             f"[5l] (b) one-rank {kind}")
         torch.save(run.pop("hidden"), os.path.join(ROOT, "build", "phase5l", f"long_{kind}_check.pt"))
         report[kind] = {**run, "block_sums": sums,
@@ -3891,6 +3947,7 @@ def serve_axis_rank(torch, counted, device) -> dict:
     of 5i's prompt, then ``make_decode_step`` teacher-forced on 5i's
     generated tokens (counted); every next token == 5i's. Clocks as
     (b)'s, over 5i's last position."""
+    F32 = dict(compute_dtype=torch.float32, param_dtype=torch.float32)  # as 5l measured
     from repro_torch.configs.base import InputShape
     from repro_torch.configs.registry import get_config
     from repro_torch.convert import leaves, shard_from_one_rank
@@ -3904,8 +3961,8 @@ def serve_axis_rank(torch, counted, device) -> dict:
     cfg = get_config(SERVE_AXIS_ARCH)
     plan = make_plan(SERVE_AXIS_MESH, device)
     shape = InputShape("serve", prompt + gen_len, B, "decode")
-    pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True)
-    dec, specs = make_decode_step(cfg, plan, shape)
+    pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True, **F32)
+    dec, specs = make_decode_step(cfg, plan, shape, **F32)
     ctx, rows = specs["ctx"], specs["token_rows"]
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -4090,8 +4147,431 @@ def serve_phase(torch, served: dict, card: str) -> dict:
     return report
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 5m: the LM steps at the reference's own precision and memory
+# options. (a) and (c) run as ranks of this script (``--opt-worker
+# variants|zero1``, launched as 5k's), each writing
+# build/phase5m/<part>_rank<r>.json; (b) and (d) run in this process.
+# ---------------------------------------------------------------------------
+
+
+def opt_variants(torch, counted) -> dict:
+    """Phase 5m (a), on one rank of OPT_MESH: each of OPT_ARCHS reduced,
+    each of OPT_VARIANTS through ``make_train_step`` (float32 compute,
+    the reference's remat), OPT_STEPS steps on one batch, each run
+    counted (``rqm_quantize`` once a leaf a step); holds int16 == base
+    bit for bit (parameters and losses), ZeRO-1 within OPT_ZERO1_ATOL of
+    the base losses, every run's losses finite and falling."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.distributed.step import (make_plan, make_train_step, train_seeds,
+                                              zero1_master_shard)
+    from repro_torch.models import meta as meta_lib
+    from repro_torch.models import model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import constant
+
+    mech, opt = make_mechanism(OPT_SPEC), make_optimizer("sgd")
+    lr_fn = constant(OPT_LR, device="cuda")
+    plan = make_plan(OPT_MESH, "cuda")
+    shape = InputShape("t", OPT_SEQ, OPT_BATCH, "train")
+    report = {}
+    for arch in OPT_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        tokens = torch.randint(0, cfg.vocab_size, (OPT_BATCH, OPT_SEQ), dtype=torch.int32,
+                               generator=torch.Generator("cuda").manual_seed(2), device="cuda")
+        batch = {"tokens": tokens, "labels": tokens}
+        runs = {}
+        for name, kw in OPT_VARIANTS.items():
+            step_fn, specs = make_train_step(cfg, plan, mech, opt, lr_fn, shape,
+                                             compute_dtype=torch.float32, **kw)
+            ctx, shards = specs["ctx"], specs["shard_seeds"]
+            params = model.init_params(torch.Generator("cuda").manual_seed(1), cfg,
+                                       device="cuda", tp=plan.tp,
+                                       keep=meta_lib.slicer(plan.tp, ctx.model_index()))
+            n = len(leaves(params))
+            state = ({"master": zero1_master_shard(params, ctx)} if kw.get("zero1")
+                     else opt.init(params))
+            losses = []
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(OPT_STEPS + 1)]
+
+            def go():
+                nonlocal params, state
+                ev[0].record()
+                for t in range(OPT_STEPS):
+                    params, state, m = step_fn(params, state, t, batch,
+                                               train_seeds(0, t, ctx.client_index, n, shards))
+                    ev[t + 1].record()
+                    losses.append(m["loss"])
+
+            counted(f"[5m] (a) {arch} {name}", {"rqm_quantize": OPT_STEPS * n}, go)
+            losses = [float(v) for v in losses]
+            if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+                raise AssertionError(f"[5m] (a) {arch} {name}: losses {losses}")
+            runs[name] = {"losses": losses, "leaves": n,
+                          "step_ms": [ev[i].elapsed_time(ev[i + 1]) for i in range(OPT_STEPS)],
+                          "digests": tp_digests(torch, params)}
+            del params, state
+        base = runs["base"]
+        if runs["int16"]["digests"] != base["digests"] or runs["int16"]["losses"] != base["losses"]:
+            raise AssertionError(f"[5m] (a) {arch}: int16 differs from int32")
+        gap = max(abs(a - b) for a, b in zip(runs["zero1"]["losses"], base["losses"]))
+        if gap > OPT_ZERO1_ATOL:
+            raise AssertionError(f"[5m] (a) {arch}: ZeRO-1 {gap} from the base losses")
+        report[arch] = {name: {k: v for k, v in r.items() if k != "digests"}
+                        for name, r in runs.items()}
+        report[arch]["zero1_loss_gap"] = gap
+        report[arch]["zero1_params_equal_base"] = runs["zero1"]["digests"] == base["digests"]
+    return report
+
+
+def opt_zero1_rank(torch, counted, layers: int) -> dict:
+    """Phase 5m (c), on one rank of OPT_ZERO1_MESH: TRAIN_FULL's arch at
+    ``layers`` blocks (all: full width), ZeRO-1 with bfloat16 parameters
+    and compute, remat, ``agg_dtype="auto"``, rqm and sgd at 5j's rate,
+    its steps on 5j's batches (this client's row), counted; step ms,
+    host dispatch ms, peak above the start and the memory model's
+    estimate, a rank."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.distributed.step import (make_plan, make_train_step, train_seeds,
+                                              zero1_master_shard)
+    from repro_torch.eval.lm_eval import batch_to
+    from repro_torch.launch.memory_model import estimate
+    from repro_torch.models import model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import warmup_cosine
+
+    arch, batch, seq, steps, _ = TRAIN_FULL
+    cfg = get_config(arch)
+    if layers < cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers, layers=cfg.layers[:layers])
+    mech, opt = make_mechanism(SPECS["rqm"]), make_optimizer("sgd")
+    lr_fn = warmup_cosine(0.2, warmup=steps // 10 + 1, total_steps=steps, device="cuda")
+    shape = InputShape("cli", seq, batch, "train")
+    plan = make_plan(OPT_ZERO1_MESH, "cuda")
+    step_fn, specs = make_train_step(cfg, plan, mech, opt, lr_fn, shape, zero1=True,
+                                     compute_dtype=torch.bfloat16, agg_dtype="auto")
+    ctx = specs["ctx"]
+    pipe = TokenPipeline(cfg, seq, batch, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(torch.Generator("cuda").manual_seed(1), cfg, device="cuda",
+                               dtype=torch.bfloat16)
+    state = {"master": zero1_master_shard(params, ctx)}
+    n = len(leaves(params))
+    losses, host_ms = [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+
+    def go():
+        nonlocal params, state
+        ev[0].record()
+        for t in range(steps):
+            b = batch_to(pipe.batch(t), "cuda")
+            h0 = time.perf_counter()
+            params, state, m = step_fn(params, state, t, b, train_seeds(0, t, ctx.client_index, n))
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            ev[t + 1].record()
+            losses.append(m["loss"])
+
+    counted(f"[5m] (c) {arch} ZeRO-1 {layers} layers", {"rqm_quantize": steps * n}, go)
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[5m] (c): losses {losses}")
+    est = estimate(cfg, shape, dict(zip(("data", "model"), OPT_ZERO1_MESH)), zero1=True)
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    return {"arch": arch, "layers": layers, "full_depth": layers == get_config(arch).num_layers,
+            "params": sum(t.numel() for t in leaves(params)), "leaves": n,
+            "master_bytes": sum(t.numel() * 4 for t in leaves(state["master"])),
+            "batch": batch, "seq": seq, "steps": steps, "losses": losses, "step_ms": step_ms,
+            "step_ms_median_after_first": statistics.median(step_ms[1:]), "host_ms": host_ms,
+            "peak_bytes_above_start": torch.cuda.max_memory_allocated() - start_bytes,
+            "estimate": est, "client": ctx.client_index}
+
+
+def opt_worker(part: str, *args) -> int:
+    """One rank of a phase 5m launch (``--opt-worker variants`` on four
+    ranks, ``--opt-worker zero1 <layers>`` on two), as 5k's tp_worker:
+    each run counted and held to the launches it must make; the report in
+    build/phase5m/<part>_rank<r>.json."""
     import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    device = train._device("cuda")
+    train._init_from_env(device)
+    rank = dist.get_rank()
+    runs = {}
+
+    def counted(tag, expect, fn):
+        ops.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        got = dict(ops.launches)
+        if got != expect:
+            raise AssertionError(f"{tag} (rank {rank}): launch counts {got}, expected {expect}")
+        runs[tag] = got
+
+    report = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(),
+              "device": str(device)}
+    if part == "variants":
+        report["variants"] = opt_variants(torch, counted)
+    else:
+        report["zero1"] = opt_zero1_rank(torch, counted, int(args[0]))
+    report["runs"] = runs
+    with open(os.path.join(ROOT, "build", "phase5m", f"{part}_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def opt_bf16_full_width(torch, counted, card: str, f32: dict) -> dict:
+    """Phase 5m (b): 5j (c)'s step (TRAIN_FULL, the same parameters,
+    batches, seeds and rate) in bfloat16 with remat, float32 parameters
+    (the reference's ``make_train_step`` defaults), each step counted;
+    step ms (CUDA events), host dispatch ms, peak above the start beside
+    the memory model's estimate; one more step under torch.profiler
+    (busy ms, launches); its bound: the products' operations at bfloat16's
+    tensor-core peak, the float32 parameters read, gradients written and
+    parameters written over HBM's rate, the larger. Gate: the first loss
+    within BF16_LOSS_RTOL of 5j's float32 one (``f32``, 5j's report)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import leaves
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.distributed.step import build_train_step_fn, train_seeds
+    from repro_torch.eval.lm_eval import batch_to
+    from repro_torch.launch.memory_model import estimate
+    from repro_torch.models import model
+    from repro_torch.models.common import ParallelCtx
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import warmup_cosine
+
+    arch, batch, seq, steps, want_params = TRAIN_FULL
+    cfg = get_config(arch)
+    mech, opt = make_mechanism(SPECS["rqm"]), make_optimizer("sgd")
+    lr_fn = warmup_cosine(0.2, warmup=steps // 10 + 1, total_steps=steps, device="cuda")
+    pipe = TokenPipeline(cfg, seq, batch, seed=0)
+    step_fn = build_train_step_fn(cfg, mech, opt, lr_fn, ParallelCtx(), remat=True,
+                                  compute_dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(torch.Generator("cuda").manual_seed(1), cfg, device="cuda")
+    n_params, n = sum(t.numel() for t in leaves(params)), len(leaves(params))
+    if n_params != want_params:
+        raise AssertionError(f"[5m] (b) {arch}: {n_params} parameters")
+    state, losses, host_ms = opt.init(params), [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+
+    def go():
+        nonlocal params, state
+        ev[0].record()
+        for t in range(steps):
+            b = batch_to(pipe.batch(t), "cuda")
+            h0 = time.perf_counter()
+            params, state, m = step_fn(params, state, t, b, train_seeds(0, t, 0, n))
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            ev[t + 1].record()
+            losses.append(m["loss"])
+
+    counted(f"[5m] (b) {arch} bfloat16 remat", {"rqm_quantize": steps * n}, go)
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    peak = torch.cuda.max_memory_allocated() - start_bytes
+    losses = [float(v) for v in losses]
+    f32_loss = f32["losses"][0]
+    if not all(math.isfinite(v) for v in losses) or \
+            abs(losses[0] - f32_loss) > BF16_LOSS_RTOL * abs(f32_loss):
+        raise AssertionError(f"[5m] (b): bfloat16 losses {losses} against float32 {f32['losses']}")
+    b = batch_to(pipe.batch(steps), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, steps, b, train_seeds(0, steps, 0, n))
+        profiled_host_ms = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+    by_kernel = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in by_kernel) / 1e3
+    quantize_ms = sum(e.device_time_total for e in by_kernel if "quantize_kernel" in e.key) / 1e3
+    del params, state
+    torch.cuda.empty_cache()
+    tokens = batch * seq
+    matmul = n_params - cfg.padded_vocab(1) * cfg.d_model  # all but the embedding table
+    bound_ops = 6 * matmul * tokens / BF16_FLOPS_PER_S * 1e3
+    bound_bytes = 3 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+    est = estimate(cfg, InputShape("cli", seq, batch, "train"), {"data": 1, "model": 1})
+    median = statistics.median(step_ms[1:])
+    report = {"arch": arch, "params": n_params, "leaves": n, "batch": batch, "seq": seq,
+              "steps": steps, "losses": losses, "float32_losses": f32["losses"],
+              "step_ms": step_ms, "step_ms_median_after_first": median,
+              "tokens_per_s": tokens / median * 1e3,
+              "float32_step_ms_median_after_first": f32["step_ms_median_after_first"],
+              "host_dispatch_ms": host_ms, "profiled_host_ms": profiled_host_ms,
+              "device_busy_ms": busy, "quantize_ms": quantize_ms,
+              "device_launches": sum(str(e.device_type).endswith("CUDA") for e in prof.events()),
+              "top_kernels_ms": {demangle(e.key)[:80]: e.device_time_total / 1e3
+                                 for e in by_kernel[:8]},
+              "peak_bytes_above_start": peak, "estimate": est,
+              "bound_ms": max(bound_ops, bound_bytes),
+              "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+              "bound_ops_ms": bound_ops, "bound_bytes_ms": bound_bytes, "nvidia_smi": card}
+    log(f"[5m] (b) {arch} full width, bfloat16 compute with remat, float32 parameters, batch "
+        f"{batch} x seq {seq}: losses {losses} (5j float32 {f32['losses']}); step ms {step_ms} "
+        f"(5j float32 median {f32['step_ms_median_after_first']}); {report['tokens_per_s']} "
+        f"tokens/s; host dispatch ms {host_ms}; profiled step busy {busy} ms in "
+        f"{report['device_launches']} launches (quantize {quantize_ms} ms), host "
+        f"{profiled_host_ms} ms; peak {peak} B above the start, estimate {est['total']} B; "
+        f"bound {report['bound_ms']} ms ({report['bound_by']}); nvidia-smi: {card}")
+    return report
+
+
+def opt_bf16_decode(torch, counted, card: str, served: dict) -> dict:
+    """Phase 5m (d): 5i's SERVE_AXIS_ARCH decode at its shape (batch,
+    prompt, generated; 5i's prompt), on bfloat16 parameters of the same
+    draws, bfloat16 compute and caches (the reference's serve defaults):
+    prefill ms, decode ms a step (CUDA events, median after the first),
+    peak above the start, and how many tokens agree with 5i's float32
+    ones (reported, not gated: bfloat16 logits tie and part from float32's
+    within a few steps). Counted: serving launches no kernel."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.models.common import ParallelCtx
+
+    arch = SERVE_AXIS_ARCH
+    batch, prompt, gen_len, _ = SERVE_FULL[arch]
+    cfg, ctx = get_config(arch), ParallelCtx()
+    toks, want = served["toks"].cuda(), served["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(torch.Generator("cuda").manual_seed(0), cfg, device="cuda",
+                               dtype=torch.bfloat16)
+    shape = InputShape("serve", prompt + gen_len, batch, "decode")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(gen_len + 1)]
+    out = []
+
+    def go():
+        ev[0].record()
+        nxt, caches = model.prefill(params, cfg, ctx, toks, shape)
+        ev[1].record()
+        out.append(nxt)
+        for i in range(gen_len - 1):
+            nxt, caches = model.decode_step(params, caches, cfg, ctx, nxt[:, None], prompt + i)
+            ev[i + 2].record()
+            out.append(nxt)
+
+    with torch.no_grad():
+        counted(f"[5m] (d) {arch} bfloat16 decode", {}, go)
+    peak = torch.cuda.max_memory_allocated() - start_bytes
+    gen = torch.stack(out, 1).cpu()
+    del params, out
+    torch.cuda.empty_cache()
+    step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(gen_len - 1)]
+    same = gen == want
+    first_diff = [int(row.logical_not().nonzero()[0]) if not row.all() else gen_len
+                  for row in same]
+    report = {"arch": arch, "batch": batch, "prompt": prompt, "generated": gen_len,
+              "prefill_ms": ev[0].elapsed_time(ev[1]), "decode_ms_per_step":
+              statistics.median(step_ms[1:]), "decode_ms": step_ms,
+              "float32_decode_ms_per_step": served["decode_ms"],
+              "peak_bytes_above_start": peak, "tokens_equal": int(same.sum()),
+              "tokens": int(same.numel()), "first_difference_by_row": first_diff,
+              "nvidia_smi": card}
+    log(f"[5m] (d) {arch} decode, bfloat16 parameters, compute and caches, batch {batch}, prompt "
+        f"{prompt}, {gen_len} tokens: prefill {report['prefill_ms']} ms, decode "
+        f"{report['decode_ms_per_step']} ms a step (5i float32 {served['decode_ms']}); peak "
+        f"{peak} B above the start; {report['tokens_equal']} of {report['tokens']} tokens == "
+        f"5i's float32 ones (first difference by row {first_diff}); nvidia-smi: {card}")
+    return report
+
+
+def opt_phase(torch, counts: dict, paths: dict, counted, card: str, f32: dict,
+              served: dict) -> dict:
+    """Phase 5m: (a) on four ranks, (b) here, (c) on two ranks at full
+    depth if twice the memory model's estimate a rank plus what this
+    process holds fits the card's free memory (else at
+    OPT_ZERO1_REDUCED_LAYERS, said on the line), (d) here. Adds every
+    rank's launches to ``counts``."""
+    import shutil
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.memory_model import estimate
+
+    out_dir = os.path.join(ROOT, "build", "phase5m")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    report = {}
+
+    def add(reports, what):
+        for rep in reports:
+            for tag, got in rep["runs"].items():
+                for k, v in got.items():
+                    counts[k] = counts.get(k, 0) + v
+                    paths.setdefault(k, []).append(f"{tag} rank {rep['rank']}")
+        return [{k: v for k, v in rep.items() if k != "runs"} for rep in reports]
+
+    torch.cuda.empty_cache()
+    report["variants"] = add(tp_launch("variants", 4, "5m"), "(a)")
+    for arch, r in report["variants"][0]["variants"].items():
+        log(f"[5m] (a) {arch} reduced at {OPT_MESH[0]}x{OPT_MESH[1]}, float32, {OPT_STEPS} steps "
+            f"on one batch: losses " + "; ".join(
+                f"{name} {r[name]['losses']} ({r[name]['step_ms']} ms)" for name in OPT_VARIANTS)
+            + f"; int16 == base bit for bit; ZeRO-1 {r['zero1_loss_gap']} from base (parameters "
+            f"equal: {r['zero1_params_equal_base']}); {r['base']['leaves']} rqm_quantize "
+            "launches a step a rank")
+    report["bf16_full_width"] = opt_bf16_full_width(torch, counted, card, f32)
+    arch, batch, seq = TRAIN_FULL[:3]
+    est = estimate(get_config(arch), InputShape("cli", seq, batch, "train"),
+                   dict(zip(("data", "model"), OPT_ZERO1_MESH)), zero1=True)["total"]
+    gc.collect()  # the earlier phases' trainers and graphs, unreachable but not yet freed
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_reserved()
+    full = 2 * est + held <= free
+    layers = get_config(arch).num_layers if full else OPT_ZERO1_REDUCED_LAYERS
+    zero1 = add(tp_launch("zero1", 2, "5m", (str(layers),)), "(c)")
+    report["zero1"] = {"estimate_total": est, "card_free_bytes": free, "card_total_bytes": total,
+                       "parent_reserved_bytes": held,
+                       "parent_allocated_bytes": torch.cuda.memory_allocated(),
+                       "full_depth": full,
+                       "ranks": [r["zero1"] for r in zero1]}
+    z = report["zero1"]["ranks"]
+    depth = "full depth" if full else (
+        f"REDUCED DEPTH, {layers} layers: twice the estimate {est} B and this process's {held} "
+        f"B reserved ({report['zero1']['parent_allocated_bytes']} B allocated) do not fit the "
+        f"free {free} B")
+    log(f"[5m] (c) {arch} ZeRO-1 over {OPT_ZERO1_MESH[0]}x{OPT_ZERO1_MESH[1]} (two ranks sharing "
+        f"the card, {zero1[0]['backend']}), bfloat16 parameters and compute, remat, {depth}, "
+        f"{z[0]['params']} parameters: losses {[r['losses'] for r in z]}; step ms "
+        f"{[r['step_ms'] for r in z]}; host ms {[r['host_ms'] for r in z]}; peak a rank "
+        f"{[r['peak_bytes_above_start'] for r in z]} B against the estimate "
+        f"{[r['estimate']['total'] for r in z]} B (card {total} B, total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} B); nvidia-smi: {card}")
+    report["bf16_decode"] = opt_bf16_decode(torch, counted, card, served)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -4297,7 +4777,8 @@ def main() -> int:
     t5j = time.perf_counter()
     log(json.dumps({"train_reduced": train_reduced(torch, counted)}))
     log(json.dumps({"train_resume": train_resume(torch, counted)}))
-    log(json.dumps({"train_full_width": train_full_width(torch, counted, card)}))
+    full_f32 = train_full_width(torch, counted, card)
+    log(json.dumps({"train_full_width": full_f32}))
     log(json.dumps({"train_compare": train_compare(torch, counted, card)}))
     log(f"[5j] phase 5j in {time.perf_counter() - t5j} s")
     torch.cuda.empty_cache()
@@ -4331,6 +4812,15 @@ def main() -> int:
 
     # phase 7: the paper's comparison, reported
     log(json.dumps({"fig3_report": fig3_report(torch, FedConfig)}))
+
+    # phase 5m: the LM steps at the reference's precision and memory
+    # options (int16, sp_compress, ZeRO-1 over ranks; bfloat16 with remat
+    # at full width; ZeRO-1 at full width; bfloat16 decode); last, so
+    # that the card is as free as it gets for (c)'s two ranks
+    t5m = time.perf_counter()
+    log(json.dumps({"opt_steps": opt_phase(torch, counts, paths, counted, card, full_f32,
+                                           served)}))
+    log(f"[5m] phase 5m in {time.perf_counter() - t5m} s")
 
     kernels = []
     for rec in records:
@@ -4370,6 +4860,8 @@ if __name__ == "__main__":
         sys.exit(tp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--serve-worker"]:
         sys.exit(serve_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--opt-worker"]:
+        sys.exit(opt_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-check"]:
         sys.exit(serve_check())
     sys.exit(main())

@@ -35,7 +35,8 @@ def run(arch, mechanism, steps, batch, seq, clip, lr, seed=0, log=True, device="
     mech = make_mechanism(mechanism, c=clip)
     opt = make_optimizer("sgd")
     step_fn = build_train_step_fn(
-        cfg, mech, opt, warmup_cosine(lr, steps // 10 + 1, steps, device=device), ParallelCtx())
+        cfg, mech, opt, warmup_cosine(lr, steps // 10 + 1, steps, device=device), ParallelCtx(),
+        remat=False, compute_dtype=torch.float32)
     params = model_lib.init_params(torch.Generator(device).manual_seed(seed), cfg,
                                    device=device)
     opt_state = opt.init(params)

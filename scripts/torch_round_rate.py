@@ -96,8 +96,8 @@ def full_width(torch) -> dict:
     flat, unravel = ravel(model.init_params(torch.Generator().manual_seed(0), cfg,
                                             device="cuda"))
     pipe = TokenPipeline(cfg, 64, 2, seed=0, branch=4)
-    # trees before the float32-only loss_fn took its compute dtype
-    kw = ({"compute_dtype": torch.float32}
+    # trees before the float32-only loss_fn took its compute dtype and remat
+    kw = ({"compute_dtype": torch.float32, "remat": False}
           if "compute_dtype" in inspect.signature(model.loss_fn).parameters else {})
     grad_and_loss = torch.func.grad_and_value(
         lambda f, b: model.loss_fn(unravel(f), cfg, ParallelCtx(), b, **kw)[0])

@@ -20,7 +20,7 @@ import torch
 def tree_from_numpy(tree, device="cuda"):
     """A nested params tree of numpy arrays (dicts, tuples, lists; the
     reference's LM params) -> the same tree of tensors on ``device``,
-    floating leaves as float32."""
+    floating leaves as float32 (a bfloat16 leaf exactly)."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -28,21 +28,37 @@ def tree_from_numpy(tree, device="cuda"):
     if tree is None:
         return None
     a = np.asarray(tree)
-    if np.issubdtype(a.dtype, np.floating):
+    if np.issubdtype(a.dtype, np.floating) or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)
     return torch.tensor(a, device=device)
 
 
-def shard_from_numpy(tree, meta_tree, tp: int, index: int, device="cuda"):
+def shard_from_numpy(tree, meta_tree, tp: int, index: int, device="cuda", *, client: int = 0,
+                     n_clients: int = 1):
     """The reference's GLOBAL tree at ``tp`` (numpy, as its
     ``init_params(key, cfg, tp)`` draws it, duplicated slices repeated)
     -> model rank ``index``'s slices as tensors on ``device``, each
-    through ``models/meta.py:shard_leaf``."""
+    through ``models/meta.py:shard_leaf`` (and client ``client``'s block
+    of ``n_clients`` along a dim sharded over the clients: a ZeRO-1
+    master's), each of its Meta's dtype: a bfloat16 tree crosses exactly,
+    through float32."""
     from repro_torch.models import meta as meta_lib
 
     return meta_lib.tree_map(
-        lambda m, a: meta_lib.shard_leaf(tree_from_numpy(a, "cpu"), m, tp, index)
-        .clone().to(device), meta_tree, tree)
+        lambda m, a: meta_lib.shard_leaf(tree_from_numpy(a, "cpu"), m, tp, index, client=client,
+                                         n_clients=n_clients)
+        .to(m.dtype).clone().to(device), meta_tree, tree)
+
+
+def zero1_init_master(tree, meta_tree, tp: int, n_clients: int):
+    """The reference's ``zero1_init_master`` of a GLOBAL numpy parameter
+    tree at ``tp`` (float32 or bfloat16): the global master tree, float32
+    tensors on the CPU (``distributed/step.py:zero1_init_master``); a
+    rank's shard of it through ``shard_from_numpy(master, master_meta,
+    tp, index, client=c, n_clients=n_clients)``."""
+    from repro_torch.distributed.step import zero1_init_master as init
+
+    return init(tree_from_numpy(tree, "cpu"), meta_tree, tp, n_clients)
 
 
 def _as_tensor(a, dtype) -> torch.Tensor:

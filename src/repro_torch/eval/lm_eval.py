@@ -30,7 +30,8 @@ def stream_ce(params: dict, cfg: ModelConfig, pipe: TokenPipeline, batches: int,
     this rank's slices, every rank of ``ctx``'s model group calling)."""
     tot_ce, tot_tok = 0.0, 0.0
     for i in range(batches):
-        _, aux = model_lib.loss_fn(params, cfg, ctx, batch_to(pipe.batch(i), device))
+        _, aux = model_lib.loss_fn(params, cfg, ctx, batch_to(pipe.batch(i), device),
+                                   remat=False, compute_dtype=torch.float32)
         tot_ce += float(aux["ce_loss"]) * float(aux["n_tokens"])
         tot_tok += float(aux["n_tokens"])
     return tot_ce / max(tot_tok, 1.0), tot_tok

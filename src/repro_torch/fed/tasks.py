@@ -230,7 +230,8 @@ class LmTask(ClientTask):
         from repro_torch.models import model as model_lib
         from repro_torch.models.common import ParallelCtx
 
-        return model_lib.loss_fn(params, self.model_cfg, ParallelCtx(), batch)[0]
+        return model_lib.loss_fn(params, self.model_cfg, ParallelCtx(), batch, remat=False,
+                                 compute_dtype=torch.float32)[0]
 
     def client_batch(self, cid: int) -> dict:
         return self._pipe.batch(int(cid))
@@ -269,7 +270,8 @@ class LmTask(ClientTask):
         sync sums the replicated leaves' partials to their gradient)."""
         from repro_torch.models import model as model_lib
 
-        return model_lib.loss_fn(local_params, self.model_cfg, ctx, batch)[0] / ctx.tp
+        return model_lib.loss_fn(local_params, self.model_cfg, ctx, batch, remat=False,
+                                 compute_dtype=torch.float32)[0] / ctx.tp
 
     def gather_grads(self, local_grads: list, ctx):
         """LOCAL gradient leaves (``convert.leaves`` order) -> the GLOBAL

@@ -51,14 +51,15 @@ def generate(params: dict, cfg: ModelConfig, tokens: torch.Tensor, gen: int,
     sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    nxt, caches = model_lib.prefill(params, cfg, ctx, tokens, shape, prefix_embeds)
+    nxt, caches = model_lib.prefill(params, cfg, ctx, tokens, shape, prefix_embeds,
+                                    compute_dtype=torch.float32)
     sync()
     t_prefill = time.perf_counter() - t0
     generated = [nxt]
     t0 = time.perf_counter()
     for i in range(gen - 1):
         nxt, caches = model_lib.decode_step(params, caches, cfg, ctx, nxt[:, None],
-                                            prompt_len + i)
+                                            prompt_len + i, compute_dtype=torch.float32)
         generated.append(nxt)
     sync()
     t_decode = time.perf_counter() - t0

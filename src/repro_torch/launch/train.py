@@ -245,11 +245,15 @@ def main(argv=None) -> dict:
     })
     shards = None  # the per-leaf seed-folding indices
     if plan is not None:
+        # float32, as the reference's launcher; no remat (it moves memory,
+        # not values)
         step_fn, specs = make_train_step(cfg, plan, mech, opt, lr_fn, shape,
-                                         packed=args.packed)
+                                         packed=args.packed, remat=False,
+                                         compute_dtype=torch.float32)
         ctx, shards = specs["ctx"], specs["shard_seeds"]
     else:
-        step_fn = build_train_step_fn(cfg, mech, opt, lr_fn, ctx, packed=args.packed)
+        step_fn = build_train_step_fn(cfg, mech, opt, lr_fn, ctx, packed=args.packed,
+                                      remat=False, compute_dtype=torch.float32)
     # every rank draws the global tree leaf by leaf and keeps its slices
     params = model_lib.init_params(torch.Generator(device).manual_seed(args.seed + 1), cfg,
                                    device=device, tp=ctx.tp,

@@ -2,16 +2,18 @@
 chunked causal forward (training and prefill), tensor-parallel over the
 model axis, and the KV-cache decode.
 
-Plain PyTorch ops mirroring the reference's einsums, with its masking as
-written: scores masked to ``NEG_INF = -1e30`` (not -inf, so that a fully
-masked row stays finite) before a float32 softmax; queries in blocks of
-``q_chunk``; a sliding-window layer reads only the ``[block start -
-window, block end)`` keys, the front padding masked by ``k_pos >= 0``.
-The reference rematerializes each block (``jax.checkpoint``); remat moves
-memory, not values, and is left out.
+Plain PyTorch ops mirroring the reference's einsums and casts: each
+weight cast to the activations' dtype before its product, the scores
+cast to float32 and masked to ``NEG_INF = -1e30`` (not -inf, so that a
+fully masked row stays finite) before a float32 softmax, the weights
+cast back to the values' dtype; queries in blocks of ``q_chunk``; a
+sliding-window layer reads only the ``[block start - window, block
+end)`` keys, the front padding masked by ``k_pos >= 0``. The reference
+also rematerializes each query block (``jax.checkpoint``); that moves
+memory, not values, and is left to the model's per-block remat.
 
 A decode cache is a dict of ``k`` and ``v``, each (B, tp, kvl, S, hd),
-float32 or int8 codes with bfloat16 per-token ``k_scale``/``v_scale``.
+of the compute dtype or int8 codes with bfloat16 per-token ``k_scale``/``v_scale``.
 Where the reference's ``dynamic_update_slice`` returns new caches,
 ``decode`` writes the new token into the cache's buffers IN PLACE (a
 step at full width would otherwise copy every cache) and returns the
@@ -67,23 +69,23 @@ def plan(spec: AttentionSpec, tp: int) -> AttnSharding:
 
 
 def init_params(generator: torch.Generator, spec: AttentionSpec, device="cuda", tp: int = 1,
-                keep=None) -> dict:
-    """The reference's global parameters at ``tp``: distinct content per
-    ``tp_attn`` query slice (``kv_shards`` KV slice), repeated over the
-    duplicates. ``keep(t, meta)``, if given, takes each leaf as it is
-    drawn (``meta.slicer``: a rank's slice)."""
+                keep=None, dtype=torch.float32) -> dict:
+    """The reference's global parameters at ``tp``, of ``dtype``: distinct
+    content per ``tp_attn`` query slice (``kv_shards`` KV slice),
+    repeated over the duplicates. ``keep(t, meta)``, if given, takes each
+    leaf as it is drawn (``meta.slicer``: a rank's slice)."""
     sh = plan(spec, tp)
-    meta = param_meta(spec, tp)
+    meta = param_meta(spec, tp, dtype)
     D, hd = spec.d_model, spec.head_dim
 
     def init(name, shape, in_axis, repeat, axis):
-        t = dense_init(generator, shape, in_axis=in_axis, device=device)
+        t = dense_init(generator, shape, in_axis=in_axis, device=device, dtype=dtype)
         if repeat > 1:
             t = t.repeat_interleave(repeat, dim=axis)
         return t if keep is None else keep(t, meta[name])
 
     def zeros(name):
-        t = torch.zeros(meta[name].shape, device=device)
+        t = torch.zeros(meta[name].shape, dtype=dtype, device=device)
         return t if keep is None else keep(t, meta[name])
 
     p = {"wq": init("wq", (D, sh.tp_attn, sh.q_local * hd), 0, sh.dup_attn, 1),
@@ -96,18 +98,18 @@ def init_params(generator: torch.Generator, spec: AttentionSpec, device="cuda", 
     return p
 
 
-def param_meta(spec: AttentionSpec, tp: int = 1) -> dict:
+def param_meta(spec: AttentionSpec, tp: int = 1, dtype=torch.float32) -> dict:
     """Mirrors init_params: (global_shape, dtype, pspec, sync_group)."""
     sh = plan(spec, tp)
     D, hd = spec.d_model, spec.head_dim
     m = {
-        "wq": Meta((D, tp, sh.q_local * hd), torch.float32, (None, "model", None), sh.dup_attn),
-        "wkv": Meta((D, tp, sh.kv_local * hd * 2), torch.float32, (None, "model", None), sh.kv_group),
-        "wo": Meta((tp, sh.q_local * hd, D), torch.float32, ("model", None, None), sh.dup_attn),
+        "wq": Meta((D, tp, sh.q_local * hd), dtype, (None, "model", None), sh.dup_attn),
+        "wkv": Meta((D, tp, sh.kv_local * hd * 2), dtype, (None, "model", None), sh.kv_group),
+        "wo": Meta((tp, sh.q_local * hd, D), dtype, ("model", None, None), sh.dup_attn),
     }
     if spec.qkv_bias:
-        m["bq"] = Meta((tp, sh.q_local * hd), torch.float32, ("model", None), sh.dup_attn)
-        m["bkv"] = Meta((tp, sh.kv_local * hd * 2), torch.float32, ("model", None), sh.kv_group)
+        m["bq"] = Meta((tp, sh.q_local * hd), dtype, ("model", None), sh.dup_attn)
+        m["bkv"] = Meta((tp, sh.kv_local * hd * 2), dtype, ("model", None), sh.kv_group)
     return m
 
 

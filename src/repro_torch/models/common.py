@@ -25,8 +25,9 @@ power-of-two subgroups of the model axis; the forward divides the
 out-projection psum by the duplication factor, and the duplicates'
 gradients are summed over their subgroup (``subgroup_psum``) in the
 reference's recursive-doubling order, so the copies stay bit-identical.
-The compressed sequence-parallel all-gather (``sp_compress``) is
-ROADMAP.md queue A item 14.
+With ``sp_compress`` the sequence-parallel entry all-gather crosses the
+wire as int8 codes with per-token float32 scales (``_CompressedGather``);
+its backward is the exact psum_scatter of the uncompressed cotangent.
 
 Long-context decode shards a KV cache's sequence dim over the client
 axes (flash-decoding, ``attention.decode(seq_sharded=True)``): the seq
@@ -43,6 +44,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -113,6 +115,32 @@ class _PsumScatter(torch.autograd.Function):
         return _all_gather(g, ctx.group, ctx.size, ctx.dim), None, None, None
 
 
+class _CompressedGather(torch.autograd.Function):
+    """The int8 tiled all_gather along dim 1 with per-token float32
+    scales (the reference's ``_make_compressed_all_gather``): ``scale =
+    max(|x|, 1e-12) / 127`` over the last dim, the codes ``x / scale``
+    rounded half to even and clipped to +-127, codes and scales gathered,
+    then ``codes * scale`` in ``x``'s dtype. Its backward is the exact
+    psum_scatter of the uncompressed cotangent (straight-through)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        xf = x.detach().to(torch.float32)
+        # divide by a device tensor: PyTorch's CUDA division by a Python
+        # scalar multiplies by its reciprocal, which is not IEEE division
+        levels = torch.full((), 127.0, device=x.device)
+        scale = xf.abs().amax(-1, keepdim=True).clamp(min=1e-12) / levels
+        q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+        qg = _all_gather(q, group, size, 1)
+        sg = _all_gather(scale, group, size, 1)
+        return (qg.to(torch.float32) * sg).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.size, 1), None, None
+
+
 def doubling_sum(parts: list) -> torch.Tensor:
     """``parts`` (a power-of-two count) summed in recursive-doubling order,
     ``(x0 + x1) + (x2 + x3)``: the sum every rank of the reference's
@@ -142,7 +170,9 @@ class ParallelCtx:
       ``group``;
     seq_parallel: Megatron-style sequence parallelism, the residual
       stream between blocks (B, S/tp, D), all-gathered on a block's entry
-      and psum_scattered on its exit.
+      and psum_scattered on its exit;
+    sp_compress: that entry all-gather as int8 codes with per-token
+      float32 scales (forward only: the backward is exact).
     """
 
     model_axis: Optional[str] = None
@@ -161,10 +191,6 @@ class ParallelCtx:
     sp_compress: bool = False
 
     def __post_init__(self):
-        if self.sp_compress:
-            raise NotImplementedError(
-                "sp_compress (the int8 sequence-parallel all-gather) is not ported yet: "
-                "ROADMAP.md queue A item 14")
         if self.model and self.model_group is None:
             raise ValueError(f"a model axis of {self.tp} needs its process group")
         if self.client_axes and self.group is None:
@@ -253,6 +279,8 @@ class ParallelCtx:
         """(B, S/tp, D) -> (B, S, D) when sequence parallelism is on."""
         if not self.seq_parallel or not self.model:
             return x
+        if self.sp_compress:
+            return _CompressedGather.apply(x, self.model_group, self.tp)
         return _AllGather.apply(x, self.model_group, self.tp, 1)
 
     def sp_scatter(self, x: torch.Tensor) -> torch.Tensor:
@@ -331,6 +359,28 @@ def plan_attn_sharding(num_heads: int, num_kv_heads: int, tp: int) -> AttnShardi
 # ---------------------------------------------------------------------------
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: in float32 ``F.silu``; in a narrower dtype the
+    reference's lowering op by op, ``x * (1 / (1 + exp(-x)))``, each op
+    rounded to the dtype as XLA rounds it (``F.silu`` rounds once, and
+    differs from it in a third of bfloat16 elements)."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (approximate=True, the tanh form): in float32
+    ``F.gelu(approximate="tanh")``; in a narrower dtype the reference's
+    formula op by op, its constants rounded to the dtype (``sqrt(2 / pi)``
+    is 0.796875 in bfloat16), each op rounded as XLA rounds it."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = torch.full((), math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.full((), 0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
+
+
 def squeeze_tp(p: torch.Tensor, axis: int) -> torch.Tensor:
     """Drop a parameter's size-1 ``tp`` axis."""
     return p.squeeze(axis) if p.shape[axis] == 1 else p
@@ -373,13 +423,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
-               device="cuda") -> torch.Tensor:
+               device="cuda", dtype=torch.float32) -> torch.Tensor:
     """A float32 normal truncated to +-2 standard deviations, at
     ``1/sqrt(fan_in)`` (``fan_in = shape[in_axis]``), drawn on the
-    generator's device and then moved to ``device``: a CPU generator gives
-    the same values wherever they go, a CUDA generator draws on the card
-    (a full-width model in seconds, where the CPU takes minutes)."""
+    generator's device, then cast to ``dtype`` and moved to ``device``: a
+    CPU generator gives the same values wherever they go, a CUDA
+    generator draws on the card (a full-width model in seconds, where the
+    CPU takes minutes)."""
     std = 1.0 / math.sqrt(shape[in_axis])
     t = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(std).to(device)
+    return t.mul_(std).to(dtype).to(device)

@@ -19,7 +19,8 @@ slice of a global leaf along its "model" dim and along every dim sharded
 over the client axes (a cache's batch, or its sequence at batch 1;
 ``models/model.py:cache_meta``), and ``gather_leaf`` puts the model
 ranks' slices back together. ``zeros`` makes a rank's zero leaves (the
-caches a decode starts from).
+caches a decode starts from), ``shape_dtype_structs`` the global leaves
+on the meta device (shapes and dtypes, nothing allocated).
 """
 from __future__ import annotations
 
@@ -97,6 +98,13 @@ def shard_leaf(p: torch.Tensor, m: Meta, tp: int, index: int, *, client: int = 0
             size = p.shape[d] // n_clients
             p = p.narrow(d, client * size, size)
     return p
+
+
+def shape_dtype_structs(meta_tree):
+    """The tree of ``meta_tree``'s leaves as tensors on the meta device
+    (global shape and dtype, nothing allocated): the counterpart of the
+    reference's ``jax.ShapeDtypeStruct`` tree."""
+    return tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype, device="meta"), meta_tree)
 
 
 def zeros(meta_tree, tp: int = 1, n_clients: int = 1, device="cuda"):

@@ -8,34 +8,31 @@ Kinds:
   squared_relu  relu(x W1)^2 Wd               (nemotron-4)
   gelu          gelu(x W1) Wd                 (musicgen)
 
-GELU is the tanh approximation, ``jax.nn.gelu``'s default.
+GELU is the tanh approximation, ``jax.nn.gelu``'s default; below
+float32 both activations follow the reference's formulas op by op
+(``common.silu``, ``common.gelu``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
+from repro_torch.models.common import ParallelCtx, dense_init, gelu, silu, squeeze_tp
 from repro_torch.models.meta import Meta
 
 GATED = {"swiglu", "geglu"}
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (approximate=True)."""
-    return F.gelu(x, approximate="tanh")
-
-
 def init_params(generator: torch.Generator, kind: str, d_model: int, d_ff: int,
-                device="cuda", tp: int = 1, keep=None) -> dict:
-    """The global parameters at ``tp``; ``keep(t, meta)`` as in
-    ``attention.init_params``."""
+                device="cuda", tp: int = 1, keep=None, dtype=torch.float32) -> dict:
+    """The global parameters at ``tp``, of ``dtype``; ``keep(t, meta)`` as
+    in ``attention.init_params``."""
     if d_ff % tp != 0:
         raise ValueError(f"d_ff={d_ff} not divisible by tp={tp}")
-    meta = param_meta(kind, d_model, d_ff, tp)
+    meta = param_meta(kind, d_model, d_ff, tp, dtype)
 
     def init(name, in_axis):
-        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device)
+        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device, dtype=dtype)
         return t if keep is None else keep(t, meta[name])
 
     if kind in GATED:
@@ -46,14 +43,14 @@ def init_params(generator: torch.Generator, kind: str, d_model: int, d_ff: int,
     return p
 
 
-def param_meta(kind: str, d_model: int, d_ff: int, tp: int = 1) -> dict:
+def param_meta(kind: str, d_model: int, d_ff: int, tp: int = 1, dtype=torch.float32) -> dict:
     f_l = d_ff // tp
-    m = {"w_down": Meta((tp, f_l, d_model), torch.float32, ("model", None, None), 1)}
+    m = {"w_down": Meta((tp, f_l, d_model), dtype, ("model", None, None), 1)}
     if kind in GATED:
-        m["w_gate"] = Meta((d_model, tp, f_l), torch.float32, (None, "model", None), 1)
-        m["w_up"] = Meta((d_model, tp, f_l), torch.float32, (None, "model", None), 1)
+        m["w_gate"] = Meta((d_model, tp, f_l), dtype, (None, "model", None), 1)
+        m["w_up"] = Meta((d_model, tp, f_l), dtype, (None, "model", None), 1)
     else:
-        m["w_in"] = Meta((d_model, tp, f_l), torch.float32, (None, "model", None), 1)
+        m["w_in"] = Meta((d_model, tp, f_l), dtype, (None, "model", None), 1)
     return m
 
 
@@ -63,7 +60,7 @@ def forward(params: dict, kind: str, ctx: ParallelCtx, x: torch.Tensor) -> torch
     if kind in GATED:
         g = x @ squeeze_tp(params["w_gate"], 1).to(x.dtype)
         u = x @ squeeze_tp(params["w_up"], 1).to(x.dtype)
-        act = F.silu(g) if kind == "swiglu" else gelu(g)
+        act = silu(g) if kind == "swiglu" else gelu(g)
         h = act * u
     else:
         h = x @ squeeze_tp(params["w_in"], 1).to(x.dtype)

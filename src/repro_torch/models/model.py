@@ -15,10 +15,18 @@ Parameter tree (the reference's; on a rank the ``tp`` axes are of size 1):
 
 With sequence parallelism the residual stream between blocks is (B,
 S/tp, D): ``sp_slice`` enters it after the embedding, each block
-all-gathers on entry and psum_scatters on exit. Everything computes in float32, the compute dtype the reference's lm task
-passes. The reference's remat (``jax.checkpoint`` of blocks and CE
-chunks) moves memory, not values, and is left out
-(``torch.utils.checkpoint`` does not compose with ``torch.func``).
+all-gathers on entry and psum_scatters on exit. The residual stream
+computes in ``compute_dtype`` (the reference's defaults: float32 for
+``forward_hidden``, bfloat16 for ``loss_fn``, ``prefill`` and
+``decode_step``; the lm task and the launchers pass float32), each
+weight cast to it before its product, norms, softmaxes, the router and
+the SSD scan in float32. ``remat`` checkpoints each block
+(``torch.utils.checkpoint``, non-reentrant: nothing inside a block is
+saved, its forward runs again in the backward, as the reference's
+``jax.checkpoint`` with ``nothing_saveable``); it moves memory, not
+values. It does not compose with ``torch.func`` (the lm task's
+``vmap(grad)``), whose callers pass ``remat=False`` as the reference's
+do.
 
 Serving: ``prefill`` runs a prompt and builds one cache a layer (an
 attention layer's k/v, a sliding-window layer's as a ring buffer of
@@ -27,14 +35,15 @@ attention layer's k/v, a sliding-window layer's as a ring buffer of
 and returning them (the reference returns new ones). ``cache_meta`` lays
 the caches out over a mesh (batch-sharded over the client axes, or at
 batch 1 a full-attention layer's cache sharded on its sequence dim for
-flash-decoding), float32 or int8 K/V codes with bfloat16 per-token
-scales.
+flash-decoding), of the compute dtype (the SSM state ``h`` float32) or
+int8 K/V codes with bfloat16 per-token scales.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import InputShape, LayerSpec, ModelConfig
 from repro_torch.models import attention, mlp, moe, ssm
@@ -47,37 +56,38 @@ from repro_torch.models.meta import Meta
 # ---------------------------------------------------------------------------
 
 
-def _layer_init(generator, cfg: ModelConfig, layer: LayerSpec, device, tp: int, keep):
+def _layer_init(generator, cfg: ModelConfig, layer: LayerSpec, device, tp: int, keep, dtype):
     D = cfg.d_model
     if layer.kind == "shared_attn":
         return {}  # params live in the shared block
-    p = {"norm1": torch.zeros((D,), device=device)}
+    p = {"norm1": torch.zeros((D,), dtype=dtype, device=device)}
     if layer.kind == "ssm":
-        p["ssm"] = ssm.init_params(generator, cfg.ssm, device, tp, keep)
+        p["ssm"] = ssm.init_params(generator, cfg.ssm, device, tp, keep, dtype)
         return p
-    p["attn"] = attention.init_params(generator, cfg.attn_spec(layer), device, tp, keep)
-    p["norm2"] = torch.zeros((D,), device=device)
+    p["attn"] = attention.init_params(generator, cfg.attn_spec(layer), device, tp, keep, dtype)
+    p["norm2"] = torch.zeros((D,), dtype=dtype, device=device)
     if cfg.moe is not None:
-        p["moe"] = moe.init_params(generator, cfg.moe, device, tp, keep)
+        p["moe"] = moe.init_params(generator, cfg.moe, device, tp, keep, dtype)
     elif cfg.mlp_kind is not None:
-        p["mlp"] = mlp.init_params(generator, cfg.mlp_kind, D, cfg.d_ff, device, tp, keep)
+        p["mlp"] = mlp.init_params(generator, cfg.mlp_kind, D, cfg.d_ff, device, tp, keep,
+                                   dtype)
     return p
 
 
-def _layer_meta(cfg: ModelConfig, layer: LayerSpec, tp: int) -> dict:
+def _layer_meta(cfg: ModelConfig, layer: LayerSpec, tp: int, dtype) -> dict:
     D = cfg.d_model
-    m = {"norm1": Meta((D,), torch.float32, (None,), tp)}
+    m = {"norm1": Meta((D,), dtype, (None,), tp)}
     if layer.kind == "ssm":
-        m["ssm"] = ssm.param_meta(cfg.ssm, tp)
+        m["ssm"] = ssm.param_meta(cfg.ssm, tp, dtype)
         return m
     if layer.kind == "shared_attn":
         return {}
-    m["attn"] = attention.param_meta(cfg.attn_spec(layer), tp)
-    m["norm2"] = Meta((D,), torch.float32, (None,), tp)
+    m["attn"] = attention.param_meta(cfg.attn_spec(layer), tp, dtype)
+    m["norm2"] = Meta((D,), dtype, (None,), tp)
     if cfg.moe is not None:
-        m["moe"] = moe.param_meta(cfg.moe, tp)
+        m["moe"] = moe.param_meta(cfg.moe, tp, dtype)
     elif cfg.mlp_kind is not None:
-        m["mlp"] = mlp.param_meta(cfg.mlp_kind, D, cfg.d_ff, tp)
+        m["mlp"] = mlp.param_meta(cfg.mlp_kind, D, cfg.d_ff, tp, dtype)
     return m
 
 
@@ -89,57 +99,61 @@ def _shared_layerspec(cfg: ModelConfig) -> LayerSpec:
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda", tp: int = 1,
-                keep=None) -> dict:
-    """Random float32 parameters of the reference's global shapes at
-    ``tp``, drawn from ``generator`` on its device leaf by leaf (the
-    reference draws from ``jax.random``: values differ, shapes and the
-    special leaves do not). ``keep(t, meta)``, if given, takes each
-    sharded leaf as it is drawn: ``meta.slicer(tp, index)`` keeps model
-    rank ``index``'s slice, so that a rank never holds the global tree
-    and every rank draws the same one."""
+                keep=None, dtype=torch.float32) -> dict:
+    """Random parameters of the reference's global shapes at ``tp``, of
+    ``dtype`` (the MoE router and the SSM's ``A_log``, ``D_skip`` and
+    ``dt_bias`` float32 always), drawn in float32 from ``generator`` on
+    its device leaf by leaf and cast (the reference draws from
+    ``jax.random``: values differ, shapes and the special leaves do not).
+    ``keep(t, meta)``, if given, takes each sharded leaf as it is drawn:
+    ``meta.slicer(tp, index)`` keeps model rank ``index``'s slice, so that
+    a rank never holds the global tree and every rank draws the same one."""
     D = cfg.d_model
-    meta = param_meta(cfg, tp)
+    meta = param_meta(cfg, tp, dtype)
 
     def init(name, in_axis):
-        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device)
+        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device, dtype=dtype)
         return t if keep is None else keep(t, meta[name])
+
+    def zeros():
+        return torch.zeros((D,), dtype=dtype, device=device)
 
     params = {
         "embed": init("embed", 2),
-        "layers": tuple(_layer_init(generator, cfg, layer, device, tp, keep)
+        "layers": tuple(_layer_init(generator, cfg, layer, device, tp, keep, dtype)
                         for layer in cfg.layers),
-        "final_norm": torch.zeros((D,), device=device),
+        "final_norm": zeros(),
     }
     if cfg.shared_attn:
         spec = cfg.attn_spec(_shared_layerspec(cfg))
         params["shared"] = {
-            "norm1": torch.zeros((D,), device=device),
-            "attn": attention.init_params(generator, spec, device, tp, keep),
-            "norm2": torch.zeros((D,), device=device),
+            "norm1": zeros(),
+            "attn": attention.init_params(generator, spec, device, tp, keep, dtype),
+            "norm2": zeros(),
             "mlp": mlp.init_params(generator, cfg.mlp_kind, D, cfg.shared_d_ff, device, tp,
-                                   keep),
+                                   keep, dtype),
         }
     params["lm_head"] = init("lm_head", 0)
     return params
 
 
-def param_meta(cfg: ModelConfig, tp: int = 1) -> dict:
+def param_meta(cfg: ModelConfig, tp: int = 1, dtype=torch.float32) -> dict:
     """The Meta tree of ``init_params``' parameters (``models/meta.py``)."""
     D = cfg.d_model
     V = cfg.padded_vocab(tp)
     m = {
-        "embed": Meta((tp, V // tp, D), torch.float32, ("model", None, None), 1),
-        "layers": tuple(_layer_meta(cfg, layer, tp) for layer in cfg.layers),
-        "final_norm": Meta((D,), torch.float32, (None,), tp),
-        "lm_head": Meta((D, tp, V // tp), torch.float32, (None, "model", None), 1),
+        "embed": Meta((tp, V // tp, D), dtype, ("model", None, None), 1),
+        "layers": tuple(_layer_meta(cfg, layer, tp, dtype) for layer in cfg.layers),
+        "final_norm": Meta((D,), dtype, (None,), tp),
+        "lm_head": Meta((D, tp, V // tp), dtype, (None, "model", None), 1),
     }
     if cfg.shared_attn:
         spec = cfg.attn_spec(_shared_layerspec(cfg))
         m["shared"] = {
-            "norm1": Meta((D,), torch.float32, (None,), tp),
-            "attn": attention.param_meta(spec, tp),
-            "norm2": Meta((D,), torch.float32, (None,), tp),
-            "mlp": mlp.param_meta(cfg.mlp_kind, D, cfg.shared_d_ff, tp),
+            "norm1": Meta((D,), dtype, (None,), tp),
+            "attn": attention.param_meta(spec, tp, dtype),
+            "norm2": Meta((D,), dtype, (None,), tp),
+            "mlp": mlp.param_meta(cfg.mlp_kind, D, cfg.shared_d_ff, tp, dtype),
         }
     return m
 
@@ -242,20 +256,27 @@ def _block_apply(layer_params: dict, shared_params: Optional[dict], cfg: ModelCo
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, ctx: ParallelCtx, tokens: torch.Tensor,
-                   prefix_embeds: Optional[torch.Tensor] = None):
+                   prefix_embeds: Optional[torch.Tensor] = None, *, remat: bool = False,
+                   compute_dtype=torch.float32):
     """tokens (B, S_t); prefix_embeds (B, P, D) or None -> hidden (B, S, D)
-    with S = P + S_t, and the summed MoE aux loss."""
-    x = embed(params, cfg, ctx, tokens)
+    of ``compute_dtype`` with S = P + S_t, and the summed MoE aux loss.
+    ``remat``: each block checkpointed (its forward run again in the
+    backward, nothing inside it saved)."""
+    x = embed(params, cfg, ctx, tokens).to(compute_dtype)
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds, x], dim=1)
+        x = torch.cat([prefix_embeds.to(compute_dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     x = ctx.sp_slice(x)
 
     aux_losses = []
     for layer_params, layer in zip(params["layers"], cfg.layers):
-        x, aux = _block_apply(layer_params, params.get("shared"), cfg, layer, ctx, x,
-                              positions)
+        if remat:
+            x, aux = checkpoint(_block_apply, layer_params, params.get("shared"), cfg, layer,
+                                ctx, x, positions, use_reentrant=False)
+        else:
+            x, aux = _block_apply(layer_params, params.get("shared"), cfg, layer, ctx, x,
+                                  positions)
         if aux is not None:
             aux_losses.append(aux["moe_aux_loss"])
     x = ctx.sp_gather(rms_norm(x, params["final_norm"]))
@@ -263,11 +284,14 @@ def forward_hidden(params: dict, cfg: ModelConfig, ctx: ParallelCtx, tokens: tor
     return x, {"moe_aux_loss": moe_aux}
 
 
-def loss_fn(params: dict, cfg: ModelConfig, ctx: ParallelCtx, batch: dict):
+def loss_fn(params: dict, cfg: ModelConfig, ctx: ParallelCtx, batch: dict, *,
+            remat: bool = True, compute_dtype=torch.bfloat16):
     """Next-token CE (+ MoE aux). batch: {"tokens", "labels"[,
     "prefix_embeds"]}; labels align with the FULL sequence (prefix
-    positions carry -1)."""
-    h, aux = forward_hidden(params, cfg, ctx, batch["tokens"], batch.get("prefix_embeds"))
+    positions carry -1). The reference's defaults: each block
+    checkpointed, bfloat16 compute."""
+    h, aux = forward_hidden(params, cfg, ctx, batch["tokens"], batch.get("prefix_embeds"),
+                            remat=remat, compute_dtype=compute_dtype)
     loss, n_tok = lm_head_loss(params, cfg, ctx, h, batch["labels"])
     total = loss + aux["moe_aux_loss"]
     return total, {"ce_loss": loss, "n_tokens": n_tok, **aux}
@@ -286,7 +310,7 @@ def _mlp_or_moe(layer_params: dict, p: dict, cfg: ModelConfig, layer: LayerSpec,
 
 
 def cache_meta(cfg: ModelConfig, tp: int, shape: InputShape, client_axes: tuple, *,
-               dtype=torch.float32, kv_quant: bool = False) -> tuple:
+               dtype=torch.bfloat16, kv_quant: bool = False) -> tuple:
     """The Meta tree of the KV/SSM caches of one serving shape (global
     shapes; a pspec entry ``client_axes`` is a dim sharded over the
     clients, ``"model"`` one over the model axis).
@@ -297,13 +321,9 @@ def cache_meta(cfg: ModelConfig, tp: int, shape: InputShape, client_axes: tuple,
     (flash-decoding); a sliding-window layer keeps a ring of ``min(seq_len,
     window)`` slots and the SSM states are replicated. ``kv_quant``
     stores K/V as int8 codes and bfloat16 per-token scales (``k_scale``,
-    ``v_scale``, of shape ``k.shape[:-1] + (1,)``). The caches compute in
-    float32, as every LM path of this package: another ``dtype`` is
-    ROADMAP.md queue A item 14."""
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"caches of {dtype} (the reference's compute_dtype other than float32) are not "
-            "ported yet: ROADMAP.md queue A item 14")
+    ``v_scale``, of shape ``k.shape[:-1] + (1,)``). ``dtype`` is the
+    compute dtype's: of K/V and the SSM conv tails; the SSM state ``h`` is
+    float32 always."""
     B = shape.global_batch
     seq_sharded = B == 1
     # the entry as a PartitionSpec holds it: None for no axes, a name for one
@@ -340,13 +360,15 @@ def cache_meta(cfg: ModelConfig, tp: int, shape: InputShape, client_axes: tuple,
 
 
 def decode_step(params: dict, caches: tuple, cfg: ModelConfig, ctx: ParallelCtx,
-                tokens: torch.Tensor, pos: int, *, seq_sharded: bool = False):
-    """One decode step. tokens (B, 1); pos: the tokens already in the
-    caches. Writes the caches in place; returns (next_token (B,), caches).
-    seq_sharded: the full-attention layers' caches are sharded on their
-    sequence dim over ``ctx.seq_axis`` (``cache_meta`` at batch 1), and
-    decode by flash-decoding; sliding-window rings are whole."""
-    x = embed(params, cfg, ctx, tokens)
+                tokens: torch.Tensor, pos: int, *, seq_sharded: bool = False,
+                compute_dtype=torch.bfloat16):
+    """One decode step in ``compute_dtype``. tokens (B, 1); pos: the
+    tokens already in the caches. Writes the caches in place; returns
+    (next_token (B,), caches). seq_sharded: the full-attention layers'
+    caches are sharded on their sequence dim over ``ctx.seq_axis``
+    (``cache_meta`` at batch 1), and decode by flash-decoding;
+    sliding-window rings are whole."""
+    x = embed(params, cfg, ctx, tokens).to(compute_dtype)
     for layer_params, layer, cache in zip(params["layers"], cfg.layers, caches):
         if layer.kind == "ssm":
             h = rms_norm(x, layer_params["norm1"])
@@ -391,13 +413,15 @@ def _decode_ring(attn_params: dict, spec, ctx: ParallelCtx, x: torch.Tensor, cac
 
 
 def prefill(params: dict, cfg: ModelConfig, ctx: ParallelCtx, tokens: torch.Tensor,
-            shape: InputShape, prefix_embeds: Optional[torch.Tensor] = None):
-    """Run the prompt through the model, building the decode caches for
-    ``shape.seq_len`` positions (prompt and generation). tokens (B, S_t);
-    prefix_embeds (B, P, D) or None. Returns (next_token (B,), caches)."""
-    x = embed(params, cfg, ctx, tokens)
+            shape: InputShape, prefix_embeds: Optional[torch.Tensor] = None, *,
+            compute_dtype=torch.bfloat16):
+    """Run the prompt through the model in ``compute_dtype``, building the
+    decode caches for ``shape.seq_len`` positions (prompt and
+    generation). tokens (B, S_t); prefix_embeds (B, P, D) or None.
+    Returns (next_token (B,), caches)."""
+    x = embed(params, cfg, ctx, tokens).to(compute_dtype)
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        x = torch.cat([prefix_embeds.to(compute_dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     x = ctx.sp_slice(x)
@@ -407,7 +431,9 @@ def prefill(params: dict, cfg: ModelConfig, ctx: ParallelCtx, tokens: torch.Tens
             h = ctx.sp_gather(rms_norm(x, layer_params["norm1"]))
             y, state = ssm.forward(layer_params["ssm"], cfg.ssm, ctx, h, return_state=True)
             x = x + y
-            caches.append({k: t.to(torch.float32) for k, t in state.items()})
+            # the recurrent state float32, the conv tails the compute dtype
+            caches.append({k: t.to(torch.float32 if t.dim() == 5 else compute_dtype)
+                           for k, t in state.items()})
             continue
         p = params.get("shared") if layer.kind == "shared_attn" else layer_params
         spec = cfg.attn_spec(layer)

@@ -26,11 +26,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
+from repro_torch.models.common import ParallelCtx, dense_init, gelu, silu, squeeze_tp
 from repro_torch.models.meta import Meta
-from repro_torch.models.mlp import gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,27 +48,29 @@ class MoESpec:
 
 
 def init_params(generator: torch.Generator, spec: MoESpec, device="cuda", tp: int = 1,
-                keep=None) -> dict:
-    """The global parameters at ``tp``; ``keep(t, meta)`` as in
+                keep=None, dtype=torch.float32) -> dict:
+    """The global parameters at ``tp``: the experts of ``dtype``, the
+    router float32 always; ``keep(t, meta)`` as in
     ``attention.init_params``."""
-    meta = param_meta(spec, tp)
+    meta = param_meta(spec, tp, dtype)
 
     def init(name, in_axis):
-        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device)
+        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device,
+                       dtype=meta[name].dtype)
         return t if keep is None else keep(t, meta[name])
 
     return {"router": init("router", 0), "w_gate": init("w_gate", 2),
             "w_up": init("w_up", 2), "w_down": init("w_down", 2)}
 
 
-def param_meta(spec: MoESpec, tp: int = 1) -> dict:
+def param_meta(spec: MoESpec, tp: int = 1, dtype=torch.float32) -> dict:
     e_l = spec.experts_local(tp)
     D, F_ = spec.d_model, spec.d_ff_expert
     return {
         "router": Meta((D, spec.num_experts), torch.float32, (None, None), tp),
-        "w_gate": Meta((tp, e_l, D, F_), torch.float32, ("model", None, None, None), 1),
-        "w_up": Meta((tp, e_l, D, F_), torch.float32, ("model", None, None, None), 1),
-        "w_down": Meta((tp, e_l, F_, D), torch.float32, ("model", None, None, None), 1),
+        "w_gate": Meta((tp, e_l, D, F_), dtype, ("model", None, None, None), 1),
+        "w_up": Meta((tp, e_l, D, F_), dtype, ("model", None, None, None), 1),
+        "w_down": Meta((tp, e_l, F_, D), dtype, ("model", None, None, None), 1),
     }
 
 
@@ -108,8 +108,9 @@ def forward(params: dict, spec: MoESpec, ctx: ParallelCtx, x: torch.Tensor, *,
     C = _capacity(spec, T, decode=decode)
     CAP = min(e_l * C, T * spec.top_k)
 
-    # --- routing ---
-    logits = xt.to(torch.float32) @ params["router"]
+    # --- routing, in float32 (a router that a ZeRO-1 step handed back in
+    # the compute dtype promotes to float32, as in the reference) ---
+    logits = xt.to(torch.float32) @ params["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = top_k(probs, spec.top_k)  # (T, k)
     weights = top_p / top_p.sum(-1, keepdim=True)
@@ -154,7 +155,7 @@ def forward(params: dict, spec: MoESpec, ctx: ParallelCtx, x: torch.Tensor, *,
     wd = squeeze_tp(params["w_down"], 0).to(x.dtype)
     g = torch.einsum("ecd,edf->ecf", buf, wg)
     u = torch.einsum("ecd,edf->ecf", buf, wu)
-    act = F.silu(g) if spec.kind == "swiglu" else gelu(g)
+    act = silu(g) if spec.kind == "swiglu" else gelu(g)
     y_buf = torch.einsum("ecf,efd->ecd", act * u, wd)
 
     # --- combine: weighted scatter-add back to tokens, psum over experts ---

@@ -30,7 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParallelCtx, dense_init, squeeze_tp
+from repro_torch.models.common import ParallelCtx, dense_init, silu, squeeze_tp
 from repro_torch.models.meta import Meta
 
 
@@ -60,19 +60,20 @@ class SSMSpec:
 
 
 def init_params(generator: torch.Generator, spec: SSMSpec, device="cuda", tp: int = 1,
-                keep=None) -> dict:
-    """The global parameters at ``tp`` (each rank's heads numbered from 1
-    in ``A_log``, as the reference's); ``keep(t, meta)`` as in
+                keep=None, dtype=torch.float32) -> dict:
+    """The global parameters at ``tp``, of ``dtype`` but for ``A_log``,
+    ``D_skip`` and ``dt_bias`` (float32 always; each rank's heads numbered
+    from 1 in ``A_log``, as the reference's); ``keep(t, meta)`` as in
     ``attention.init_params``."""
     h_l = spec.heads_local(tp)
-    meta = param_meta(spec, tp)
+    meta = param_meta(spec, tp, dtype)
 
     def init(name, in_axis=0):
-        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device)
+        t = dense_init(generator, meta[name].shape, in_axis=in_axis, device=device, dtype=dtype)
         return t if keep is None else keep(t, meta[name])
 
     def put(name, t):
-        t = t.to(device)
+        t = t.to(device=device, dtype=meta[name].dtype)
         return t if keep is None else keep(t, meta[name])
 
     # dt log-uniform in [dt_min, dt_max]; its bias the inverse softplus
@@ -95,21 +96,21 @@ def init_params(generator: torch.Generator, spec: SSMSpec, device="cuda", tp: in
     }
 
 
-def param_meta(spec: SSMSpec, tp: int = 1) -> dict:
+def param_meta(spec: SSMSpec, tp: int = 1, dtype=torch.float32) -> dict:
     h_l = spec.heads_local(tp)
     di_l = h_l * spec.head_dim
     D, N, W = spec.d_model, spec.state_dim, spec.conv_width
     return {
-        "w_zx": Meta((D, tp, 2 * di_l), torch.float32, (None, "model", None), 1),
-        "w_bc": Meta((D, 2 * N), torch.float32, (None, None), tp),
-        "w_dt": Meta((D, tp, h_l), torch.float32, (None, "model", None), 1),
-        "conv_x": Meta((tp, W, di_l), torch.float32, ("model", None, None), 1),
-        "conv_bc": Meta((W, 2 * N), torch.float32, (None, None), tp),
+        "w_zx": Meta((D, tp, 2 * di_l), dtype, (None, "model", None), 1),
+        "w_bc": Meta((D, 2 * N), dtype, (None, None), tp),
+        "w_dt": Meta((D, tp, h_l), dtype, (None, "model", None), 1),
+        "conv_x": Meta((tp, W, di_l), dtype, ("model", None, None), 1),
+        "conv_bc": Meta((W, 2 * N), dtype, (None, None), tp),
         "A_log": Meta((tp, h_l), torch.float32, ("model", None), 1),
         "D_skip": Meta((tp, h_l), torch.float32, ("model", None), 1),
         "dt_bias": Meta((tp, h_l), torch.float32, ("model", None), 1),
-        "norm": Meta((tp, di_l), torch.float32, ("model", None), 1),
-        "w_out": Meta((tp, di_l, D), torch.float32, ("model", None, None), 1),
+        "norm": Meta((tp, di_l), dtype, ("model", None), 1),
+        "w_out": Meta((tp, di_l, D), dtype, ("model", None, None), 1),
     }
 
 
@@ -121,7 +122,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _gated_rms_norm(y, z, w, ctx: ParallelCtx, eps: float = 1e-6):
     """Mamba2's RMSNormGated over the full d_inner dimension, which is
     head-sharded over the model axis: the mean square is psummed."""
-    x = (y * F.silu(z)).to(torch.float32)
+    x = (y * silu(z)).to(torch.float32)
     total = ctx.psum_model(x.square().sum(-1, keepdim=True))
     var = total / (x.shape[-1] * (ctx.tp if ctx.model_axis is not None else 1))
     return ((x * torch.rsqrt(var + eps)) * (1.0 + w.to(torch.float32))).to(y.dtype)
@@ -132,7 +133,7 @@ def _depthwise_causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     W, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
     out = sum(xp[:, i:i + S] * w[i] for i in range(W))
-    return F.silu(out)
+    return silu(out)
 
 
 def _project(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor):
@@ -239,9 +240,9 @@ def decode(params: dict, spec: SSMSpec, ctx: ParallelCtx, x: torch.Tensor, state
     # rolling conv buffers
     xs_hist = torch.cat([squeeze_tp(state["conv_x"], 1), xs], dim=1)  # (B, W, di_l)
     w_cx = squeeze_tp(params["conv_x"], 0).to(x.dtype)
-    xs_t = F.silu(torch.einsum("bwc,wc->bc", xs_hist, w_cx))[:, None]
+    xs_t = silu(torch.einsum("bwc,wc->bc", xs_hist, w_cx))[:, None]
     bc_hist = torch.cat([state["conv_bc"], bc], dim=1)
-    bc_t = F.silu(torch.einsum("bwc,wc->bc", bc_hist, params["conv_bc"].to(x.dtype)))[:, None]
+    bc_t = silu(torch.einsum("bwc,wc->bc", bc_hist, params["conv_bc"].to(x.dtype)))[:, None]
     Bm, Cm = bc_t[..., :N], bc_t[..., N:]
 
     A = -torch.exp(squeeze_tp(params["A_log"], 0))

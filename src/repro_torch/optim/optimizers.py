@@ -56,11 +56,13 @@ def _leafwise(fn, params, *trees) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """``init(params) -> state``; ``update(grads, state, params, lr) ->
-    (new_params, new_state)``."""
+    (new_params, new_state)``; ``state_meta(meta_tree)``: the state's
+    Meta tree (``models/meta.py``) for parameters of ``meta_tree``."""
 
     name: str
     init: Callable
     update: Callable
+    state_meta: Callable
 
 
 def sgd(weight_decay: float = 0.0) -> Optimizer:
@@ -79,7 +81,7 @@ def sgd(weight_decay: float = 0.0) -> Optimizer:
 
         return _leafwise(leaf, params, grads)[0], state
 
-    return Optimizer("sgd", init, update)
+    return Optimizer("sgd", init, update, lambda meta_tree: ())
 
 
 def momentum(beta: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
@@ -95,7 +97,7 @@ def momentum(beta: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
         new, m = _leafwise(leaf, params, grads, state["m"])
         return new, {"m": m}
 
-    return Optimizer("momentum", init, update)
+    return Optimizer("momentum", init, update, lambda meta_tree: {"m": meta_tree})
 
 
 def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -120,7 +122,12 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         new, m, v = _leafwise(leaf, params, grads, state["m"], state["v"])
         return new, {"m": m, "v": v, "t": t}
 
-    return Optimizer("adam", init, update)
+    def state_meta(meta_tree):
+        from repro_torch.models.meta import Meta
+
+        return {"m": meta_tree, "v": meta_tree, "t": Meta((), torch.int32, (), 0)}
+
+    return Optimizer("adam", init, update, state_meta)
 
 
 OPTIMIZERS = {"sgd": sgd, "momentum": momentum, "adam": adam}

@@ -1033,14 +1033,16 @@ def test_lm_loss_on_the_card_matches_the_cpu(deterministic):
         batch = {k: torch.from_numpy(v) for k, v in TokenPipeline(cfg, 64, 2).batch(0).items()}
 
         def loss(f, b, unravel=unravel, cfg=cfg):
-            return model.loss_fn(unravel(f), cfg, ParallelCtx(), b)[0]
+            return model.loss_fn(unravel(f), cfg, ParallelCtx(), b, remat=False,
+                                 compute_dtype=torch.float32)[0]
 
         g_cpu, l_cpu = torch.func.grad_and_value(loss)(flat, batch)
         flat_d, unravel_d = ravel(model.init_params(torch.Generator().manual_seed(1), cfg,
                                                     device=deterministic))
         assert torch.equal(flat_d.cpu(), flat)
         g, value = torch.func.grad_and_value(
-            lambda f, b: model.loss_fn(unravel_d(f), cfg, ParallelCtx(), b)[0])(
+            lambda f, b: model.loss_fn(unravel_d(f), cfg, ParallelCtx(), b, remat=False,
+                                       compute_dtype=torch.float32)[0])(
             flat_d, {k: v.to(deterministic) for k, v in batch.items()})
         assert abs(float(value) - float(l_cpu)) <= 2e-6 * abs(float(l_cpu)), arch
         assert float((g.cpu() - g_cpu).abs().max()) <= 1e-5 * float(g_cpu.abs().max()), arch

@@ -121,14 +121,14 @@ def test_parallel_ctx_is_tp_one_only():
     """Without a model axis above 1 every model-axis collective is the
     identity (as the reference's with ``model_axis=None``); a model axis
     above 1 needs its process group (tests/test_torch_tp_ops.py runs
-    one), and the compressed all-gather is queue A item 14."""
+    one); so is the compressed all-gather (``sp_compress``)."""
     assert CTX.model_index() == 0 and CTX.psum_model(3) == 3
     for ctx in (ParallelCtx(tp=2), ParallelCtx(model_axis="model")):
         assert not ctx.model and ctx.model_index() == 0 and ctx.psum_model(3) == 3
     with pytest.raises(ValueError, match="process group"):
         ParallelCtx(model_axis="model", tp=2)
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        ParallelCtx(sp_compress=True)
+    x = torch.arange(6.0).reshape(1, 2, 3)
+    assert ParallelCtx(sp_compress=True, seq_parallel=True).sp_gather(x) is x
     # the geometry planner is pure Python: equal at every tp it accepts
     for h, kv in [(8, 2), (32, 8), (4, 4), (48, 8), (24, 24)]:
         for tp in (1, 2, 4, 8, 16):

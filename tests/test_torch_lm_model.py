@@ -141,7 +141,8 @@ def test_loss_and_gradient_match_reference(arch):
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
 
     def loss(f):
-        return model.loss_fn(unravel(f), cfg, ParallelCtx(), tbatch)[0]
+        return model.loss_fn(unravel(f), cfg, ParallelCtx(), tbatch, remat=False,
+                             compute_dtype=torch.float32)[0]
 
     got_loss = loss(flat)
     got_grad = torch.func.grad(loss)(flat).numpy()

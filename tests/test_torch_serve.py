@@ -111,7 +111,8 @@ def case(request):
 
 def _prefill(c):
     return model.prefill(c["params"], c["cfg"], CTX, c["toks"],
-                         InputShape("t", c["cap"], B, "decode"), c["pe"])
+                         InputShape("t", c["cap"], B, "decode"), c["pe"],
+                         compute_dtype=torch.float32)
 
 
 def _generate(c, steps):
@@ -121,7 +122,7 @@ def _generate(c, steps):
     tokens = [nxt]
     for i in range(steps):
         nxt, caches = model.decode_step(c["params"], caches, c["cfg"], CTX, nxt[:, None],
-                                        c["prompt_len"] + i)
+                                        c["prompt_len"] + i, compute_dtype=torch.float32)
         tokens.append(nxt)
     return first, torch.stack(tokens, 1).numpy()
 

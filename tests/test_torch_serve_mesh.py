@@ -68,7 +68,7 @@ def test_cache_meta_matches_reference(arch, shape):
                                       dtype=jnp.float32, kv_quant=quant),
                     is_leaf=jmeta.is_meta)
                 got = leaves(model.cache_meta(registry.get_config(arch), tp, INPUT_SHAPES[shape],
-                                              axes, kv_quant=quant))
+                                              axes, dtype=torch.float32, kv_quant=quant))
                 assert len(got) == len(want)
                 for g, w in zip(got, want):
                     assert g.shape == tuple(w.shape), (tp, quant, axes, g, w)
@@ -81,6 +81,16 @@ def test_cache_meta_matches_reference(arch, shape):
 
 
 def test_cache_meta_refuses_other_dtypes():
-    cfg = registry.get_config("gemma3-4b", reduced=True)
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        model.cache_meta(cfg, 1, INPUT_SHAPES["decode_32k"], (), dtype=torch.bfloat16)
+    """No dtype is refused any more: the caches at the reference's
+    default, bfloat16 (K/V and the SSM conv tails; the SSM state ``h``
+    float32), equal its Metas, for an attention and an SSM config."""
+    for arch in ("gemma3-4b", "zamba2-1.2b"):
+        want = jax.tree_util.tree_leaves(
+            jmodel.cache_meta(jregistry.get_config(arch, reduced=True), 2,
+                              JAX_SHAPES["decode_32k"], ("data",)), is_leaf=jmeta.is_meta)
+        got = leaves(model.cache_meta(registry.get_config(arch, reduced=True), 2,
+                                      INPUT_SHAPES["decode_32k"], ("data",)))
+        assert [(g.shape, g.dtype, g.pspec) for g in got] == [
+            (tuple(w.shape), {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+                np.dtype(w.dtype).name], tuple(w.pspec)) for w in want]
+        assert {g.dtype for g in got} >= {torch.bfloat16}

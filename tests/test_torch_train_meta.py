@@ -15,8 +15,8 @@ reference on the CPU:
     one ``t`` for the tree, and to the reference's ``tree_map`` within
     tests/test_torch_optimizers.py's tolerances;
   * the client half of ``ParallelCtx`` and ``MeshPlan``: a model axis
-    without its process group refused, ``sp_compress`` refused naming
-    queue A item 14; a one-rank gloo plan's psum/pmean;
+    without its process group refused (with ``sp_compress`` too); a
+    one-rank gloo plan's psum/pmean;
   * ``fed/loop.py`` re-exports the trainer's names.
 """
 import torch_threads  # noqa: F401  (first: pins torch's CPU threads)
@@ -171,12 +171,11 @@ def test_tree_update_is_the_flat_update_leaf_by_leaf(name):
 def test_parallel_ctx_and_plan_refuse_a_model_axis():
     """A model axis needs its process group (the groups of a plan with
     one are made by ``launch/mesh.py:mesh_groups`` under a launcher, run
-    in tests/test_torch_tp_*.py); the compressed all-gather is queue A
-    item 14."""
+    in tests/test_torch_tp_*.py), the compressed all-gather too."""
     with pytest.raises(ValueError, match="process group"):
         ParallelCtx(model_axis="model", tp=2)
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        ParallelCtx(sp_compress=True)
+    with pytest.raises(ValueError, match="process group"):
+        ParallelCtx(model_axis="model", tp=2, sp_compress=True)
     plan = tstep.MeshPlan((2, 2), ("data", "model"), ("data",))
     assert plan.tp == 2 and plan.n_clients == 2
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):

@@ -69,7 +69,7 @@ def check_train_step(arch: str, opt_name: str, record_property) -> None:
     # the port, at the seeds the reference derives
     mech, opt = make_mechanism(SPEC), make_optimizer(opt_name)
     step_fn = tstep.build_train_step_fn(cfg, mech, opt, schedules.constant(LR, device="cpu"),
-                                        ParallelCtx())
+                                        ParallelCtx(), remat=False, compute_dtype=torch.float32)
     params = tree_from_numpy(jax.device_get(jparams), "cpu")
     state, losses = opt.init(params), []
     n = len(leaves(params))

@@ -31,6 +31,13 @@ and exits 0 when every hold passed. Imports no JAX.
   * ``fed <SxM>``: the shard engine's 2-D lm round (tests/fed_lm_2d_checks.py's
     problem), its per-round sums and parameters written for the test to
     compare across grids;
+  * ``perf``: tests/tp_reference.py's ``perf`` job on this rank: each
+    of tp_cases.PERF_VARIANTS through ``make_train_step`` (the port's
+    default remat), float32 compute, at the reference's folded seeds; the
+    global parameters gathered; then one ZeRO-1 step
+    on the given gradients (``model.loss_fn`` replaced by the linear
+    loss), its summed levels kept as ``_client_scatter_sum16`` returns
+    them, this rank's new parameters and master shard written;
   * ``serve <mode> <DxM>``: tests/tp_reference.py's ``serve`` job on this
     rank: ``make_prefill_step``/``make_decode_step`` at the mesh from the
     one-rank parameters (``convert.shard_from_one_rank``), the caches of
@@ -53,6 +60,9 @@ from repro_torch.convert import leaves, map_leaves, shard_from_numpy
 from repro_torch.launch.mesh import mesh_groups
 from repro_torch.models import meta as meta_lib
 from repro_torch.models.common import ParallelCtx
+
+# the serve steps at the reference's side's explicit float32 (tp_reference.py)
+F32 = dict(compute_dtype=torch.float32, param_dtype=torch.float32)
 
 
 def model_ctx(tp: int, *, seq_parallel: bool = False) -> ParallelCtx:
@@ -214,7 +224,8 @@ def job_step(rank, world, inputs, out_dir, mesh):
     shape = InputShape("t", tp_cases.STEP_SEQ, tp_cases.STEP_BATCH, "train")
     plan = make_plan(dims, "cpu")
     step_fn, specs = make_train_step(cfg, plan, mech, opt,
-                                     schedules.constant(tp_cases.STEP_LR, device="cpu"), shape)
+                                     schedules.constant(tp_cases.STEP_LR, device="cpu"), shape,
+                                     remat=False, compute_dtype=torch.float32)
     meta, ctx = specs["param_meta"], specs["ctx"]
     assert ctx.seq_parallel and ctx.client_index == rank // dims[1]
     glob = map_leaves(lambda i, _: inputs[f"params0/{i}"], meta)
@@ -232,6 +243,82 @@ def job_step(rank, world, inputs, out_dir, mesh):
                  **{f"params/{i}": t.numpy() for i, t in enumerate(leaves(glob))})
     print(f"rank {rank}: step {mesh}: {held} duplicated or replicated leaves bit-equal "
           f"across their groups")
+
+
+def _linear_loss(p, cfg, ctx, batch, remat=True, compute_dtype=None):
+    """tests/tp_reference.py's stand-in for ``model.loss_fn``: ``sum(p *
+    g)``, g this rank's given gradient leaves (``batch["grads"]``)."""
+    total = sum((a * g).sum() for a, g in zip(leaves(p), batch["grads"]))
+    return total, {"ce_loss": total, "moe_aux_loss": torch.zeros(())}
+
+
+def job_perf(rank, world, inputs, out_dir):
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.mechanisms import make_mechanism
+    from repro_torch.distributed import step as tstep
+    from repro_torch.models import model
+    from repro_torch.optim import make_optimizer, schedules
+
+    dims = tuple(int(d) for d in tp_cases.PERF_MESH.split("x"))
+    cfg = get_config(tp_cases.PERF_ARCH, reduced=True)
+    mech, opt = make_mechanism(tp_cases.PERF_SPEC), make_optimizer("sgd")
+    lr_fn = schedules.constant(tp_cases.PERF_LR, device="cpu")
+    shape = InputShape("t", tp_cases.PERF_SEQ, tp_cases.PERF_BATCH, "train")
+    plan = tstep.make_plan(dims, "cpu")
+    meta = model.param_meta(cfg, tp=plan.tp)
+    glob = map_leaves(lambda i, _: inputs[f"params0/{i}"], meta)
+    out = {}
+    for name, kw in tp_cases.PERF_VARIANTS.items():
+        step_fn, specs = tstep.make_train_step(cfg, plan, mech, opt, lr_fn, shape,
+                                               compute_dtype=torch.float32, **kw)
+        ctx = specs["ctx"]
+        assert ctx.seq_parallel and ctx.sp_compress == bool(kw.get("sp_compress"))
+        params = shard_from_numpy(glob, specs["param_meta"], plan.tp, ctx.model_index(), "cpu")
+        state = ({"master": tstep.zero1_master_shard(params, ctx)} if kw.get("zero1")
+                 else opt.init(params))
+        losses = []
+        for t in range(tp_cases.PERF_STEPS):
+            batch = {k: torch.from_numpy(inputs[f"{k}{t}"]) for k in ("tokens", "labels")}
+            params, state, metrics = step_fn(params, state, t, batch,
+                                             [int(s) for s in inputs[f"seeds{t}"][rank]])
+            losses.append(float(metrics["loss"]))
+            if t == 0 and name == "sp_compress":
+                for i, p in enumerate(leaves(meta_lib.gather_tree(params, meta, ctx))):
+                    out[f"{name}/params1/{i}"] = p.numpy()
+        out[f"{name}/losses"] = np.asarray(losses)
+        for i, t in enumerate(leaves(meta_lib.gather_tree(params, meta, ctx))):
+            out[f"{name}/params/{i}"] = t.numpy()
+    # one ZeRO-1 step on the given gradients
+    ctx = plan.ctx()
+    params = shard_from_numpy(glob, meta, plan.tp, ctx.model_index(), "cpu")
+    master = tstep.zero1_master_shard(params, ctx)
+    grads = [torch.from_numpy(inputs[f"grads/{rank}/{i}"]) for i in range(len(leaves(meta)))]
+    body = tstep.build_zero1_train_step_fn(cfg, mech, lr_fn, ctx, remat=False,
+                                           compute_dtype=torch.float32, agg_dtype="auto")
+    kept, scatter16, loss_fn = [], tstep._client_scatter_sum16, model.loss_fn
+
+    def keeping(x, c):
+        kept.append(scatter16(x, c))
+        return kept[-1]
+
+    params0 = [t.clone() for t in leaves(params)]  # the step updates both in place
+    master0 = [t.clone() for t in leaves(master)]
+    tstep._client_scatter_sum16, model.loss_fn = keeping, _linear_loss
+    try:
+        p1, o1, _ = body(params, {"master": master}, 0, {"grads": grads},
+                         [int(s) for s in inputs["seeds0"][rank]])
+    finally:
+        tstep._client_scatter_sum16, model.loss_fn = scatter16, loss_fn
+    assert len(kept) == len(grads)
+    for i, (z, p, m) in enumerate(zip(kept, leaves(p1), leaves(o1["master"]))):
+        out[f"given/levels/{i}"], out[f"given/params/{i}"] = z.numpy(), p.numpy()
+        out[f"given/master/{i}"] = m.numpy()
+        out[f"given/params0/{i}"] = params0[i].numpy()
+        out[f"given/master0/{i}"] = master0[i].numpy()
+    np.savez(os.path.join(out_dir, f"perf_rank{rank}.npz"), **out)
+    print(f"rank {rank}: perf {tp_cases.PERF_MESH}: {len(tp_cases.PERF_VARIANTS)} variants, "
+          f"{len(kept)} leaves' summed levels kept")
 
 
 def digest(tree) -> str:
@@ -350,14 +437,14 @@ def job_serve(rank, world, inputs, out_dir, mode, mesh):
 
     for arch in tp_cases.SERVE_ARCHS[mode]:
         cfg = get_config(arch, reduced=True)
-        dec, specs = make_decode_step(cfg, plan, shape)
+        dec, specs = make_decode_step(cfg, plan, shape, **F32)
         ctx, rows = specs["ctx"], specs["token_rows"]
         one = map_leaves(lambda i, _: torch.from_numpy(inputs[f"{arch}/params/{i}"]),
                          model.param_meta(cfg, 1))
         params = shard_from_one_rank(one, specs["param_meta"], plan.tp, ctx.model_index())
         pos = tp_cases.SERVE_PROMPT
         if mode == "batch":
-            pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True)
+            pre, pspecs = make_prefill_step(cfg, plan, shape, seq_parallel=True, **F32)
             assert pspecs["ctx"].seq_parallel == (plan.tp > 1)
             nxt, caches = pre(params, torch.from_numpy(inputs[f"{arch}/tokens"])[rows])
         else:
@@ -371,7 +458,7 @@ def job_serve(rank, world, inputs, out_dir, mode, mesh):
             nxt, caches = dec(params, caches, nxt[:, None], pos + t)
             tokens.append(nxt)
         save(f"{arch}/", tokens, caches)
-        dec_q, qspecs = make_decode_step(cfg, plan, shape, kv_quant=True)
+        dec_q, qspecs = make_decode_step(cfg, plan, shape, kv_quant=True, **F32)
         caches = meta_lib.zeros(qspecs["cache_meta"], plan.tp, ctx.n_clients, "cpu")
         nxt, tokens = torch.from_numpy(inputs[f"{arch}/tok0"])[rows][:, 0], []
         for t in range(tp_cases.SERVE_INT8_STEPS):
@@ -445,6 +532,8 @@ def main():
         job_step(rank, world, inputs, out_dir, sys.argv[7])
     elif job == "fed":
         job_fed(rank, world, inputs, out_dir, sys.argv[7])
+    elif job == "perf":
+        job_perf(rank, world, inputs, out_dir)
     elif job == "serve":
         job_serve(rank, world, inputs, out_dir, *sys.argv[7:9])
     elif job == "launch":

@@ -75,7 +75,7 @@ def replay(spec: str, n_clients: int, *, server_opt: str = "sgd") -> dict:
             p = [t.detach().requires_grad_() for t in leaves(params)]
             local = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
             loss = model.loss_fn(map_leaves(lambda i, _: p[i], params), cfg, ParallelCtx(),
-                                 local)[0]
+                                 local, remat=False, compute_dtype=torch.float32)[0]
             grads.append(list(torch.autograd.grad(loss, p)))
         z = replay_levels(mech, grads, [train_seeds(SEED, step, r, n)
                                         for r in range(n_clients)])

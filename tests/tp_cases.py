@@ -101,3 +101,34 @@ SERVE_MESHES = {"batch": ("2x2",), "seq": ("2x2", "4x1")}
 # lm_head_argmax over a model axis of each tp: a (D, V) head whose rows'
 # maxima tie across shards (the smallest id wins)
 ARGMAX_TPS, ARGMAX_D, ARGMAX_V = (2, 4), 8, 32
+
+# the train step's precision and memory options (tests/test_torch_perf_variants.py):
+# the reference's tests/sharded_checks.py:check_perf_variants cases at 2x2
+# (two clients, each tensor-parallel over two ranks), float32 compute, on
+# reduced PERF_ARCH, PERF_STEPS steps each from the reference's global
+# parameters at tp = 2; and one ZeRO-1 step on given per-rank gradients
+# (normal, PERF_GRAD_SCALE), whose summed levels both sides keep
+PERF_ARCH = "gemma3-4b"
+PERF_MESH = "2x2"
+PERF_SPEC = "rqm:c=0.05"
+PERF_LR = 0.2
+PERF_SEQ, PERF_BATCH, PERF_STEPS = 64, 4, 2
+PERF_VARIANTS = {"base": {}, "int16": {"agg_dtype": "int16"},
+                 "sp_compress": {"sp_compress": True},
+                 "zero1": {"zero1": True, "agg_dtype": "auto"}}
+# the reference's trajectories the port's are held against: its int16 and
+# float32 ZeRO-1 steps are its base step's arithmetic (int16 carries the
+# same sums, ZeRO-1's master update is sgd's), so the port's int16 and
+# ZeRO-1 are held against its base
+PERF_REFERENCE = {"base": "base", "int16": "base", "sp_compress": "sp_compress",
+                  "zero1": "base"}
+PERF_GRAD_SCALE = 0.05
+
+# the LM steps at bfloat16 (tests/test_torch_precision.py): one dense, one
+# MoE and one SSM reduced config, the reference's bfloat16 parameters
+# (``init_params(key(PRECISION_KEY), dtype=bfloat16)``), a batch of
+# PRECISION_BATCH prompts of PRECISION_PROMPT tokens into caches of
+# PRECISION_CAP, PRECISION_STEPS greedy decode steps
+PRECISION_ARCHS = ("gemma3-4b", "qwen3-moe-30b-a3b", "mamba2-370m")
+PRECISION_KEY = 7
+PRECISION_BATCH, PRECISION_PROMPT, PRECISION_CAP, PRECISION_STEPS = 2, 32, 48, 2

@@ -27,6 +27,25 @@ reduced tp_cases.STEP_ARCH at the mesh, from the global parameters, the
 token batches and the step keys (``key<t>``, key data) of
 ``inputs.npz``: the losses and the global parameters after;
 
+job ``perf``: the variants of tests/sharded_checks.py's
+``check_perf_variants`` that tp_cases.PERF_REFERENCE holds the port's
+against (base, int8 sequence-parallel gathers) through the reference's
+jitted ``make_train_step`` at tp_cases.PERF_MESH, float32 compute, from
+the global parameters, batches and step keys of ``inputs.npz``: each
+one's losses and global parameters; then one jitted step of the
+reference's ``build_zero1_train_step_fn`` on the given per-rank
+gradients ``grads/<rank>/<i>`` (its ``model.loss_fn`` replaced by the
+linear loss ``sum(p * g)``, whose gradient is ``g``): the new global
+parameters and master; and op by op each rank's summed levels
+(``levels/<rank>/<i>``) and new master shard (``_zero1_given``);
+
+job ``precision``: each of tp_cases.PRECISION_ARCHS reduced at bfloat16
+(XLA's excess precision off: every op rounded as run op by op): its
+parameters (``<arch>/params/<i>``, as float32), ``forward_hidden``'s
+hidden states, the loss of ``<arch>/tokens`` and ``<arch>/labels``,
+``prefill``'s caches (as float32) and the greedy tokens of prefill and
+tp_cases.PRECISION_STEPS decode steps (``<arch>/greedy``);
+
 job ``serve <mode> <DxM>``: for each of tp_cases.SERVE_ARCHS[mode], the
 reference's ``make_prefill_step``/``make_decode_step`` at the mesh
 (float32 compute and parameters) from the one-rank parameters of
@@ -44,7 +63,11 @@ of tp_cases.ARGMAX_TPS (``argmax<tp>``) on ``argmax/head``, ``argmax/h``.
 import os
 import sys
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+# job ``precision`` rounds every bfloat16 op as its dtype says, as the
+# reference run op by op does (jax.disable_jit); XLA's default keeps fused
+# chains in float32
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4" + (
+    " --xla_allow_excess_precision=false" if sys.argv[1:2] == ["precision"] else "")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -239,6 +262,187 @@ def step(inputs: dict, mesh: str) -> dict:
     return out
 
 
+def _linear_loss(p, cfg, ctx, batch, remat=True, compute_dtype=None):
+    """``model.loss_fn``'s stand-in: ``sum(p * g)`` over the leaves, g the
+    rank's given gradient (``batch["grads"]``, a leading axis of 1)."""
+    total = sum(jnp.sum(a * g[0]) for a, g in zip(jax.tree_util.tree_leaves(p),
+                                                   jax.tree_util.tree_leaves(batch["grads"])))
+    return total, {"ce_loss": total, "moe_aux_loss": jnp.float32(0.0)}
+
+
+def perf(inputs: dict) -> dict:
+    from repro.configs import registry
+    from repro.configs.base import InputShape
+    from repro.core.mechanisms import make_mechanism
+    from repro.distributed import step as jstep
+    from repro.models import model
+    from repro.optim import make_optimizer, schedules
+
+    dims = tuple(int(d) for d in tp_cases.PERF_MESH.split("x"))
+    D, M = dims
+    cfg = registry.get_config(tp_cases.PERF_ARCH, reduced=True)
+    mech, opt = make_mechanism(tp_cases.PERF_SPEC), make_optimizer("sgd")
+    lr_fn = schedules.constant(tp_cases.PERF_LR)
+    shape = InputShape("t", tp_cases.PERF_SEQ, tp_cases.PERF_BATCH, "train")
+    jmesh = _mesh(dims, ("data", "model"))
+    plan = jstep.MeshPlan(mesh=jmesh, client_axes=("data",), model_axis="model")
+    like = jax.eval_shape(lambda k: model.init_params(k, cfg, tp=M), jax.random.key(0))
+    treedef = jax.tree_util.tree_structure(like)
+    def params0():  # a fresh tree each time: the steps donate theirs
+        return jax.tree_util.tree_unflatten(treedef, [
+            jnp.array(inputs[f"params0/{i}"]) for i in range(treedef.num_leaves)])
+
+    meta32 = model.param_meta(cfg, tp=M, dtype=jnp.float32)
+    keys = [jax.random.wrap_key_data(jnp.asarray(inputs[f"key{t}"]))
+            for t in range(tp_cases.PERF_STEPS)]
+    out = {}
+    for name in sorted(set(tp_cases.PERF_REFERENCE.values())):
+        kw = tp_cases.PERF_VARIANTS[name]
+        fn, specs = jstep.make_train_step(cfg, plan, mech, opt, lr_fn, shape, remat=False,
+                                          compute_dtype=jnp.float32, **kw)
+        params = jax.device_put(params0(), meta_lib.shardings(specs["param_meta"], jmesh))
+        if kw.get("zero1"):
+            state = jax.device_put({"master": jstep.zero1_init_master(params0(), meta32, M, D)},
+                                   meta_lib.shardings(specs["opt_meta"], jmesh))
+        else:
+            state = opt.init(params)
+        losses = []
+        for t in range(tp_cases.PERF_STEPS):
+            batch = {k: jnp.asarray(inputs[f"{k}{t}"]) for k in ("tokens", "labels")}
+            params, state, m = fn(params, state, jnp.int32(t), batch, keys[t])
+            losses.append(float(m["loss"]))
+            if t == 0 and name == "sp_compress":
+                for i, a in enumerate(jax.tree_util.tree_leaves(params)):
+                    out[f"{name}/params1/{i}"] = np.asarray(a)
+        out[f"{name}/losses"] = np.asarray(losses)
+        for i, a in enumerate(jax.tree_util.tree_leaves(params)):
+            out[f"{name}/params/{i}"] = np.asarray(a)
+        if kw.get("zero1"):
+            for i, a in enumerate(jax.tree_util.tree_leaves(state)):
+                out[f"{name}/master/{i}"] = np.asarray(a)
+    out.update(_zero1_given(inputs, cfg, mech, lr_fn, plan, params0(), meta32, keys[0]))
+    return out
+
+
+def _zero1_given(inputs, cfg, mech, lr_fn, plan, params0, meta32, key) -> dict:
+    """One ZeRO-1 step on the given per-rank gradients: the reference's
+    jitted ``build_zero1_train_step_fn`` (``model.loss_fn`` replaced by
+    ``_linear_loss``), its new global parameters and master; and, op by op
+    (``jax.disable_jit``: no contraction into FMAs, ROADMAP.md C6), each
+    rank's summed levels (its client's block), from the reference's
+    ``rqm_encode_counters`` on the gradient the step encodes (``/ tp``,
+    then summed over the model axis for a replicated leaf) at the seeds it
+    folds (``seeds0``), all ranks' leaves in one call; and each rank's new
+    master shard, ``master - lr * decode_sum(levels)``."""
+    from repro.distributed import step as jstep
+    from repro.kernels.rqm_kernel import rqm_encode_counters
+    from repro.models import model
+
+    D, M = plan.n_clients, plan.tp
+    metas = jax.tree_util.tree_leaves(meta32, is_leaf=meta_lib.is_meta)
+    n_leaves = len(metas)
+    grads = [np.stack([inputs[f"grads/{r}/{i}"] for r in range(D * M)])
+             for i in range(n_leaves)]
+    treedef = jax.tree_util.tree_structure(params0)
+    gtree = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(g) for g in grads])
+    body = jstep.build_zero1_train_step_fn(cfg, mech, lr_fn, plan.ctx(), remat=False,
+                                           compute_dtype=jnp.float32, agg_dtype="auto")
+    opt_meta = {"master": jstep.zero1_master_meta(meta32, M, D, plan.client_axes)}
+    pspecs, ospecs = meta_lib.pspecs(meta32), meta_lib.pspecs(opt_meta)
+    gspecs = jax.tree_util.tree_map(lambda _: P(("data", "model")), gtree)
+    mspecs = {k: P() for k in ("loss", "ce_loss", "moe_aux_loss")}
+    mapped = compat_shard_map(body, mesh=plan.mesh,
+                              in_specs=(pspecs, ospecs, P(), {"grads": gspecs}, P()),
+                              out_specs=(pspecs, ospecs, mspecs), check_vma=False)
+    master0 = [np.asarray(a) for a in jax.tree_util.tree_leaves(
+        jstep.zero1_init_master(params0, meta32, M, D))]
+    real = model.loss_fn
+    model.loss_fn = _linear_loss
+    try:
+        p1, o1, _ = jax.jit(mapped)(params0, {"master": jax.tree_util.tree_unflatten(
+            treedef, [jnp.asarray(a) for a in master0])}, jnp.int32(0), {"grads": gtree}, key)
+    finally:
+        model.loss_fn = real
+    out = {f"given/params/{i}": np.asarray(a)
+           for i, a in enumerate(jax.tree_util.tree_leaves(p1))}
+    out.update({f"given/master/{i}": np.asarray(a)
+                for i, a in enumerate(jax.tree_util.tree_leaves(o1))})
+    # the encoded gradient of rank (c, j), leaf i, and its seed
+    xs, seeds, counters, parts = [], [], [], []
+    for i, m in enumerate(metas):
+        per = grads[i].reshape((D, M) + grads[i].shape[1:]) / np.float32(M)
+        if m.sync >= M:
+            per = np.broadcast_to(per.sum(1, keepdims=True, dtype=np.float32), per.shape)
+        for c in range(D):
+            for j in range(M):
+                x = per[c, j].reshape(-1)
+                xs.append(x)
+                seeds.append(np.full(x.size, inputs["seeds0"][c * M + j][i], np.uint32))
+                counters.append(np.arange(x.size, dtype=np.uint32))
+                parts.append((i, c, j, x.size))
+    with jax.disable_jit():
+        z = np.asarray(rqm_encode_counters(jnp.asarray(np.concatenate(xs)),
+                                           jnp.asarray(np.concatenate(seeds)),
+                                           jnp.asarray(np.concatenate(counters)), mech.params))
+    levels, at = {}, 0
+    for i, c, j, n in parts:
+        levels[i, c, j], at = z[at:at + n], at + n
+    shards, m0 = [], []
+    for i in range(n_leaves):
+        for j in range(M):
+            total = np.sum([levels[i, c, j] for c in range(D)], axis=0, dtype=np.int64)
+            L = master0[i].shape[1] // D
+            total = np.pad(total, (0, L * D - total.size)).astype(np.int32)
+            for c in range(D):
+                out[f"levels/{c * M + j}/{i}"] = total[c * L:(c + 1) * L]
+                shards.append((i, c, j, L))
+                m0.append(master0[i][j, c * L:(c + 1) * L])
+    with jax.disable_jit():
+        zc = jnp.asarray(np.concatenate([out[f"levels/{c * M + j}/{i}"]
+                                         for i, c, j, _ in shards]))
+        new = np.asarray(jnp.asarray(np.concatenate(m0)) - lr_fn(0) * mech.decode_sum(zc, D))
+    at = 0
+    for i, c, j, L in shards:
+        out[f"given/master_op_by_op/{c * M + j}/{i}"], at = new[at:at + L], at + L
+    return out
+
+
+def precision(inputs: dict) -> dict:
+    from repro.configs import registry
+    from repro.configs.base import InputShape
+    from repro.models import model
+
+    ctx, out = ParallelCtx(), {}
+    bf16 = dict(compute_dtype=jnp.bfloat16)
+    shape = InputShape("t", tp_cases.PRECISION_CAP, tp_cases.PRECISION_BATCH, "decode")
+    for arch in tp_cases.PRECISION_ARCHS:
+        cfg = registry.get_config(arch, reduced=True)
+        params = jax.jit(lambda k: model.init_params(k, cfg, dtype=jnp.bfloat16))(
+            jax.random.key(tp_cases.PRECISION_KEY))
+        toks, labels = (jnp.asarray(inputs[f"{arch}/{k}"]) for k in ("tokens", "labels"))
+
+        @jax.jit
+        def loss(p, t, y):
+            h, aux = model.forward_hidden(p, cfg, ctx, t, **bf16)
+            return h, model.lm_head_loss(p, cfg, ctx, h, y)[0] + aux["moe_aux_loss"]
+
+        hidden, out[f"{arch}/loss"] = loss(params, toks, labels)
+        out[f"{arch}/hidden"] = hidden.astype(jnp.float32)
+        nxt, caches = jax.jit(lambda p, t: model.prefill(p, cfg, ctx, t, shape))(params, toks)
+        for i, c in enumerate(jax.tree_util.tree_leaves(caches)):
+            out[f"{arch}/cache/{i}"] = c.astype(jnp.float32)
+        decode = jax.jit(lambda p, c, t, pos: model.decode_step(p, c, cfg, ctx, t, pos))
+        tokens = [nxt]
+        for t in range(tp_cases.PRECISION_STEPS):
+            nxt, caches = decode(params, caches, nxt[:, None],
+                                 jnp.int32(tp_cases.PRECISION_PROMPT + t))
+            tokens.append(nxt)
+        out[f"{arch}/greedy"] = np.stack([np.asarray(t) for t in tokens], 1)
+        for i, a in enumerate(jax.tree_util.tree_leaves(params)):
+            out[f"{arch}/params/{i}"] = a.astype(jnp.float32)
+    return out
+
+
 def relayout_tp(params1, cfg, tp):
     """tp = 1 parameters -> the global layout at tp (shard/duplicate), as
     tests/sharded_checks.py:relayout_tp does."""
@@ -367,6 +571,6 @@ if __name__ == "__main__":
     job, src, dst = sys.argv[1:4]
     inputs = dict(np.load(src)) if os.path.exists(src) else {}
     res = {"layers": layers, "ops": ops, "client": client, "step": step,
-           "serve": serve}[job](inputs, *sys.argv[4:])
+           "serve": serve, "perf": perf, "precision": precision}[job](inputs, *sys.argv[4:])
     np.savez(dst, **{k: np.asarray(v) for k, v in res.items()})
     print(f"{job}: {len(res)} arrays")
