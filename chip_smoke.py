@@ -281,7 +281,31 @@ which raises and exits non-zero:
      ms a step, peak a rank beside the estimate; (d) 5i's gemma3-4b
      decode in bfloat16 (parameters, compute, caches): ms a step, peak,
      tokens equal to 5i's float32 ones (reported); lines start with [5m],
-     report "opt_steps", files under build/phase5m.
+     report "opt_steps", files under build/phase5m;
+  5n. the dry run (``launch/dryrun.py`` on the meta device) against the
+     card: (a) ``python -m repro_torch.launch.dryrun`` at the reference's
+     16x16 mesh (a fake group of 256 ranks), one architecture of each
+     family (gemma3-4b, qwen3-moe-30b-a3b, mamba2-370m, zamba2-1.2b,
+     pixtral-12b) at train_4k and decode_32k and mamba2-370m at
+     long_500k, one process each, all at once: each must end ``ok``; its
+     roofline terms on the H100, dominant term, useful-FLOPs ratio, meta
+     peak and the memory model's total and fit against this card's
+     total_memory, a line each; (b) inside 5j (c), on its parameters:
+     ``dryrun.build_step``'s one-rank step (rqm, sgd, float32, no remat)
+     counted once on the meta device and once on the card: the card's
+     FLOPs and dispatched bytes (the kernels' charged traffic included)
+     must equal the meta counts exactly; the meta peak beside
+     max_memory_allocated above the start, the roofline terms beside the
+     measured step (printed); (c) 5m (a)'s ranks record the collectives
+     of each variant's first step, which must equal, record for record
+     and in order (kind, bytes, group size), those of the same plan's
+     step on the meta device (``--dryrun-worker``, a fake group of 4);
+     (d) the generalised RQM (``core/rqm_general.py``) on the card at
+     m=16 and a q vector from ``optimize_q``: 1,000,000 draws at each of
+     x = -1.2, 0.1, 1.4 against ``outcome_distribution`` by a chi-square
+     test (p above 1e-4), and ``select_levels`` on the card equal to the
+     CPU's bit for bit on the same uniforms; lines start with [5n], report
+     "dryrun", files under build/phase5n.
 
 Every run of phases 4 to 5m (but their reports) sets the kernels' launch counters to 0
 just before it and reads them just after. Every kernel must launch on
@@ -484,6 +508,23 @@ OPT_ZERO1_MESH = (2, 1)
 OPT_ZERO1_REDUCED_LAYERS = 12
 BF16_FLOPS_PER_S = 989e12
 BF16_LOSS_RTOL = 1e-2
+# phase 5n: the dry run. (a) the runs at the reference's 16x16 mesh, one
+# process each, DRY_WORKERS at once, each within DRY_TIMEOUT seconds; (d)
+# the generalised RQM: its base grid, optimize_q's cohort, alpha and
+# iterations, the draws at each x, the chi-square test's least p-value,
+# the seed, and the elements held bit for bit against the CPU
+DRY_RUNS = (("gemma3-4b", "train_4k"), ("gemma3-4b", "decode_32k"),
+            ("qwen3-moe-30b-a3b", "train_4k"), ("qwen3-moe-30b-a3b", "decode_32k"),
+            ("mamba2-370m", "train_4k"), ("mamba2-370m", "decode_32k"),
+            ("mamba2-370m", "long_500k"), ("zamba2-1.2b", "train_4k"),
+            ("zamba2-1.2b", "decode_32k"), ("pixtral-12b", "train_4k"),
+            ("pixtral-12b", "decode_32k"))
+DRY_WORKERS = 8
+DRY_TIMEOUT = 600
+GRQM_BASE = {"c": 1.5, "delta": 1.5, "m": 16, "q": 0.42}
+GRQM_OPTIMIZE = (8, 8.0, 20)  # n, alpha, iters
+GRQM_DRAWS, GRQM_XS, GRQM_P_MIN, GRQM_SEED = 1_000_000, (-1.2, 0.1, 1.4), 1e-4, 29
+GRQM_EXACT = 1 << 20
 # kernels that no main path runs, and why
 NO_PATH = {"decode_apply": "the folded w - (shift + scale z) is not bit-identical to "
                            "decode_sum then SGD, so no round of either package runs it"}
@@ -2896,6 +2937,10 @@ def train_full_width(torch, counted, card: str) -> dict:
             with recorded_encodes(first_of_shape) as out["kept"]:
                 params, state, _ = step_fn(params, state, steps + 1, b,
                                            train_seeds(0, steps + 1, 0, n_leaves))
+            # phase 5n (b): the dry run's one-rank step on these parameters
+            out["dryrun_one_rank"] = dry_one_rank(
+                torch, cfg, params, batch_to(pipe.batch(steps + 2), "cuda"), steps + 2, shape,
+                card)
         del params, state
         torch.cuda.empty_cache()
         return out
@@ -2904,6 +2949,7 @@ def train_full_width(torch, counted, card: str) -> dict:
     f32 = dict(remat=False, compute_dtype=torch.float32)
     runs["plain"] = run("plain", build_train_step_fn(cfg, mech, opt, lr_fn, ParallelCtx(), **f32),
                         profiled=True)
+    dry = runs["plain"].pop("dryrun_one_rank")
     t0 = time.perf_counter()
     held = held_encodes(torch, runs["plain"].pop("kept"), f"{arch} full width")
     held_s = time.perf_counter() - t0
@@ -2940,7 +2986,7 @@ def train_full_width(torch, counted, card: str) -> dict:
               "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
               "bound_ops_ms": bound_ops, "bound_bytes_ms": bound_bytes,
               "packed_plan_equal": True, "held_leaf_sizes": held, "held_s": held_s,
-              "nvidia_smi": card}
+              "nvidia_smi": card, "dryrun_one_rank": dry}
     log(f"[5j] {arch} full width: {n_params} parameters in {a['leaves']} leaves, batch {batch} "
         f"x seq {seq}, {steps} steps: plain == one-rank packed plan bit for bit (digests, "
         f"embedding, losses {a['losses']}); step ms {a['step_ms']} (plain), {b['step_ms']} "
@@ -4168,6 +4214,7 @@ def opt_variants(torch, counted) -> dict:
     from repro_torch.core.mechanisms import make_mechanism
     from repro_torch.distributed.step import (make_plan, make_train_step, train_seeds,
                                               zero1_master_shard)
+    from repro_torch.launch import hlo_analysis
     from repro_torch.models import meta as meta_lib
     from repro_torch.models import model
     from repro_torch.optim import make_optimizer
@@ -4194,15 +4241,19 @@ def opt_variants(torch, counted) -> dict:
             n = len(leaves(params))
             state = ({"master": zero1_master_shard(params, ctx)} if kw.get("zero1")
                      else opt.init(params))
-            losses = []
+            losses, collectives = [], []
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(OPT_STEPS + 1)]
 
             def go():
                 nonlocal params, state
                 ev[0].record()
                 for t in range(OPT_STEPS):
-                    params, state, m = step_fn(params, state, t, batch,
-                                               train_seeds(0, t, ctx.client_index, n, shards))
+                    # phase 5n (c): the first step's collectives
+                    with hlo_analysis.recording() as rec:
+                        params, state, m = step_fn(params, state, t, batch,
+                                                   train_seeds(0, t, ctx.client_index, n, shards))
+                    if t == 0:
+                        collectives.extend(list(r) for r in rec)
                     ev[t + 1].record()
                     losses.append(m["loss"])
 
@@ -4212,7 +4263,7 @@ def opt_variants(torch, counted) -> dict:
                 raise AssertionError(f"[5m] (a) {arch} {name}: losses {losses}")
             runs[name] = {"losses": losses, "leaves": n,
                           "step_ms": [ev[i].elapsed_time(ev[i + 1]) for i in range(OPT_STEPS)],
-                          "digests": tp_digests(torch, params)}
+                          "digests": tp_digests(torch, params), "collectives": collectives}
             del params, state
         base = runs["base"]
         if runs["int16"]["digests"] != base["digests"] or runs["int16"]["losses"] != base["losses"]:
@@ -4533,6 +4584,10 @@ def opt_phase(torch, counts: dict, paths: dict, counted, card: str, f32: dict,
 
     torch.cuda.empty_cache()
     report["variants"] = add(tp_launch("variants", 4, "5m"), "(a)")
+    for rep in report["variants"]:  # phase 5n (c) reads them from the ranks' files
+        for runs in rep["variants"].values():
+            for name in OPT_VARIANTS:
+                runs[name].pop("collectives")
     for arch, r in report["variants"][0]["variants"].items():
         log(f"[5m] (a) {arch} reduced at {OPT_MESH[0]}x{OPT_MESH[1]}, float32, {OPT_STEPS} steps "
             f"on one batch: losses " + "; ".join(
@@ -4569,6 +4624,259 @@ def opt_phase(torch, counts: dict, paths: dict, counted, card: str, f32: dict,
         f"{[r['estimate']['total'] for r in z]} B (card {total} B, total_memory "
         f"{torch.cuda.get_device_properties(0).total_memory} B); nvidia-smi: {card}")
     report["bf16_decode"] = opt_bf16_decode(torch, counted, card, served)
+    return report
+
+
+def dry_one_rank(torch, cfg, params, batch: dict, step: int, shape, card: str) -> dict:
+    """Phase 5n (b), inside 5j (c) on its parameters: ``dryrun.build_step``'s
+    one-rank train step (rqm, sgd, float32, no remat: 5j's
+    ``build_train_step_fn`` over a one-rank plan) counted once on the meta
+    device, then run twice on the card, one step timed and one counted
+    (``hlo_analysis.counting``). The card's FLOPs and dispatched bytes (the
+    kernels' charged traffic included) must equal the meta counts exactly;
+    the meta peak is reported beside max_memory_allocated above the
+    start, the roofline's terms beside the measured step."""
+    from repro_torch.distributed.step import make_plan
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import H100
+
+    kw = dict(mechanism=SPECS["rqm"], remat=False, compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    fn, args = dryrun.build_step(cfg, make_plan((1, 1), "meta"), shape, **kw)
+    with hlo_analysis.counting() as meta:
+        out = fn(*args)
+    meta_s = time.perf_counter() - t0
+    del out, args
+    fn, args = dryrun.build_step(cfg, make_plan((1, 1), "cuda"), shape, device="cuda", **kw)
+    seeds = args[4]
+    del args
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    new = fn(params, (), step, batch, seeds)
+    ev[1].record()
+    del new
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev[2].record()
+    with hlo_analysis.counting() as real:
+        new = fn(params, (), step + 1, batch, seeds)
+    ev[3].record()
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    del new
+    torch.cuda.empty_cache()
+    if real.flops != meta.flops or real.bytes != meta.bytes:
+        raise AssertionError(
+            f"[5n] (b) the card's counts differ from the meta run's: flops {real.flops} vs "
+            f"{meta.flops}, bytes {real.bytes} vs {meta.bytes} (kernels {dict(real.kernel_bytes)}"
+            f" vs {dict(meta.kernel_bytes)}), ops {real.ops} vs {meta.ops}")
+    if dict(real.kernel_bytes) != dict(meta.kernel_bytes) or real.collectives:
+        raise AssertionError(f"[5n] (b) kernel charges {dict(real.kernel_bytes)} vs "
+                             f"{dict(meta.kernel_bytes)}, collectives {real.collectives}")
+    terms = hlo_analysis.roofline_terms(meta.flops, meta.bytes, 0.0, H100)
+    f32_compute_s = meta.flops / F32_FLOPS_PER_S
+    step_ms = ev[0].elapsed_time(ev[1])
+    rep = {"arch": cfg.name, "batch": shape.global_batch, "seq": shape.seq_len,
+           "flops": meta.flops, "bytes": meta.bytes, "kernel_bytes": dict(meta.kernel_bytes),
+           "ops_meta": meta.ops, "ops_card": real.ops, "meta_s": meta_s,
+           "meta_peak_bytes": meta.peak_bytes, "card_peak_bytes_above_start": peak,
+           "peak_gap_bytes": peak - meta.peak_bytes, "roofline_h100": terms,
+           "compute_s_at_f32_peak": f32_compute_s,
+           "largest_term_ms": max(terms["memory_s"], f32_compute_s) * 1e3,
+           "step_ms": step_ms, "counted_step_ms": ev[2].elapsed_time(ev[3]),
+           "counted_step_host_s": counted_s, "nvidia_smi": card}
+    log(f"[5n] (b) {cfg.name} at full width, batch {shape.global_batch} x seq "
+        f"{shape.seq_len}, rqm, sgd, float32, no remat, one rank: the card's FLOPs "
+        f"{real.flops} and dispatched bytes {real.bytes} (kernels {dict(real.kernel_bytes)}) == "
+        f"the meta run's exactly (ops {real.ops} on the card, {meta.ops} on meta; meta run "
+        f"{meta_s} s); peak above the start {peak} B on the card, {meta.peak_bytes} B live "
+        f"storages on meta (gap {peak - meta.peak_bytes} B); roofline on the H100: compute "
+        f"{terms['compute_s'] * 1e3} ms at the bfloat16 peak, {f32_compute_s * 1e3} ms at "
+        f"float32's, memory {terms['memory_s'] * 1e3} ms; measured step {step_ms} ms ("
+        f"{rep['counted_step_ms']} ms counted); nvidia-smi: {card}")
+    return rep
+
+
+def dryrun_worker() -> int:
+    """Phase 5n (c)'s meta side, a process of its own (``--dryrun-worker``):
+    under a fake group of OPT_MESH's ranks, as rank 0, each of OPT_ARCHS
+    reduced and each of OPT_VARIANTS through ``dryrun.build_step`` at 5m
+    (a)'s plan, shape, spec and float32 compute, once on the meta device,
+    its collectives recorded; written to build/phase5n/variants_meta.json."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.step import make_plan
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import fake_world
+
+    shape = InputShape("t", OPT_SEQ, OPT_BATCH, "train")
+    out = {}
+    with fake_world(math.prod(OPT_MESH)):
+        plan = make_plan(OPT_MESH, "meta")
+        for arch in OPT_ARCHS:
+            cfg = get_config(arch, reduced=True)
+            for name, kw in OPT_VARIANTS.items():
+                fn, args = dryrun.build_step(cfg, plan, shape, mechanism=OPT_SPEC,
+                                             compute_dtype=torch.float32, **kw)
+                with hlo_analysis.recording() as rec:
+                    fn(*args)
+                out.setdefault(arch, {})[name] = [list(r) for r in rec]
+    with open(os.path.join(ROOT, "build", "phase5n", "variants_meta.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def grqm_on_card(torch, card: str) -> dict:
+    """Phase 5n (d): the generalised RQM on the card at GRQM_BASE's grid and
+    the q vector ``optimize_q`` returns: GRQM_DRAWS draws of ``quantize`` at
+    each of GRQM_XS against ``outcome_distribution`` (chi-square, p above
+    GRQM_P_MIN; no draw where the pmf is 0), and ``select_levels`` on the
+    card == on the CPU bit for bit, on GRQM_EXACT elements' uniforms drawn
+    on the card."""
+    from scipy import stats
+
+    from repro_torch.core import rqm_general as rg
+    from repro_torch.core.grid import RQMParams
+
+    n, alpha, iters = GRQM_OPTIMIZE
+    t0 = time.perf_counter()
+    p, history = rg.optimize_q(RQMParams(**GRQM_BASE), n, alpha, iters=iters, seed=0)
+    opt_s = time.perf_counter() - t0
+    gen = torch.Generator("cuda").manual_seed(GRQM_SEED)
+    tests = {}
+    for x in GRQM_XS:
+        z = rg.quantize(torch.full((GRQM_DRAWS,), x, device="cuda"), p, gen)
+        counts = torch.bincount(z.to(torch.int64), minlength=p.m).cpu().numpy()
+        pmf = rg.outcome_distribution(x, p)
+        live = pmf > 0
+        if counts[~live].sum():
+            raise AssertionError(f"[5n] (d) x={x}: draws at levels of probability 0: {counts}")
+        _, pval = stats.chisquare(counts[live], pmf[live] / pmf[live].sum() * GRQM_DRAWS)
+        if not pval > GRQM_P_MIN:
+            raise AssertionError(f"[5n] (d) x={x}: chi-square p {pval} <= {GRQM_P_MIN}: "
+                                 f"counts {counts.tolist()}, pmf {pmf.tolist()}")
+        tests[str(x)] = {"p_value": float(pval), "counts": counts.tolist()}
+    x = (torch.rand(GRQM_EXACT, generator=gen, device="cuda") * 4 - 2)
+    x[:4] = torch.tensor([-p.c, p.c, 0.0, 3.0])
+    u_levels = torch.rand((GRQM_EXACT, p.m), generator=gen, device="cuda")
+    u_round = torch.rand(GRQM_EXACT, generator=gen, device="cuda")
+    on_card = rg.select_levels(x, u_levels, u_round, p).cpu()
+    on_cpu = rg.select_levels(x.cpu(), u_levels.cpu(), u_round.cpu(), p)
+    if not torch.equal(on_card, on_cpu):
+        raise AssertionError(f"[5n] (d) select_levels: {int((on_card != on_cpu).sum())} of "
+                             f"{GRQM_EXACT} levels differ between the card and the CPU")
+    rep = {"q": list(p.q), "eps_history": [h[0] for h in history], "optimize_s": opt_s,
+           "chi_square": tests, "select_levels_equal": GRQM_EXACT, "nvidia_smi": card}
+    log(f"[5n] (d) generalised RQM at m={p.m}, q from optimize_q (n={n}, alpha={alpha}, "
+        f"{iters} iterations, eps {history[0][0]} -> {history[-1][0]}): {GRQM_DRAWS} draws at "
+        f"each of {GRQM_XS} against outcome_distribution, chi-square p "
+        f"{[tests[str(x)]['p_value'] for x in GRQM_XS]} (> {GRQM_P_MIN}); select_levels on "
+        f"the card == the CPU's on {GRQM_EXACT} elements, bit for bit; nvidia-smi: {card}")
+    return rep
+
+
+def dry_phase(torch, card: str, one_rank: dict) -> dict:
+    """Phase 5n: (a)'s runs and (c)'s meta side as processes, DRY_WORKERS
+    at once, while (d) runs on the card here; then (a)'s records and (c)'s
+    comparison; (b)'s report, made inside 5j (c), is ``one_rank``."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    out_dir = os.path.join(ROOT, "build", "phase5n")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def proc(tag, cmd):
+        t0 = time.perf_counter()
+        with open(os.path.join(out_dir, f"{tag}.log"), "w") as f:
+            rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+                                timeout=DRY_TIMEOUT).returncode
+        return rc, time.perf_counter() - t0
+
+    jobs = {f"{a}_{s}": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                         "--shape", s, "--out-dir", os.path.join(out_dir, "dryrun")]
+            for a, s in DRY_RUNS}
+    jobs["variants_meta"] = [sys.executable, os.path.abspath(__file__), "--dryrun-worker"]
+    report = {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DRY_WORKERS) as pool:
+        futures = {tag: pool.submit(proc, tag, cmd) for tag, cmd in jobs.items()}
+        report["grqm"] = grqm_on_card(torch, card)
+        done = {tag: f.result() for tag, f in futures.items()}
+    procs_s = time.perf_counter() - t0
+    for tag, (rc, _) in done.items():
+        if rc:
+            with open(os.path.join(out_dir, f"{tag}.log")) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"[5n] {tag} exited {rc}:\n{tail}")
+
+    # (a) the reference's production mesh
+    total = torch.cuda.get_device_properties(0).total_memory
+    report["production"] = []
+    for arch, shape in DRY_RUNS:
+        with open(os.path.join(out_dir, "dryrun", f"{arch}_{shape}_16x16.json")) as f:
+            rec = json.load(f)
+        if rec["status"] != "ok":
+            raise AssertionError(f"[5n] (a) {arch} {shape} at 16x16: {rec['status']}: "
+                                 f"{rec.get('traceback', rec.get('reason'))}")
+        mem = rec["memory"]
+        line = {"arch": arch, "shape": shape, "mesh": rec["mesh"], **rec["roofline"],
+                "useful_flops_ratio": rec["useful_flops_ratio"],
+                "per_device_flops": rec["per_device_flops"],
+                "per_device_hbm_bytes": rec["per_device_hbm_bytes"],
+                "collective_ring_bytes": rec["collective"]["total_ring_bytes"],
+                "meta_peak_bytes": mem["meta_peak_bytes"],
+                "analytical_total": mem["analytical"]["total"], "hbm_limit": mem["hbm_limit"],
+                "fits": mem["fits"], "build_s": rec["build_s"], "run_s": rec["run_s"],
+                "process_s": done[f"{arch}_{shape}"][1]}
+        if mem["hbm_limit"] != total:
+            raise AssertionError(f"[5n] (a) {arch} {shape}: fit against {mem['hbm_limit']} B, "
+                                 f"not this card's {total} B")
+        log(json.dumps({"dryrun_16x16": line}))
+        report["production"].append(line)
+
+    # (c) the ranks' collectives against the meta run's
+    with open(os.path.join(out_dir, "variants_meta.json")) as f:
+        meta = json.load(f)
+    ranks = []
+    for r in range(math.prod(OPT_MESH)):
+        with open(os.path.join(ROOT, "build", "phase5m", f"variants_rank{r}.json")) as f:
+            ranks.append(json.load(f)["variants"])
+    report["collectives"] = {}
+    for arch in OPT_ARCHS:
+        for name in OPT_VARIANTS:
+            want = meta[arch][name]
+            for r, rank in enumerate(ranks):
+                got = rank[arch][name]["collectives"]
+                if got != want:
+                    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                                 min(len(got), len(want)))
+                    raise AssertionError(
+                        f"[5n] (c) {arch} {name}: rank {r}'s collectives differ from the meta "
+                        f"run's: {len(got)} records against {len(want)}, first at {first}: "
+                        f"{got[first:first + 3]} against {want[first:first + 3]}")
+            kinds = {}
+            for kind, nbytes, n in want:
+                k = kinds.setdefault(kind, [0, 0])
+                k[0] += 1
+                k[1] += nbytes
+            report["collectives"][f"{arch} {name}"] = {"records": len(want), "by_kind": kinds}
+    log(f"[5n] (c) 5m (a)'s first steps at {OPT_MESH[0]}x{OPT_MESH[1]} (gloo, the card): every "
+        f"rank's collectives == the meta run's of the same plan, record for record, in order: "
+        + "; ".join(f"{k} {v['records']} ({v['by_kind']})"
+                    for k, v in report["collectives"].items()))
+    report["one_rank"] = one_rank
+    report["processes_s"] = procs_s
+    log(f"[5n] (a) {len(DRY_RUNS)} dry runs at 16x16 ok, (c)'s meta side, (d) on the card: "
+        f"{procs_s} s; nvidia-smi: {card}")
     return report
 
 
@@ -4778,6 +5086,7 @@ def main() -> int:
     log(json.dumps({"train_reduced": train_reduced(torch, counted)}))
     log(json.dumps({"train_resume": train_resume(torch, counted)}))
     full_f32 = train_full_width(torch, counted, card)
+    dry_b = full_f32.pop("dryrun_one_rank")
     log(json.dumps({"train_full_width": full_f32}))
     log(json.dumps({"train_compare": train_compare(torch, counted, card)}))
     log(f"[5j] phase 5j in {time.perf_counter() - t5j} s")
@@ -4822,6 +5131,11 @@ def main() -> int:
                                            served)}))
     log(f"[5m] phase 5m in {time.perf_counter() - t5m} s")
 
+    # phase 5n: the dry run against the card ((b) ran inside 5j (c))
+    t5n = time.perf_counter()
+    log(json.dumps({"dryrun": dry_phase(torch, card, dry_b)}))
+    log(f"[5n] phase 5n in {time.perf_counter() - t5n} s")
+
     kernels = []
     for rec in records:
         name = rec["name"]
@@ -4864,4 +5178,6 @@ if __name__ == "__main__":
         sys.exit(opt_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-check"]:
         sys.exit(serve_check())
+    if sys.argv[1:2] == ["--dryrun-worker"]:
+        sys.exit(dryrun_worker())
     sys.exit(main())

@@ -23,6 +23,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 
 class GridGeometry:
@@ -95,7 +96,11 @@ def f32_const(value: float, device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _f32_const(value: float, device: torch.device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    # made outside any dispatch mode: it is made once a process, so the
+    # dry run's counts (launch/hlo_analysis.py) of a step must not depend
+    # on whether an earlier call made it
+    with _disable_current_modes():
+        return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 def decode_scale_dev(count: torch.Tensor, params: GridGeometry) -> torch.Tensor:

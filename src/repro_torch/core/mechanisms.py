@@ -30,6 +30,7 @@ import inspect
 from typing import Callable, ClassVar, Dict, Type, Union
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.core import grid, pbm, qmgeo, wire
 from repro_torch.core.grid import RQMParams
@@ -386,8 +387,10 @@ class NoiseFreeMechanism(Mechanism):
 @functools.lru_cache(maxsize=None)
 def _cohort_size(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``n`` as a 0-d tensor, made once per (n, dtype, device): making it
-    copies host to device, which a captured round may not do."""
-    return torch.tensor(float(n), dtype=dtype, device=device)
+    copies host to device, which a captured round may not do), outside
+    any dispatch mode, as ``grid.f32_const``'s."""
+    with _disable_current_modes():
+        return torch.tensor(float(n), dtype=dtype, device=device)
 
 
 def _coerce(text: str):

@@ -22,10 +22,10 @@ for callers that need a width safe for any ``bound < 2**16``.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import wire
 from repro_torch.kernels.pack_kernel import pack_flat, unpack_flat
+from repro_torch.models.common import all_reduce_
 
 LANE_BITS = 16
 
@@ -50,9 +50,7 @@ def unpack_levels(packed: torch.Tensor, n: int) -> torch.Tensor:
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over ``group``, in a new tensor: all_reduce works in
     place, and the caller may still read ``t`` as its own partial."""
-    out = t.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out
+    return all_reduce_(t.clone(), group)
 
 
 def secure_sum(z: torch.Tensor, group, *, packed: bool = False) -> torch.Tensor:
@@ -62,7 +60,7 @@ def secure_sum(z: torch.Tensor, group, *, packed: bool = False) -> torch.Tensor:
     if not packed:
         return _all_reduce(z, group)
     words, n = pack_levels(z)
-    dist.all_reduce(words, op=dist.ReduceOp.SUM, group=group)
+    all_reduce_(words, group)
     return unpack_levels(words, n)
 
 
@@ -76,7 +74,7 @@ def secure_sum_bounded(z: torch.Tensor, group, bound: int, *,
     if packed and wire.packable(bound):
         bits = wire.sum_bits(bound)
         words = pack_flat(z.reshape(-1), bits)
-        dist.all_reduce(words, op=dist.ReduceOp.SUM, group=group)
+        all_reduce_(words, group)
         return unpack_flat(words, bits, z.numel()).reshape(z.shape)
     return _all_reduce(z, group)
 

@@ -68,7 +68,7 @@ from repro_torch.core import secagg, wire
 from repro_torch.core.mechanisms import Mechanism
 from repro_torch.models import meta as meta_lib
 from repro_torch.models import model as model_lib
-from repro_torch.models.common import ParallelCtx, _all_gather, _reduce_scatter
+from repro_torch.models.common import ParallelCtx, _all_gather, _reduce_scatter, all_reduce_
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -214,7 +214,7 @@ def _psum_clients_int16(z: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
         return ctx.psum_clients(z)
     flat = z.reshape(-1)
     words = _int16_words(flat)
-    dist.all_reduce(words, group=ctx.group)
+    all_reduce_(words, ctx.group)
     return _int16_lanes(words, flat.numel()).reshape(z.shape)
 
 

@@ -32,7 +32,6 @@ levels over a process group.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 from torch.func import grad, vmap
 
 from repro_torch.convert import leaves, map_leaves, ravel
@@ -41,6 +40,7 @@ from repro_torch.core.grid import GridGeometry
 from repro_torch.fed import cohort
 from repro_torch.kernels.decode_apply_kernel import decode_apply_sum
 from repro_torch.kernels.pack_kernel import unpack_decode_apply, unpack_flat
+from repro_torch.models.common import all_reduce_
 from repro_torch.optim.optimizers import make_optimizer
 
 
@@ -281,7 +281,7 @@ def make_shard_round_step(mech, cfg, slate: int, shards: int, rank: int, group,
             # fields add on their own in int32 words (checked against the
             # full slate's bound by hot_path_pack_bits)
             z_sum = z_part
-            dist.all_reduce(z_sum, op=dist.ReduceOp.SUM, group=group)
+            all_reduce_(z_sum, group)
         else:
             z_sum = secagg.secure_sum_bounded(z_part, group, bound, packed=packed)
         return finish(flat, opt_state, z_sum, n_real)

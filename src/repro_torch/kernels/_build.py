@@ -11,7 +11,13 @@ contracted into an FMA: the kernels then give the same float32 bits as
 their plain PyTorch versions and as the JAX reference.
 
 ``launches`` counts kernel launches by name. ``launch`` adds to it, right
-after a launch that the runtime accepted. A launch made while a CUDA graph
+after a launch that the runtime accepted. ``charge`` reports a kernel's
+traffic to the dry run's byte counters (``launch/hlo_analysis.py``): a
+ctypes launch is no aten op, so no dispatch mode sees it. Each
+dispatcher charges its entry after a launch on the card and in its meta
+branch alike (a tensor on PyTorch's meta device: an empty output of the
+kernel's dtype and shape, nothing launched, nothing counted in
+``launches``). A launch made while a CUDA graph
 is captured (or in the warm-up before) runs nothing yet: ``moved_to``
 takes such launches out of ``launches`` into the graph holder's record,
 and ``replayed`` adds that record back at each replay of the graph.
@@ -46,8 +52,35 @@ _libs: dict = {}
 _funcs: dict = {}
 
 
+# the byte counters listening to ``charge`` (launch/hlo_analysis.py)
+traffic_listeners: list = []
+
+
 def reset_launches() -> None:
     launches.clear()
+
+
+def charge(fn: str, *tensors) -> None:
+    """Report one call of entry ``fn`` with its traffic, the bytes of
+    ``tensors``: each input it reads and each output it writes, once
+    (``chip_smoke.py:bound``'s rule), to the listening byte counters."""
+    if traffic_listeners:
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        for listener in traffic_listeners:
+            listener(fn, nbytes)
+
+
+def is_meta(t) -> bool:
+    """Whether ``t`` lies on PyTorch's meta device (a dry run's tensor)."""
+    return t.device.type == "meta"
+
+
+def check_meta(name: str, t, dtype) -> None:
+    """Validate a meta-branch operand as ``check_cuda`` would on the card."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 @contextlib.contextmanager

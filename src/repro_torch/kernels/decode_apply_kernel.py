@@ -19,7 +19,9 @@ the realized size of a heterogeneous cohort: that launches the ``_dev``
 entry, which reads it from device memory and computes the scale as the
 reference does at a traced n, ``f32(2 x_max) / f32(n (m-1))``, and at
 n = 0 returns ``w`` unchanged (an empty round moves nothing). CUDA kernels
-in ``csrc/decode_apply.cu`` for CUDA tensors; plain versions on the CPU. ``folded_walk`` mirrors the C entry ``decode_apply_walk``:
+in ``csrc/decode_apply.cu`` for CUDA tensors; plain versions on the CPU;
+for a meta tensor (a dry run's) an empty output, the kernel's traffic
+charged (``_build.charge``). ``folded_walk`` mirrors the C entry ``decode_apply_walk``:
 the width and grid of ``decode_apply``'s kernel.
 """
 from __future__ import annotations
@@ -117,25 +119,31 @@ def decode_apply_sum(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
     check_apply_args(w, n)
     if z_sum.shape != w.shape:
         raise ValueError(f"z_sum must be {tuple(w.shape)}, got {tuple(z_sum.shape)}")
-    if not w.is_cuda:
+    meta = _build.is_meta(w)
+    if not (w.is_cuda or meta):
         return decode_apply_plain(w, z_sum, params, n, lr)
-    _build.check_cuda("w", w, torch.float32)
-    _build.check_cuda("z_sum", z_sum, torch.int32)
+    check = _build.check_meta if meta else _build.check_cuda
+    check("w", w, torch.float32)
+    check("z_sum", z_sum, torch.int32)
     out = torch.empty_like(w)
-    with torch.cuda.device(w.device):
-        if isinstance(n, torch.Tensor):
-            _build.launch(
-                "decode_apply", "decode_apply_sum_dev", _DEV_ARGS,
-                w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(), n.data_ptr(),
-                *count_constants(params, lr), _build.stream_of(w),
-            )
-            return out
-        k = f32_decode_constants(params, n, lr)
-        _build.launch(
-            "decode_apply", "decode_apply_sum", _ARGS,
-            w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(),
-            k["neg_x_max"], k["scale"], k["lr"], _build.stream_of(w),
-        )
+    dev = isinstance(n, torch.Tensor)
+    if not meta:
+        with torch.cuda.device(w.device):
+            if dev:
+                _build.launch(
+                    "decode_apply", "decode_apply_sum_dev", _DEV_ARGS,
+                    w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(), n.data_ptr(),
+                    *count_constants(params, lr), _build.stream_of(w),
+                )
+            else:
+                k = f32_decode_constants(params, n, lr)
+                _build.launch(
+                    "decode_apply", "decode_apply_sum", _ARGS,
+                    w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(),
+                    k["neg_x_max"], k["scale"], k["lr"], _build.stream_of(w),
+                )
+    _build.charge("decode_apply_sum_dev" if dev else "decode_apply_sum",
+                  w, z_sum, out, *((n,) if dev else ()))
     return out
 
 
@@ -167,18 +175,22 @@ def decode_apply(w: torch.Tensor, z_sum: torch.Tensor, params: GridGeometry,
                          f"{tuple(w.shape)} and {tuple(z_sum.shape)}")
     if not isinstance(n, int) or n < 1:
         raise ValueError(f"cohort size n must be a positive int, got {n!r}")
-    if not w.is_cuda:
+    meta = _build.is_meta(w)
+    if not (w.is_cuda or meta):
         return decode_apply_ref(w, z_sum, params, n, lr)
     if w.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"w must be float32 or bfloat16, got {w.dtype}")
-    _build.check_cuda("w", w, w.dtype)
-    _build.check_cuda("z_sum", z_sum, torch.int32)
+    check = _build.check_meta if meta else _build.check_cuda
+    check("w", w, w.dtype)
+    check("z_sum", z_sum, torch.int32)
     out = torch.empty_like(w)
-    shift, scale = folded_constants(params, n, lr)
-    with torch.cuda.device(w.device):
-        _build.launch(
-            "decode_apply", "decode_apply", _FOLDED_ARGS,
-            w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(),
-            int(w.dtype == torch.bfloat16), shift, scale, _build.stream_of(w),
-        )
+    if not meta:
+        shift, scale = folded_constants(params, n, lr)
+        with torch.cuda.device(w.device):
+            _build.launch(
+                "decode_apply", "decode_apply", _FOLDED_ARGS,
+                w.data_ptr(), z_sum.data_ptr(), out.data_ptr(), w.numel(),
+                int(w.dtype == torch.bfloat16), shift, scale, _build.stream_of(w),
+            )
+    _build.charge("decode_apply", w, z_sum, out)
     return out

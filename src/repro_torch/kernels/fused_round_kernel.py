@@ -16,8 +16,9 @@ qmgeo), as ``round_sum_jnp`` does. Element (r, c) draws RNG counter
 reference's for the same uint32 seed. Weights are one int32 per row (0
 drops a row). The seed is an int or a 1-element int32 device tensor, as
 in ``quantize`` (a tensor seed launches the ``_dev`` entry, which reads it
-from device memory). The wrappers launch the kernel for CUDA tensors and run the
-plain version for CPU tensors. The CUDA packed kernel takes rqm and qmgeo:
+from device memory). The wrappers launch the kernel for CUDA tensors, run the
+plain version for CPU tensors, and for meta tensors (a dry run's) return
+an empty output and charge the kernel's traffic (``_build.charge``). The CUDA packed kernel takes rqm and qmgeo:
 the PBM mechanism's sum never travels packed.
 """
 from __future__ import annotations
@@ -81,28 +82,38 @@ def round_sum_packed_plain(x, w, seed, row_offset: int, params, bits: int,
 
 
 def _check_cuda(x, w):
-    _build.check_cuda("x", x, torch.float32)
-    _build.check_cuda("weights", w, torch.int32)
+    check = _build.check_meta if _build.is_meta(x) else _build.check_cuda
+    check("x", x, torch.float32)
+    check("weights", w, torch.int32)
+
+
+def _operands(x, w, out, seed) -> tuple:
+    return (x, w, out) + ((seed,) if isinstance(seed, torch.Tensor) else ())
 
 
 def round_sum(x, w, seed, row_offset: int, params,
               encode_name: str = "rqm") -> torch.Tensor:
     """Dense fused round sum: x (rows, dim) float32, w (rows,) int32 ->
-    (dim,) int32. CUDA kernel for CUDA tensors, plain version on the CPU."""
-    if not x.is_cuda:
+    (dim,) int32. CUDA kernel for CUDA tensors, plain version on the CPU,
+    the meta branch on the meta device."""
+    meta = _build.is_meta(x)
+    if not (x.is_cuda or meta):
         return round_sum_plain(x, w, seed, row_offset, params, encode_name)
     _check(x, w, seed, row_offset, encode_name)
     _check_cuda(x, w)
     rows, dim = x.shape
     out = torch.empty(dim, dtype=torch.int32, device=x.device)
+    operands = _operands(x, w, out, seed)
     types, values = ENCODERS[encode_name][1](params)
     entry, seed_type, seed = quantize.seed_arg(f"{encode_name}_round_sum_dense", seed)
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "round_sum", entry, (P, P, P, I32, I32, seed_type, U32) + types + (P,),
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, dim,
-            seed, int(row_offset), *values, _build.stream_of(x),
-        )
+    if not meta:
+        with torch.cuda.device(x.device):
+            _build.launch(
+                "round_sum", entry, (P, P, P, I32, I32, seed_type, U32) + types + (P,),
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, dim,
+                seed, int(row_offset), *values, _build.stream_of(x),
+            )
+    _build.charge(entry, *operands)
     return out
 
 
@@ -110,7 +121,8 @@ def round_sum_packed(x, w, seed, row_offset: int, params, bits: int,
                      encode_name: str = "rqm") -> torch.Tensor:
     """Packed fused round sum: (rows, dim) float32 -> (ceil(dim / (32 //
     bits)),) int32 words. Any word count; pad coordinates are zero."""
-    if not x.is_cuda:
+    meta = _build.is_meta(x)
+    if not (x.is_cuda or meta):
         return round_sum_packed_plain(x, w, seed, row_offset, params, bits, encode_name)
     _check(x, w, seed, row_offset, encode_name)
     if encode_name not in PACKED_KERNELS:
@@ -121,12 +133,15 @@ def round_sum_packed(x, w, seed, row_offset: int, params, bits: int,
     rows, dim = x.shape
     words = wire.packed_words(dim, bits)
     out = torch.empty(words, dtype=torch.int32, device=x.device)
+    operands = _operands(x, w, out, seed)
     types, values = ENCODERS[encode_name][1](params)
     entry, seed_type, seed = quantize.seed_arg(f"{encode_name}_round_sum_packed", seed)
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "round_sum", entry, (P, P, P, I32, I32, I32, I32, seed_type, U32) + types + (P,),
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, dim, words,
-            int(bits), seed, int(row_offset), *values, _build.stream_of(x),
-        )
+    if not meta:
+        with torch.cuda.device(x.device):
+            _build.launch(
+                "round_sum", entry, (P, P, P, I32, I32, I32, I32, seed_type, U32) + types + (P,),
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, dim, words,
+                int(bits), seed, int(row_offset), *values, _build.stream_of(x),
+            )
+    _build.charge(entry, *operands)
     return out

@@ -13,7 +13,8 @@ Unlike the TPU kernels these take any word count W (the paper's EMNIST
 round has W = 74,010, which is not a multiple of 128). CUDA kernels in
 ``csrc/pack.cu`` and ``csrc/decode_apply.cu``; on a CPU tensor each
 entry runs its plain version (``wire.pack_bits``/``unpack_bits`` for the
-codec).
+codec); on a meta tensor (a dry run's) it returns an empty output and
+charges the kernel's traffic (``_build.charge``).
 
 The codec kernels and ``unpack_decode_apply`` walk the words in V-groups
 (``codec_walk``, which the C entries mirror; ``csrc/walk.cuh``): group j
@@ -92,13 +93,16 @@ def pack_flat(z: torch.Tensor, bits: int) -> torch.Tensor:
     if z.ndim != 1 or z.numel() < 1:
         raise ValueError(f"z must be a non-empty flat vector, got {tuple(z.shape)}")
     n_words = wire.packed_words(z.numel(), bits)
-    if not z.is_cuda:
+    meta = _build.is_meta(z)
+    if not (z.is_cuda or meta):
         return pack_flat_plain(z, bits)
-    _build.check_cuda("z", z, torch.int32)
+    (_build.check_meta if meta else _build.check_cuda)("z", z, torch.int32)
     words = torch.empty(n_words, dtype=torch.int32, device=z.device)
-    with torch.cuda.device(z.device):
-        _build.launch("pack", "pack_flat", _CODEC_ARGS, z.data_ptr(), words.data_ptr(),
-                      z.numel(), n_words, int(bits), _build.stream_of(z))
+    if not meta:
+        with torch.cuda.device(z.device):
+            _build.launch("pack", "pack_flat", _CODEC_ARGS, z.data_ptr(), words.data_ptr(),
+                          z.numel(), n_words, int(bits), _build.stream_of(z))
+    _build.charge("pack_flat", z, words)
     return words
 
 
@@ -108,13 +112,16 @@ def unpack_flat(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     if words.ndim != 1 or n < 1 or k * words.numel() < n:
         raise ValueError(f"{n} fields at {bits} bits do not fit words of shape "
                          f"{tuple(words.shape)}")
-    if not words.is_cuda:
+    meta = _build.is_meta(words)
+    if not (words.is_cuda or meta):
         return unpack_flat_plain(words, bits, n)
-    _build.check_cuda("words", words, torch.int32)
+    (_build.check_meta if meta else _build.check_cuda)("words", words, torch.int32)
     z = torch.empty(n, dtype=torch.int32, device=words.device)
-    with torch.cuda.device(words.device):
-        _build.launch("pack", "unpack_flat", _CODEC_ARGS, words.data_ptr(), z.data_ptr(),
-                      n, words.numel(), int(bits), _build.stream_of(words))
+    if not meta:
+        with torch.cuda.device(words.device):
+            _build.launch("pack", "unpack_flat", _CODEC_ARGS, words.data_ptr(), z.data_ptr(),
+                          n, words.numel(), int(bits), _build.stream_of(words))
+    _build.charge("unpack_flat", words, z)
     return z
 
 
@@ -138,11 +145,18 @@ def unpack_decode_apply(w: torch.Tensor, words: torch.Tensor, params: GridGeomet
             f"{w.numel()} fields at {pack_bits} bits need ({n_words},) words, "
             f"got {tuple(words.shape)}"
         )
-    if not w.is_cuda:
+    meta = _build.is_meta(w)
+    if not (w.is_cuda or meta):
         return unpack_decode_apply_plain(w, words, params, n, lr, pack_bits=pack_bits)
-    _build.check_cuda("w", w, torch.float32)
-    _build.check_cuda("words", words, torch.int32)
+    check = _build.check_meta if meta else _build.check_cuda
+    check("w", w, torch.float32)
+    check("words", words, torch.int32)
     out = torch.empty_like(w)
+    if meta:
+        dev = isinstance(n, torch.Tensor)
+        _build.charge("unpack_decode_apply_dev" if dev else "unpack_decode_apply",
+                      w, words, out, *((n,) if dev else ()))
+        return out
     if isinstance(n, torch.Tensor):
         with torch.cuda.device(w.device):
             _build.launch(
@@ -151,6 +165,7 @@ def unpack_decode_apply(w: torch.Tensor, words: torch.Tensor, params: GridGeomet
                 int(pack_bits), n.data_ptr(), *count_constants(params, lr),
                 _build.stream_of(w),
             )
+        _build.charge("unpack_decode_apply_dev", w, words, out, n)
         return out
     k = f32_decode_constants(params, n, lr)
     with torch.cuda.device(w.device):
@@ -160,4 +175,5 @@ def unpack_decode_apply(w: torch.Tensor, words: torch.Tensor, params: GridGeomet
             int(pack_bits), k["neg_x_max"], k["scale"], k["lr"],
             _build.stream_of(w),
         )
+    _build.charge("unpack_decode_apply", w, words, out)
     return out

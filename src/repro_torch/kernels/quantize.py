@@ -7,7 +7,9 @@ Counterpart of the reference's ``*_quantize_2d`` Pallas kernels and their
 dim + c`` (mod 2**32), the counter the fused round sums give it too, so
 ``quantize(...).sum(0)`` equals the round sum bit for bit. A CUDA tensor
 launches the mechanism's entry in ``csrc/quantize.cu``; a CPU tensor runs
-the plain version, the mechanism's ``*_encode_counters`` on those counters.
+the plain version, the mechanism's ``*_encode_counters`` on those counters;
+a meta tensor (a dry run's) an empty int32 output and the kernel's
+traffic charged (``_build.charge``).
 """
 from __future__ import annotations
 
@@ -59,19 +61,24 @@ def quantize_plain(encode, x: torch.Tensor, seed, params, row_offset: int = 0) -
 def quantize(entry: str, encode, kernel_args, x: torch.Tensor, seed, params,
              row_offset: int = 0) -> torch.Tensor:
     """(rows, dim) float32 -> (rows, dim) int32 levels: the CUDA entry
-    ``entry`` for a CUDA tensor, the plain version on the CPU.
+    ``entry`` for a CUDA tensor, the plain version on the CPU, the meta
+    branch on the meta device.
     ``kernel_args`` is the mechanism's ``(argtypes, values)`` of its
     float32 constants and m."""
-    if not x.is_cuda:
+    meta = _build.is_meta(x)
+    if not (x.is_cuda or meta):
         return quantize_plain(encode, x, seed, params, row_offset)
     check_batch(x, seed, row_offset)
-    _build.check_cuda("x", x, torch.float32)
+    (_build.check_meta if meta else _build.check_cuda)("x", x, torch.float32)
     rows, dim = x.shape
     out = torch.empty((rows, dim), dtype=torch.int32, device=x.device)
+    operands = (x, out) + ((seed,) if isinstance(seed, torch.Tensor) else ())
     types, values = kernel_args
     entry, seed_type, seed = seed_arg(entry, seed)
-    with torch.cuda.device(x.device):
-        _build.launch("quantize", entry, (P, P, I32, I32, seed_type, U32) + types + (P,),
-                      x.data_ptr(), out.data_ptr(), rows, dim, seed, int(row_offset),
-                      *values, _build.stream_of(x))
+    if not meta:
+        with torch.cuda.device(x.device):
+            _build.launch("quantize", entry, (P, P, I32, I32, seed_type, U32) + types + (P,),
+                          x.data_ptr(), out.data_ptr(), rows, dim, seed, int(row_offset),
+                          *values, _build.stream_of(x))
+    _build.charge(entry, *operands)
     return out

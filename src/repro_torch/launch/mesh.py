@@ -23,11 +23,34 @@ Backend: ``backend(device, world)``. On the CPU gloo; on CUDA NCCL when
 every rank has a card of its own, and gloo when the ranks outnumber the
 visible cards (NCCL refuses two ranks on one device). Gloo then works on
 the CUDA tensors themselves: no collective moves them to the CPU.
+
+The dry run (``launch/dryrun.py``) plays one rank of a production mesh
+in one process: ``fake_world`` starts a default group of PyTorch's
+``fake`` backend, whose collectives return at once and move no data, and
+``mesh_groups``/``client_group`` build a plan's groups over it as over a
+real one (``new_group`` takes the default group's backend). ``H100`` holds
+the card's roofline terms, as the reference's ``V5E`` holds the TPU's.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+# NVIDIA H100 SXM5 (80 GB HBM3), the keys of the reference's V5E, for
+# launch/hlo_analysis.py:roofline_terms. Data-sheet figures: dense bfloat16
+# tensor-core peak, HBM3 bandwidth, NVLink 4 in one direction (18 links of
+# 25 GB/s); a mesh axis that leaves an 8-GPU node crosses InfiniBand at a
+# small fraction of that. hbm_bytes is the total_memory that
+# torch.cuda.get_device_properties reads on an NVIDIA H100 80GB HBM3 (at
+# 700 W); on a card the dry run reads the card's own.
+H100 = {
+    "peak_flops_bf16": 989e12,
+    "hbm_bandwidth": 3.35e12,
+    "ici_link_bandwidth": 450e9,
+    "hbm_bytes": 85_017_493_504,
+}
 
 # the backends of the one-rank default group this module created, if any
 _created: str | None = None
@@ -89,6 +112,25 @@ def mesh_groups(n_clients: int, tp: int, device) -> MeshGroups:
         size *= 2
     return MeshGroups(mine["client"], mine["model"], tuple(subgroups), client_index,
                       model_index)
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """A default process group of ``world`` ranks on PyTorch's ``fake``
+    backend, this process its rank 0, for the block: its collectives
+    return at once and move nothing (the dry run's). Refuses to start
+    over an existing default group, and destroys its own on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    global _created
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a default process group already exists")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+        _created = None
 
 
 def _group(ranks: int | None, device, who: str, start: str) -> dist.ProcessGroup:

@@ -47,16 +47,43 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 
+# Every collective the port issues goes through ``all_reduce_``,
+# ``_gather`` or ``_reduce_scatter``. While a recorder is active
+# (``launch/hlo_analysis.py:recording``), each appends ``(kind, bytes,
+# group size)`` to it: the bytes of the tensor reduced, of the whole
+# gathered output, of the whole input scattered (the ring model's bytes).
+# A fake group's collectives run through the same code.
+_recorders: list = []
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _note(kind: str, nbytes: int, group) -> None:
+    if _recorders:
+        rec = (kind, int(nbytes), dist.get_world_size(group))
+        for r in _recorders:
+            r.append(rec)
+
+
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over ``group`` in place (and returned)."""
+    _note("all-reduce", _nbytes(t), group)
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op, group=group)
-    return out
+    return all_reduce_(out, group, op)
 
 
 def _gather(x: torch.Tensor, group, size: int) -> list:
     """The ``size`` ranks' ``x`` of ``group``, in rank order."""
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(size)]
+    _note("all-gather", size * _nbytes(x), group)
     dist.all_gather(parts, x, group=group)
     return parts
 
@@ -72,6 +99,7 @@ def _reduce_scatter(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor
     reference's tiled psum_scatter)."""
     chunks = [c.contiguous() for c in x.detach().chunk(size, dim)]
     out = torch.empty_like(chunks[0])
+    _note("reduce-scatter", _nbytes(x), group)
     dist.reduce_scatter(out, chunks, group=group)
     return out
 

@@ -100,11 +100,13 @@ def shard_leaf(p: torch.Tensor, m: Meta, tp: int, index: int, *, client: int = 0
     return p
 
 
-def shape_dtype_structs(meta_tree):
+def shape_dtype_structs(meta_tree, tp: int = 1, n_clients: int = 1):
     """The tree of ``meta_tree``'s leaves as tensors on the meta device
-    (global shape and dtype, nothing allocated): the counterpart of the
-    reference's ``jax.ShapeDtypeStruct`` tree."""
-    return tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype, device="meta"), meta_tree)
+    (shape and dtype, nothing allocated): the counterpart of the
+    reference's ``jax.ShapeDtypeStruct`` tree. Global shapes by default; a
+    rank's (``local_shape``) at ``tp`` model ranks and ``n_clients``."""
+    return tree_map(lambda m: torch.empty(local_shape(m, tp, n_clients), dtype=m.dtype,
+                                          device="meta"), meta_tree)
 
 
 def zeros(meta_tree, tp: int = 1, n_clients: int = 1, device="cuda"):

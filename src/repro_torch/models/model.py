@@ -23,8 +23,9 @@ weight cast to it before its product, norms, softmaxes, the router and
 the SSD scan in float32. ``remat`` checkpoints each block
 (``torch.utils.checkpoint``, non-reentrant: nothing inside a block is
 saved, its forward runs again in the backward, as the reference's
-``jax.checkpoint`` with ``nothing_saveable``); it moves memory, not
-values. It does not compose with ``torch.func`` (the lm task's
+``jax.checkpoint`` with ``nothing_saveable``), and each sequence chunk
+of the loss (``lm_head_loss``, which the reference checkpoints always);
+it moves memory, not values. It does not compose with ``torch.func`` (the lm task's
 ``vmap(grad)``), whose callers pass ``remat=False`` as the reference's
 do.
 
@@ -176,13 +177,18 @@ def embed(params: dict, cfg: ModelConfig, ctx: ParallelCtx, tokens: torch.Tensor
 
 
 def lm_head_loss(params: dict, cfg: ModelConfig, ctx: ParallelCtx, h: torch.Tensor,
-                 labels: torch.Tensor, *, seq_chunk: int = 512):
+                 labels: torch.Tensor, *, seq_chunk: int = 512, remat: bool = False):
     """Vocab-parallel cross entropy over the PADDED vocab (its extra
     columns take part in the log-sum-exp). h: (B, S, D); labels: (B, S),
     positions with label < 0 masked out. Returns (mean_loss, n_tokens).
     A rank makes its (B, chunk, V/tp) logits a sequence chunk at a time;
     the log-sum-exp and the target logit combine over the model axis by
-    pmax (of a value no gradient flows through) and psum."""
+    pmax (of a value no gradient flows through) and psum. ``remat``: each
+    chunk checkpointed, as the reference checkpoints every chunk (its
+    logits made again in the backward, so one chunk's live at a time);
+    off, every chunk's logits are kept for the backward (``torch.func``'s
+    transforms, which the lm task's ``vmap(grad)`` is, take no
+    checkpoint)."""
     head = squeeze_tp(params["lm_head"], 1)  # (D, V_l)
     v_l = head.shape[1]
     lo = ctx.model_index() * v_l
@@ -206,7 +212,12 @@ def lm_head_loss(params: dict, cfg: ModelConfig, ctx: ParallelCtx, h: torch.Tens
         mask = (labels_c >= 0).to(torch.float32)
         return ((lse - tgt) * mask).sum()
 
-    per_chunk = torch.stack([chunk_loss(h[:, i * cs:(i + 1) * cs], labels[:, i * cs:(i + 1) * cs])
+    def run(h_c, labels_c):
+        if remat:
+            return checkpoint(chunk_loss, h_c, labels_c, use_reentrant=False)
+        return chunk_loss(h_c, labels_c)
+
+    per_chunk = torch.stack([run(h[:, i * cs:(i + 1) * cs], labels[:, i * cs:(i + 1) * cs])
                              for i in range(n_chunks)])
     mask = (labels >= 0).to(torch.float32)
     n_tok = mask.sum().clamp(min=1.0)
@@ -288,11 +299,11 @@ def loss_fn(params: dict, cfg: ModelConfig, ctx: ParallelCtx, batch: dict, *,
             remat: bool = True, compute_dtype=torch.bfloat16):
     """Next-token CE (+ MoE aux). batch: {"tokens", "labels"[,
     "prefix_embeds"]}; labels align with the FULL sequence (prefix
-    positions carry -1). The reference's defaults: each block
-    checkpointed, bfloat16 compute."""
+    positions carry -1). The reference's defaults: each block and each
+    chunk of the loss checkpointed, bfloat16 compute."""
     h, aux = forward_hidden(params, cfg, ctx, batch["tokens"], batch.get("prefix_embeds"),
                             remat=remat, compute_dtype=compute_dtype)
-    loss, n_tok = lm_head_loss(params, cfg, ctx, h, batch["labels"])
+    loss, n_tok = lm_head_loss(params, cfg, ctx, h, batch["labels"], remat=remat)
     total = loss + aux["moe_aux_loss"]
     return total, {"ce_loss": loss, "n_tokens": n_tok, **aux}
 

@@ -166,6 +166,7 @@ def forward(params: dict, spec: MoESpec, ctx: ParallelCtx, x: torch.Tensor, *,
 
     n_local = counts[:e_l].sum()
     kept = valid.to(torch.int64).sum()
-    dropped = ctx.psum_model(n_local - kept) / (T * spec.top_k)
+    # int32 across the model axis, as the reference's count
+    dropped = ctx.psum_model((n_local - kept).to(torch.int32)) / (T * spec.top_k)
     aux = {"moe_aux_loss": aux_loss * spec.router_aux_coef, "moe_drop_frac": dropped}
     return y, aux

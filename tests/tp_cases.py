@@ -132,3 +132,12 @@ PERF_GRAD_SCALE = 0.05
 PRECISION_ARCHS = ("gemma3-4b", "qwen3-moe-30b-a3b", "mamba2-370m")
 PRECISION_KEY = 7
 PRECISION_BATCH, PRECISION_PROMPT, PRECISION_CAP, PRECISION_STEPS = 2, 32, 48, 2
+
+# the dry run (tests/test_torch_dryrun.py): the reference's compiled
+# ``dryrun.build_step`` (rqm at c=0.01, sgd, remat, bfloat16 compute) at
+# DRYRUN_MESH on each of DRYRUN_ARCHS reduced, a train shape of
+# DRYRUN_SEQ x DRYRUN_BATCH, against the collectives the port's meta run
+# of the same plan records
+DRYRUN_ARCHS = ("qwen3-moe-30b-a3b", "mamba2-370m")
+DRYRUN_MESH = "2x2"
+DRYRUN_SEQ, DRYRUN_BATCH = 32, 4

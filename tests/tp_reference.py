@@ -58,7 +58,15 @@ SERVE_STEPS decode steps from the one-rank caches ``<arch>/cache/<i>``
 caches and ``<arch>/tok0``. Out: the tokens of every step and the final
 global caches (``<arch>/tokens``, ``<arch>/cache/<i>``, and ``q_``-
 prefixed for int8, scales as float32); and ``lm_head_argmax`` at each
-of tp_cases.ARGMAX_TPS (``argmax<tp>``) on ``argmax/head``, ``argmax/h``.
+of tp_cases.ARGMAX_TPS (``argmax<tp>``) on ``argmax/head``, ``argmax/h``;
+
+job ``dryrun <DxM> [arch ...]``: for each arch (default
+tp_cases.DRYRUN_ARCHS) reduced, the reference's ``dryrun.build_step`` at
+the mesh on a train shape of tp_cases.DRYRUN_SEQ x DRYRUN_BATCH, lowered
+and compiled: ``<arch>/summary``, ``hlo_analysis.collective_bytes`` of
+the optimised HLO (JSON), and ``<arch>/operands``, each collective's
+operands one by one, ``[kind, bytes, group size]`` (JSON; a combined
+tuple all-reduce gives one entry an operand).
 """
 import os
 import sys
@@ -567,10 +575,49 @@ def argmax(inputs: dict) -> dict:
     return out
 
 
+def dryrun(inputs: dict, mesh: str, *archs) -> dict:
+    import json
+    import re
+
+    flags = os.environ["XLA_FLAGS"]
+    from repro.launch import dryrun as dry  # sets XLA_FLAGS at import: put ours back
+    os.environ["XLA_FLAGS"] = flags
+    from repro.configs import registry
+    from repro.configs.base import InputShape
+    from repro.distributed.step import MeshPlan
+    from repro.launch import hlo_analysis
+    from repro.launch.mesh import compat_set_mesh
+
+    dims = tuple(int(d) for d in mesh.split("x"))
+    jmesh = _mesh(dims, ("data", "model"))
+    plan = MeshPlan(mesh=jmesh, client_axes=("data",))
+    shape = InputShape("t", tp_cases.DRYRUN_SEQ, tp_cases.DRYRUN_BATCH, "train")
+    out = {}
+    for arch in archs or tp_cases.DRYRUN_ARCHS:
+        cfg = registry.get_config(arch, reduced=True)
+        with compat_set_mesh(jmesh):
+            fn, args = dry.build_step(cfg, plan, shape)
+            hlo = fn.lower(*args).compile().as_text()
+        operands = []
+        for line in hlo.splitlines():
+            m = re.search(r"\s(all-reduce|all-gather|reduce-scatter|collective-permute|"
+                          r"all-to-all)(-start)?\(", line)
+            if m is None or " = " not in line or line.strip().startswith("//"):
+                continue
+            lhs = line[:m.start()].split(" = ", 1)[1]
+            n = hlo_analysis._group_size(line) or 1
+            operands += [[m.group(1), hlo_analysis._shape_bytes(sig), n]
+                         for sig in re.findall(r"\w+\[[\d,]*\]", lhs)]
+        out[f"{arch}/summary"] = json.dumps(hlo_analysis.collective_bytes(hlo).summary())
+        out[f"{arch}/operands"] = json.dumps(operands)
+    return out
+
+
 if __name__ == "__main__":
     job, src, dst = sys.argv[1:4]
     inputs = dict(np.load(src)) if os.path.exists(src) else {}
     res = {"layers": layers, "ops": ops, "client": client, "step": step,
-           "serve": serve, "perf": perf, "precision": precision}[job](inputs, *sys.argv[4:])
+           "serve": serve, "perf": perf, "precision": precision,
+           "dryrun": dryrun}[job](inputs, *sys.argv[4:])
     np.savez(dst, **{k: np.asarray(v) for k, v in res.items()})
     print(f"{job}: {len(res)} arrays")
