@@ -1189,8 +1189,11 @@ def profile_rounds(torch, tr, rounds: int, tag: str) -> dict:
                 tr.round()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        # not the record_function ranges (the port's spans): each range
+        # around kernels is also a device-side event that holds their time
         avgs = [e for e in prof.key_averages()
-                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)]
         if avgs:
             break
     else:

@@ -74,8 +74,11 @@ def profile(torch, tr) -> dict:
             tr.round()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    # not the record_function ranges (the port's spans): each range around
+    # kernels is also a device-side event that holds all of their time
     avgs = sorted((e for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU and e.self_device_time_total > 0),
+                   if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)),
                   key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in avgs) / 1e3
     return {"device_busy_ms_per_round": busy_ms / PROFILE_ROUNDS,

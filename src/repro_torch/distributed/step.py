@@ -70,6 +70,7 @@ from repro_torch.models import meta as meta_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import ParallelCtx, _all_gather, _reduce_scatter, all_reduce_
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.telemetry.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,10 +344,12 @@ def _loss_and_grads(params, cfg: ModelConfig, ctx: ParallelCtx, batch: dict, rem
     / tp, which its ``sync = tp`` psum in ``sync_grads`` restores."""
     p_leaves = [p.detach().requires_grad_() for p in leaves(params)]
     with torch.enable_grad():
-        total, aux = model_lib.loss_fn(map_leaves(lambda i, _: p_leaves[i], params), cfg, ctx,
-                                       batch, remat=remat, compute_dtype=compute_dtype)
-        loss = total / ctx.tp  # the psum self-transpose correction
-        grads = list(torch.autograd.grad(loss, p_leaves))
+        with span("train_step.forward"):
+            total, aux = model_lib.loss_fn(map_leaves(lambda i, _: p_leaves[i], params), cfg,
+                                           ctx, batch, remat=remat, compute_dtype=compute_dtype)
+            loss = total / ctx.tp  # the psum self-transpose correction
+        with span("train_step.backward"):
+            grads = list(torch.autograd.grad(loss, p_leaves))
     return loss.detach() * ctx.tp, aux, grads
 
 
@@ -428,14 +431,17 @@ def build_train_step_fn(cfg: ModelConfig, mech: Mechanism, opt: Optimizer, lr_fn
     meta_tree = model_lib.param_meta(cfg, tp=ctx.tp)
 
     def train_step(params, opt_state, step, batch, seeds):
-        total, aux, grads = _loss_and_grads(params, cfg, ctx, batch, remat, compute_dtype)
-        grads = meta_lib.sync_grads(grads, meta_tree, ctx)  # TP corrections
-        ghat = encode_aggregate_decode(grads, meta_tree, mech, ctx, seeds, packed=packed,
-                                       agg_dtype=agg_dtype)
-        ghat = map_leaves(lambda i, _: ghat[i], params)
-        params, opt_state = opt.update(ghat, opt_state, params, lr_fn(step))
-        del ghat
-        return params, opt_state, _metrics(ctx, total, aux)
+        with span("train_step", step=step):
+            total, aux, grads = _loss_and_grads(params, cfg, ctx, batch, remat, compute_dtype)
+            grads = meta_lib.sync_grads(grads, meta_tree, ctx)  # TP corrections
+            with span("train_step.encode", leaves=len(grads)):
+                ghat = encode_aggregate_decode(grads, meta_tree, mech, ctx, seeds,
+                                               packed=packed, agg_dtype=agg_dtype)
+            ghat = map_leaves(lambda i, _: ghat[i], params)
+            with span("train_step.update"):
+                params, opt_state = opt.update(ghat, opt_state, params, lr_fn(step))
+            del ghat
+            return params, opt_state, _metrics(ctx, total, aux)
 
     return train_step
 

@@ -50,6 +50,7 @@ from repro_torch.fed.engine import Engine, register_engine
 from repro_torch.kernels import _build
 from repro_torch.launch.mesh import shard_group
 from repro_torch.optim.optimizers import clone_state, copy_state_
+from repro_torch.telemetry.timing import span
 
 
 class _RoundEngine(Engine):
@@ -149,28 +150,40 @@ class ScanEngine(_RoundEngine):
             self.flat = torch.empty_like(tr.flat)
             self.opt = clone_state(tr.opt_state)
             self.t = torch.zeros(1, dtype=torch.int64, device=tr.device)
-        self.flat.copy_(tr.flat)
-        copy_state_(self.opt, tr.opt_state)
-        self.t.zero_()
         if cuda and self.graph is None:
             # before the block's draws, so that a capture that fails leaves
-            # the generator where it was
+            # the generator where it was; its warm-up rounds run on copies
+            # of the block's starting state
+            self._copy_state_in()
             self.graph = RoundGraph(self)
-        draws = cohort.draw_block(tr.cfg, tr.slate, tr.generator, length)
-        ns = cohort.realized_counts(tr.cfg, tr.slate, draws)
-        # the block's one host->device copy, asynchronous from pinned memory
-        self.draws[:length].copy_(draws.pin_memory() if cuda else draws, non_blocking=cuda)
-        if cuda:
-            for _ in range(length):
-                self.graph.replay()
-        else:
-            for _ in range(length):
-                self.step(self.flat, self.opt, self.t)
-        tr.flat = self.flat.clone()
-        tr.opt_state = clone_state(self.opt)
-        # the block's one read of its sums
-        self._finish(list(self.sums[:length].to("cpu", copy=True)) if self.sums is not None
-                     else [None] * length, ns)
+        at = {"first": tr.accountant.rounds, "rounds": length}
+        with span("round_block.draw", **at):
+            draws = cohort.draw_block(tr.cfg, tr.slate, tr.generator, length)
+            ns = cohort.realized_counts(tr.cfg, tr.slate, draws)
+        with span("round_block.copy_in", **at):
+            self._copy_state_in()
+            # the block's one host->device copy, asynchronous from pinned memory
+            self.draws[:length].copy_(draws.pin_memory() if cuda else draws, non_blocking=cuda)
+        with span("round_block.replay", **at):
+            if cuda:
+                for _ in range(length):
+                    self.graph.replay()
+            else:
+                for _ in range(length):
+                    self.step(self.flat, self.opt, self.t)
+        with span("round_block.finish", **at, realized=sum(ns)):
+            tr.flat = self.flat.clone()
+            tr.opt_state = clone_state(self.opt)
+            # the block's one read of its sums
+            self._finish(list(self.sums[:length].to("cpu", copy=True)) if self.sums is not None
+                         else [None] * length, ns)
+
+    def _copy_state_in(self) -> None:
+        """The trainer's parameters and optimizer state into the static
+        buffers, and the round index to 0."""
+        self.flat.copy_(self.tr.flat)
+        copy_state_(self.opt, self.tr.opt_state)
+        self.t.zero_()
 
     def round_at(self, flat: torch.Tensor, opt, t: torch.Tensor) -> torch.Tensor:
         """Round ``t`` of the block on the parameters ``flat`` and the
@@ -227,6 +240,10 @@ class RoundGraph:
     WARMUP_ROUNDS = 2
 
     def __init__(self, engine: ScanEngine):
+        with span("graph_capture"):
+            self._capture(engine)
+
+    def _capture(self, engine: ScanEngine) -> None:
         device = engine.tr.device
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))

@@ -121,27 +121,33 @@ def library_path(name: str) -> Path:
 def build(names=tuple(SOURCES)) -> dict:
     """Compile every library of ``names`` that is not built yet, all in
     parallel. Returns ``{name: nvcc output}`` (ptxas register and spill
-    report) for the ones it compiled; raises with nvcc's output on failure."""
+    report) for the ones it compiled; raises with nvcc's output on failure.
+    A call that starts nvcc is one ``kernels.build`` span."""
+    # here, not at the top: the telemetry package imports the kernels
+    from repro_torch.telemetry.timing import span
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
-    for name in names:
-        path = library_path(name)
-        if path.exists():
-            continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, path)
-    logs, failed = {}, []
-    for name, (proc, tmp, path) in started.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            failed.append(f"nvcc failed on {SOURCES[name]}:\n{out}")
-            continue
-        os.replace(tmp, path)
-        logs[name] = out
+    todo = [name for name in names if not library_path(name).exists()]
+    if not todo:
+        return {}
+    with span("kernels.build", libs=len(todo)):
+        started = {}
+        for name in todo:
+            path = library_path(name)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / SOURCES[name])]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            started[name] = (proc, tmp, path)
+        logs, failed = {}, []
+        for name, (proc, tmp, path) in started.items():
+            out, _ = proc.communicate()
+            if proc.returncode:
+                failed.append(f"nvcc failed on {SOURCES[name]}:\n{out}")
+                continue
+            os.replace(tmp, path)
+            logs[name] = out
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

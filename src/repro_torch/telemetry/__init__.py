@@ -8,7 +8,11 @@ the port's federated runs, with the reference's exports and schema.
   * ``emit``    — ``RoundEmitter``, the decode-apply-boundary hook:
     accounted rounds -> records whose eps_spent / realized_n series equal
     the accountant's, bit for bit.
-  * ``timing``  — wall-clock ``Timings`` scopes (stage / round_block).
+  * ``timing``  — wall-clock ``Timings`` scopes (stage / round_block)
+    and the span log (``timing.span``, ``spans``, ``clear_spans``; not
+    exported here, so that the package's names stay the reference's):
+    named host intervals with their parents, on the profiler's clock
+    while one records.
 
 Every ``FedTrainer`` emits through it (``FedConfig.track`` or the
 ``tracker=`` argument).

@@ -32,6 +32,7 @@ from repro_torch.core import wire
 from repro_torch.core.renyi import RenyiAccountant
 from repro_torch.fed.config import FedConfig
 from repro_torch.fed.trainer import FedTrainer
+from repro_torch.telemetry import timing
 from repro_torch.telemetry import (
     CSV_COLUMNS,
     ROUND_FIELDS,
@@ -288,3 +289,106 @@ def test_noop_is_the_default_and_emits_nothing():
     assert tr.timings.summary()["round_block"]["count"] == 1
     cfg_tracked = _trainer("perround", spec="none:c=0.05", track="noop")
     assert isinstance(cfg_tracked.tracker, NoopTracker)
+
+
+# ---------------------------------------------------------------------------
+# the span log (telemetry/timing.py)
+# ---------------------------------------------------------------------------
+
+
+def test_nested_spans_record_their_parents_and_attributes():
+    timing.clear_spans()
+    with timing.span("outer", first=3, rounds=2):
+        with timing.span("inner.a", leaves=7):
+            pass
+        with timing.span("inner.b"):
+            with timing.span("innermost"):
+                pass
+    log = timing.spans()
+    assert [s.name for s in log] == ["outer", "inner.a", "inner.b", "innermost"]
+    outer, a, b, c = log
+    assert outer.parent is None and a.parent == b.parent == outer.index
+    assert c.parent == b.index
+    assert outer.attrs == {"first": 3, "rounds": 2} and a.attrs == {"leaves": 7}
+    assert b.attrs == c.attrs == {}
+    assert outer.start_ns <= a.start_ns <= a.end_ns <= b.start_ns <= c.start_ns
+    assert c.end_ns <= b.end_ns <= outer.end_ns
+    timing.clear_spans()
+    assert timing.spans() == []
+
+
+def test_a_span_is_recorded_when_its_body_raises():
+    timing.clear_spans()
+    with pytest.raises(ValueError):
+        with timing.span("outer"):
+            with timing.span("inner"):
+                raise ValueError("the body's")
+    outer, inner = timing.spans()
+    assert (outer.name, outer.parent, inner.name, inner.parent) == (
+        "outer", None, "inner", outer.index)
+    with timing.span("after"):
+        pass
+    assert timing.spans()[-1].parent is None
+
+
+def test_the_log_drops_its_oldest_spans_beyond_its_bound():
+    timing.clear_spans()
+    extra = 10
+    for i in range(timing.SPAN_LOG_SIZE + extra):
+        with timing.span("s", i=i):
+            pass
+    log = timing.spans()
+    assert len(log) == timing.SPAN_LOG_SIZE
+    assert [s.attrs["i"] for s in log] == list(range(extra, timing.SPAN_LOG_SIZE + extra))
+    timing.clear_spans()
+
+
+def test_record_function_is_entered_only_while_a_profiler_records(monkeypatch):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    entered = []
+    real = torch.profiler.record_function
+
+    def record_function(name, *args):
+        entered.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    names = ["spans.outer", "spans.inner"]
+
+    def nested():
+        with timing.span(names[0]):
+            with timing.span(names[1]):
+                torch.ones(4).sum()
+
+    nested()
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        nested()
+    assert entered == names
+    assert set(names) <= {e.name for e in prof.events()}
+    nested()
+    assert entered == names
+
+
+def test_timings_summary_is_unchanged_and_its_scopes_are_spans():
+    """The same scopes give the reference's summary shape, counts and
+    names; each scope is one span of its name in the log."""
+    from repro.telemetry.timing import Timings as JaxTimings
+    from repro_torch.telemetry import Timings
+
+    timing.clear_spans()
+    port, ref = Timings(), JaxTimings()
+    for t in (port, ref):
+        for name in ("stage", "round_block", "round_block"):
+            with t.scope(name):
+                pass
+    got, want = port.summary(), ref.summary()
+    assert list(got) == list(want) == ["stage", "round_block"]
+    for name in got:
+        assert set(got[name]) == set(want[name]) == {"seconds", "count"}
+        assert got[name]["count"] == want[name]["count"]
+        assert got[name]["seconds"] == round(got[name]["seconds"], 6) >= 0
+    assert [s.name for s in timing.spans()] == ["stage", "round_block", "round_block"]
+    assert not hasattr(port, "add")
